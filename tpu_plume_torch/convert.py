@@ -1,0 +1,61 @@
+"""Parameters between the flax ``ActorCritic`` layout and the port's module.
+
+Works on plain numpy arrays, so neither side needs the other's framework:
+flax ``{"params": {"Dense_0": {"kernel", "bias"}, "LayerNorm_0": {"scale",
+"bias"}, ...}}`` against the torch state_dict names of
+``tpu_plume_torch.models.ActorCritic``.  Dense kernels are [in, out] in flax
+and [out, in] in torch, so they are transposed; LayerNorm ``scale`` is
+torch's ``weight``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _mapping(num_hidden: int):
+    """(torch prefix, flax module, is_layernorm) for a trunk of
+    ``num_hidden`` Dense+LayerNorm+ReLU layers."""
+    out = []
+    for i in range(num_hidden):
+        out.append((f"feature.{3 * i}", f"Dense_{i}", False))
+        out.append((f"feature.{3 * i + 1}", f"LayerNorm_{i}", True))
+    out.append(("actor", f"Dense_{num_hidden}", False))
+    out.append(("critic", f"Dense_{num_hidden + 1}", False))
+    return out
+
+
+def actor_critic_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """flax param tree (numpy leaves) -> a state_dict for ``ActorCritic``."""
+    p = params["params"] if "params" in params else params
+    num_hidden = sum(1 for k in p if k.startswith("LayerNorm_"))
+    sd = {}
+    for torch_name, flax_name, is_ln in _mapping(num_hidden):
+        mod = p[flax_name]
+        w = np.asarray(mod["scale"] if is_ln else mod["kernel"], np.float32)
+        sd[f"{torch_name}.weight"] = torch.from_numpy(
+            np.array(w if is_ln else w.T, np.float32, order="C"))
+        sd[f"{torch_name}.bias"] = torch.from_numpy(
+            np.array(mod["bias"], np.float32))
+    return sd
+
+
+def actor_critic_to_flax(state_dict: dict) -> dict:
+    """``ActorCritic`` state_dict -> flax param tree with numpy leaves."""
+    def arr(t):
+        if isinstance(t, torch.Tensor):
+            t = t.detach().cpu().numpy()
+        return np.asarray(t, np.float32)
+
+    num_hidden = sum(1 for k in state_dict
+                     if k.startswith("feature.") and k.endswith(".weight")) // 2
+    p = {}
+    for torch_name, flax_name, is_ln in _mapping(num_hidden):
+        w = arr(state_dict[f"{torch_name}.weight"])
+        b = arr(state_dict[f"{torch_name}.bias"]).copy()
+        if is_ln:
+            p[flax_name] = {"scale": w.copy(), "bias": b}
+        else:
+            p[flax_name] = {"kernel": np.ascontiguousarray(w.T), "bias": b}
+    return {"params": p}
