@@ -6,18 +6,28 @@ Needs one CUDA card and ``nvcc``; exits non-zero without them, and when run
 outside a checkout of the repository.  Phases, each of which must pass:
 
 1. the card's name and power limit, torch and CUDA versions;
-2. the build of every CUDA kernel of the main path from ``tpu_plume_torch/csrc``;
-3. each kernel against its plain PyTorch version on the same inputs, at the
-   main path's shape and a large one, with the tolerance the CPU tests use;
+2. the build of every CUDA kernel of the main path from
+   ``tpu_plume_torch/csrc``, one ``nvcc`` per source, all started together;
+3. each kernel against its plain PyTorch version on the same inputs, with
+   the tolerance the CPU tests use: the plume sample at the main path's
+   shape and a large one; the fused PPO gradients in f32 and bf16 compute,
+   at obs widths 6 and 12, hidden widths (256, 128) and (64, 32) and
+   minibatches of 65536 and 512 rows, with two calls giving bit-equal
+   gradients, and in f32 also against autodiff of ``ppo_loss``;
 4. each kernel's time, its plain version's and the least time the card
-   could take for the same bytes and operations;
+   could take for the same bytes and operations; for the fused PPO kernel
+   also autodiff's forward and backward of ``ppo_loss`` on the same
+   minibatch;
 5. one train iteration at a small size on the card against the same
    iteration on the CPU (the CPU path is the one the tests hold to the JAX
-   package);
+   package): f32, ``fused_update``, ``bf16_compute``, and both;
 6. the main path at full width: the ppo_v2_0 train step with 4096 envs x
-   128 steps and the 6->256->128 network, one warm-up and three timed
-   iterations, with the kernel launch counts read around the timed ones;
-7. the ``train`` CLI for two iterations at the same width.
+   128 steps and the 6->256->128 network in three variants (f32 autodiff,
+   ``fused_update``, ``bf16_compute``), each with one warm-up and three
+   timed iterations, the kernel launch counts read around the timed ones,
+   and one more iteration under the profiler;
+7. the ``train`` CLI for two iterations at the same width, in f32 and with
+   ``--bf16``.
 
 Then it prints the ``kernels`` JSON line, the card's name and power limit,
 and, last, the result line ``{"ok": true, "device": {...}}``.
@@ -25,6 +35,7 @@ and, last, the result line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import io
@@ -38,10 +49,11 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and float32
-# operations/s outside the tensor cores.
+# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32
+# operations/s outside the tensor cores, and dense bf16 operations/s in them.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12
 # Operations of one plume query, counting each transcendental as one: about
 # 12 for the Gaussian base, 69 integer operations for three two-round cell
 # hashes, 9 to turn three hashes into uniforms, 8 for Box-Muller, 6 for the
@@ -50,6 +62,13 @@ PLUME_OPS_PER_QUERY = 113
 MAIN_N = 4096
 LARGE_N = 1 << 20
 RTOL, ATOL = 1e-5, 1e-4
+# Fused PPO gradients: the tolerances of tests/test_fused_update.py.
+GRAD_ATOL_PER_MAX = 2e-5
+METRIC_RTOL, METRIC_ATOL = 2e-5, 2e-6
+# The main path's minibatch, obs width, hidden widths and actions.
+MAIN_MB, MAIN_D, MAIN_HIDDEN, MAIN_A = 65536, 6, (256, 128), 5
+# LayerNorm, ReLU and their backward: operations per hidden unit and row.
+PPO_ELEMENTWISE_OPS = 22
 
 
 def log(*parts):
@@ -155,6 +174,140 @@ def kernel_device_ms(fn, kernel_name: str, reps: int = 100):
     return None
 
 
+def ppo_batch(PPOBatch, b: int, d: int, seed: int):
+    """A minibatch on the card drawn from ``seed``, as the tests draw it."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return PPOBatch(
+        obs=torch.randn(b, d, device="cuda", generator=g),
+        actions=torch.randint(0, MAIN_A, (b,), device="cuda", generator=g),
+        old_log_probs=-1.6 + 0.2 * torch.randn(b, device="cuda", generator=g),
+        advantages=torch.randn(b, device="cuda", generator=g),
+        returns=torch.randn(b, device="cuda", generator=g),
+        old_values=torch.randn(b, device="cuda", generator=g))
+
+
+def ppo_bound(b: int, d: int, h1: int, h2: int, a: int, bf16: bool):
+    """(ms, "bytes" or "operations") the card needs at least for the fused
+    gradients of ``b`` rows: each product's multiply-adds (2 operations),
+    forward and backward, plus ``PPO_ELEMENTWISE_OPS`` per hidden unit and
+    row; under bf16 compute the four forward products count at the bf16
+    tensor-core rate, the rest at the f32 rate.  Bytes: the batch read once
+    (obs, i64 actions, four f32 columns), the params read and their
+    gradients written once."""
+    fwd = 2 * (d * h1 + h1 * h2 + h2 * (a + 1))
+    bwd = (2 * 2 * h2 * (a + 1) + 2 * 2 * h1 * h2 + 2 * d * h1
+           + PPO_ELEMENTWISE_OPS * (h1 + h2))
+    ops_s = b * (fwd / (BF16_TENSOR_OPS_PER_S if bf16 else F32_OPS_PER_S)
+                 + bwd / F32_OPS_PER_S)
+    params = d * h1 + 3 * h1 + h1 * h2 + 3 * h2 + (a + 1) * h2 + a + 1
+    bytes_s = (b * (4 * d + 8 + 16) + 2 * 4 * params) / HBM_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, ("bytes" if bytes_s >= ops_s
+                                       else "operations")
+
+
+def check_ppo_kernel(ActorCritic, PPOConfig, PPOBatch, fused_ops,
+                     ppo_loss) -> float:
+    """The fused kernel against its plain version (and, in f32, autodiff of
+    ppo_loss) over the covered shapes; two calls bit-equal.  Returns the
+    largest absolute gradient error against the plain version."""
+    import torch
+
+    def compare(grads, metrics, want, want_m, label):
+        worst_rel = worst_abs = 0.0
+        for name, g in grads.items():
+            scale = max(float(want[name].abs().max()), 1e-8)
+            err = float((g - want[name]).abs().max())
+            assert err <= GRAD_ATOL_PER_MAX * scale, (label, name, err, scale)
+            worst_rel, worst_abs = max(worst_rel, err / scale), max(worst_abs,
+                                                                    err)
+        for k, v in metrics.items():
+            torch.testing.assert_close(v, want_m[k], rtol=METRIC_RTOL,
+                                       atol=METRIC_ATOL, msg=f"{label} {k}")
+        return worst_rel, worst_abs
+
+    worst = 0.0
+    for bf16 in (False, True):
+        for d in (MAIN_D, 12):
+            for hidden in (MAIN_HIDDEN, (64, 32)):
+                for b in (MAIN_MB, 512):
+                    model = ActorCritic(d, MAIN_A, hidden).reset_parameters(
+                        torch.Generator().manual_seed(b + d)).cuda()
+                    batch = ppo_batch(PPOBatch, b, d, seed=d + hidden[1])
+                    cfg = PPOConfig(minibatch_size=b, bf16_compute=bf16)
+                    grads, metrics = fused_ops.fused_ppo_grads_cuda(
+                        model, batch, cfg)
+                    again, _ = fused_ops.fused_ppo_grads_cuda(model, batch,
+                                                              cfg)
+                    torch.cuda.synchronize()
+                    for name, g in grads.items():
+                        assert torch.equal(g, again[name]), (
+                            "repeat call differs", name)
+                    label = (f"B={b} D={d} {hidden} "
+                             f"{'bf16' if bf16 else 'f32'}")
+                    want, want_m = fused_ops.fused_ppo_grads_plain(
+                        model, batch, cfg)
+                    rel, err = compare(grads, metrics, want, want_m, label)
+                    worst = max(worst, err)
+                    line = (f"parity ppo_fused {label}: vs plain worst "
+                            f"|err|/max|grad| {rel:.3e} (max_abs_err "
+                            f"{err:.3e}), repeat bit-equal")
+                    if not bf16:
+                        model.zero_grad(set_to_none=True)
+                        loss, auto_m = ppo_loss(model, batch, cfg)
+                        loss.backward()
+                        auto = {n: p.grad for n, p in
+                                model.named_parameters()}
+                        rel, _ = compare(grads, metrics, auto, auto_m,
+                                         label + " autodiff")
+                        line += f"; vs autodiff {rel:.3e}"
+                    log(line)
+    return worst
+
+
+def time_ppo_kernel(ActorCritic, PPOConfig, PPOBatch, fused_ops,
+                    ppo_loss) -> dict:
+    """The fused kernel's times at the main path's minibatch, f32 and bf16,
+    beside its plain version's, autodiff's forward and backward of ppo_loss
+    on the same minibatch, and the bound."""
+    import torch
+
+    model = ActorCritic(MAIN_D, MAIN_A, MAIN_HIDDEN).reset_parameters(
+        torch.Generator().manual_seed(11)).cuda()
+    batch = ppo_batch(PPOBatch, MAIN_MB, MAIN_D, seed=11)
+    out = {}
+    for bf16 in (False, True):
+        cfg = PPOConfig(minibatch_size=MAIN_MB, bf16_compute=bf16)
+
+        def kernel():
+            fused_ops.fused_ppo_grads_cuda(model, batch, cfg)
+
+        net = model.twin(torch.bfloat16) if bf16 else model
+
+        def autodiff():
+            net.zero_grad(set_to_none=True)
+            ppo_loss(net, batch, cfg)[0].backward()
+
+        ms = cuda_ms(kernel, 50)
+        plain_ms = cuda_ms(
+            lambda: fused_ops.fused_ppo_grads_plain(model, batch, cfg), 5)
+        autodiff_ms = cuda_ms(autodiff, 20)
+        device_ms = kernel_device_ms(kernel, "ppo_fused_kernel", reps=20)
+        reduce_ms = kernel_device_ms(kernel, "ppo_reduce_kernel", reps=20)
+        bound_ms, bound_by = ppo_bound(MAIN_MB, MAIN_D, *MAIN_HIDDEN, MAIN_A,
+                                       bf16)
+        key = "bf16" if bf16 else "f32"
+        out[key] = dict(ms=ms, plain_ms=plain_ms, autodiff_ms=autodiff_ms,
+                        device_ms=device_ms, reduce_device_ms=reduce_ms,
+                        bound_ms=bound_ms, bound_by=bound_by)
+        log(f"time ppo_fused {key} B={MAIN_MB}: per call {ms:.4f} ms, on the "
+            f"device {device_ms} ms + reduction {reduce_ms} ms, plain "
+            f"{plain_ms:.4f} ms, autodiff fwd+bwd {autodiff_ms:.4f} ms, "
+            f"bound {bound_ms:.6f} ms ({bound_by})")
+    return out
+
+
 def profile_iteration(step, loop):
     """Device kernel time, kernel count and busy share of one main-path
     iteration, from torch.profiler."""
@@ -203,16 +356,16 @@ def to_device(obj, device):
 
 
 def check_small_iteration_against_cpu(get_preset, RolloutConfig, ttrain,
-                                      draw_chunk):
+                                      draw_chunk, fused_ops, **ppo):
     """One small train iteration on the card and on the CPU from the same
-    start, draws and shuffles."""
+    start, draws and shuffles, with the PPO config fields ``ppo`` set."""
     import torch
 
     cfg = get_preset("ppo_v2_0")
+    ppo.setdefault("minibatch_size", 32)
     cfg = cfg.replace(
         env=dataclasses.replace(cfg.env, max_steps=6, initial_radius=200.0),
-        ppo=dataclasses.replace(cfg.ppo, hidden_sizes=(64, 32),
-                                minibatch_size=32),
+        ppo=dataclasses.replace(cfg.ppo, hidden_sizes=(64, 32), **ppo),
         curriculum=dataclasses.replace(cfg.curriculum, initial_radius=200.0,
                                        window_size=4),
         rollout=RolloutConfig(num_envs=16, unroll_length=8))
@@ -233,9 +386,15 @@ def check_small_iteration_against_cpu(get_preset, RolloutConfig, ttrain,
         gpu, rollout=dataclasses.replace(
             gpu.rollout, generator=torch.Generator(device="cuda")))
     _, cstats, ctraj = step(cpu, draws=draws, shuffles=shuffles)
+    before = fused_ops.launches
     _, gstats, gtraj = step(gpu, draws=to_device(draws, "cuda"),
                             shuffles=shuffles)
     torch.cuda.synchronize()
+    fused = fused_ops.launches - before
+    rows = cfg.rollout.num_envs * cfg.rollout.unroll_length
+    want = (cfg.ppo.epochs * rows // cfg.ppo.minibatch_size
+            if cfg.ppo.fused_update else 0)
+    assert fused == want, f"ppo_fused launches {fused} != {want}"
     assert torch.equal(gtraj.action.cpu(), ctraj.action), "actions differ"
     assert torch.equal(gtraj.done.cpu(), ctraj.done), "dones differ"
     torch.testing.assert_close(gtraj.reward.cpu(), ctraj.reward, rtol=RTOL,
@@ -243,29 +402,36 @@ def check_small_iteration_against_cpu(get_preset, RolloutConfig, ttrain,
     for k in ("loss/total", "loss/value", "loss/entropy"):
         assert math.isclose(float(gstats[k]), float(cstats[k]), rel_tol=1e-4,
                             abs_tol=1e-5), (k, gstats[k], cstats[k])
-    log(f"small iteration, card vs CPU: actions and dones equal, "
-        f"{int(ctraj.done.sum())} episodes ended, loss/total "
-        f"{float(gstats['loss/total']):.6f} vs {float(cstats['loss/total']):.6f}")
+    log(f"small iteration {ppo}, card vs CPU: actions and dones equal, "
+        f"{int(ctraj.done.sum())} episodes ended, {fused} ppo_fused launches, "
+        f"loss/total {float(gstats['loss/total']):.6f} vs "
+        f"{float(cstats['loss/total']):.6f}")
 
 
-def run_main_path(get_preset, ttrain, plume):
-    """The full-width train step: warm-up, then three timed iterations with
-    the launch counts read around them."""
+def run_main_path(get_preset, ttrain, plume, fused_ops, label,
+                  profile=True, **ppo):
+    """The full-width train step with the PPO config fields ``ppo`` set:
+    warm-up, then three timed iterations with the launch counts set to 0
+    just before them and read just after, then, with ``profile``, one
+    profiled iteration.  Returns the counts, env-steps/s and phase ms."""
     import torch
 
     cfg = get_preset("ppo_v2_0")
-    cfg = cfg.replace(ppo=dataclasses.replace(cfg.ppo, minibatch_size=65536))
+    cfg = cfg.replace(ppo=dataclasses.replace(cfg.ppo, minibatch_size=MAIN_MB,
+                                              **ppo))
     n, t = cfg.rollout.num_envs, cfg.rollout.unroll_length
     loop = ttrain.init_loop(cfg, "cuda")
     step = ttrain.build_train_step(cfg, time_phases=True)
     t0 = time.perf_counter()
     loop, stats, _ = step(loop)
     torch.cuda.synchronize()
-    log(f"main path warm-up iteration: {time.perf_counter() - t0:.3f} s")
+    log(f"main path {label} warm-up iteration: "
+        f"{time.perf_counter() - t0:.3f} s")
 
     iters = 3
     phases = {"rollout": 0.0, "gae": 0.0, "update": 0.0}
     plume.launches = 0
+    fused_ops.launches = fused_ops.reduce_launches = 0
     t0 = time.perf_counter()
     for _ in range(iters):
         loop, stats, traj = step(loop)
@@ -277,31 +443,40 @@ def run_main_path(get_preset, ttrain, plume):
         assert torch.isfinite(traj.obs).all() and torch.isfinite(traj.reward).all()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = plume.launches
-    expected = iters * 2 * t
-    assert launches == expected, f"plume launches {launches} != {expected}"
+    counts = {"plume_sample": plume.launches, "ppo_fused": fused_ops.launches,
+              "ppo_reduce": fused_ops.reduce_launches}
+    want = iters * 2 * t
+    assert counts["plume_sample"] == want, (label, counts, want)
+    steps = cfg.ppo.epochs * (n * t // cfg.ppo.minibatch_size)
+    want = iters * steps if cfg.ppo.fused_update else 0
+    assert counts["ppo_fused"] == counts["ppo_reduce"] == want, (
+        label, counts, want)
     sps = iters * n * t / wall
-    log(f"main path ppo_v2_0 {n} envs x {t} steps, minibatch "
+    log(f"main path {label}: ppo_v2_0 {n} envs x {t} steps, minibatch "
         f"{cfg.ppo.minibatch_size}, {cfg.ppo.epochs} epochs: {iters} "
         f"iterations in {wall:.3f} s = {sps:.1f} env-steps/s")
-    log("main path ms per iteration: " + ", ".join(
+    log(f"main path {label} ms per iteration: " + ", ".join(
         f"{k} {v / iters:.2f}" for k, v in phases.items())
         + f", whole {wall / iters * 1e3:.2f}")
-    log(f"main path last iteration: loss/total {float(stats['loss/total']):.5f}"
-        f", episodes {stats['rollout/episodes']}, radius "
-        f"{stats['curriculum/radius']:.2f}; plume_sample launches {launches}")
-    profile_iteration(step, loop)
-    return {"plume_sample": launches}
+    log(f"main path {label} last iteration: loss/total "
+        f"{float(stats['loss/total']):.5f}, episodes "
+        f"{stats['rollout/episodes']}, radius "
+        f"{stats['curriculum/radius']:.2f}; launches {counts}")
+    if profile:
+        profile_iteration(step, loop)
+    return dict(counts=counts, sps=sps, whole_ms=wall / iters * 1e3,
+                **{k: v / iters for k, v in phases.items()})
 
 
-def run_cli(cli_main, ActorCritic):
+def run_cli(cli_main, ActorCritic, *flags):
     import torch
 
     with tempfile.TemporaryDirectory() as tmp:
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
             cli_main(["train", "--preset", "ppo_v2_0", "--out", tmp,
-                      "--iterations", "2", "--minibatch", "65536"])
+                      "--iterations", "2", "--minibatch", str(MAIN_MB),
+                      *flags])
         res = json.loads(out.getvalue().strip().splitlines()[-1])
         assert res["env_steps"] == 2 * 4096 * 128, res
         with open(os.path.join(tmp, "training_results.csv")) as fh:
@@ -310,12 +485,24 @@ def run_cli(cli_main, ActorCritic):
         ckpt = torch.load(os.path.join(tmp, "checkpoint.pt"),
                           weights_only=False)
         assert ckpt["counters"]["iteration"] == 2
-        model = ActorCritic(6, 5, (256, 128))
+        model = ActorCritic(MAIN_D, MAIN_A, MAIN_HIDDEN)
         model.load_state_dict(torch.load(
             os.path.join(tmp, "model", "ppo_successful_models.pth")))
-        log(f"cli train: 2 iterations, {res['episodes']} episodes in the CSV, "
+        assert all(torch.isfinite(p).all() for p in model.parameters())
+        log(f"cli train {' '.join(flags) or '(f32)'}: 2 iterations, "
+            f"{res['episodes']} episodes in the CSV, "
             f"{res['steps_per_sec']:.1f} env-steps/s after the first; "
             "checkpoint and .pth load")
+
+
+def build_kernels(build, names) -> None:
+    """One nvcc per source, all started together."""
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        for name, _ in zip(names, pool.map(
+                lambda name: build.build(name, verbose=True), names)):
+            log(f"kernel build: {name} done at "
+                f"{time.perf_counter() - t0:.2f} s")
 
 
 def main() -> int:
@@ -327,29 +514,62 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     from tpu_plume_torch.cli.main import main as cli_main
-    from tpu_plume_torch.core.config import RolloutConfig, get_preset
+    from tpu_plume_torch.core.config import PPOConfig, RolloutConfig, get_preset
     from tpu_plume_torch.models import ActorCritic
     from tpu_plume_torch.ops import build, plume
+    from tpu_plume_torch.ops import ppo as fused_ops
+    from tpu_plume_torch.rl.ppo import PPOBatch, ppo_loss
     from tpu_plume_torch.rollout.rollout import draw_chunk
     from tpu_plume_torch.train import ppo_trainer as ttrain
 
+    # Products in full f32 and bf16 products with f32 reductions, as the
+    # parity checks assume.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     card = card_line()
     log(f"card: {card}; {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
 
-    t0 = time.perf_counter()
-    build.build("plume", verbose=True)
-    log(f"kernel build: plume {time.perf_counter() - t0:.2f} s")
+    build_kernels(build, ("plume", "ppo"))
 
     plume_report = check_plume_kernel(get_preset, plume)
-    check_small_iteration_against_cpu(get_preset, RolloutConfig, ttrain,
-                                      draw_chunk)
-    launches = run_main_path(get_preset, ttrain, plume)
+    ppo_args = (ActorCritic, PPOConfig, PPOBatch, fused_ops, ppo_loss)
+    ppo_err = check_ppo_kernel(*ppo_args)
+    ppo_time = time_ppo_kernel(*ppo_args)
+
+    small = (get_preset, RolloutConfig, ttrain, draw_chunk, fused_ops)
+    check_small_iteration_against_cpu(*small)
+    check_small_iteration_against_cpu(*small, fused_update=True,
+                                      minibatch_size=128)
+    check_small_iteration_against_cpu(*small, bf16_compute=True)
+    check_small_iteration_against_cpu(*small, fused_update=True,
+                                      bf16_compute=True, minibatch_size=128)
+
+    # The three variants in turns, A B C C B A, each block on a fresh loop,
+    # so that a drift of the host's speed during the run shows as a
+    # difference between a variant's two blocks.
+    variants = {"f32": {}, "fused_update": dict(fused_update=True),
+                "bf16_compute": dict(bf16_compute=True)}
+    runs = {name: [] for name in variants}
+    for i, name in enumerate(list(variants) + list(reversed(variants))):
+        runs[name].append(run_main_path(
+            get_preset, ttrain, plume, fused_ops, name, profile=i < 3,
+            **variants[name]))
+        torch.cuda.empty_cache()
+    for name, blocks in runs.items():
+        log(f"main path summary {name} (blocks in run order): env-steps/s "
+            + ", ".join(f"{b['sps']:.1f}" for b in blocks) + "; ms "
+            + "; ".join(", ".join(f"{k} {b[k]:.2f}" for k in
+                                  ("rollout", "gae", "update", "whole_ms"))
+                        for b in blocks))
+    launches = runs["f32"][0]["counts"]
+    fused_launches = runs["fused_update"][0]["counts"]
     run_cli(cli_main, ActorCritic)
+    run_cli(cli_main, ActorCritic, "--bf16")
 
     main_t = plume_report["timing"][MAIN_N]
+    ppo_t = ppo_time["f32"]
     kernels = [{
         "name": "plume_sample",
         "route": "cuda",
@@ -363,6 +583,23 @@ def main() -> int:
         "bound_by": main_t["bound_by"],
         "library_ms": None,
         "device_ms": main_t["device_ms"],
+    }, {
+        "name": "ppo_fused",
+        "route": "cuda",
+        "source": "tpu_plume_torch/csrc/ppo.cu",
+        "replaces": "tpu_plume/ops/pallas_ppo.py:60",
+        "launches": fused_launches["ppo_fused"],
+        "max_abs_err": ppo_err,
+        "ms": ppo_t["ms"],
+        "plain_ms": ppo_t["plain_ms"],
+        "bound_ms": ppo_t["bound_ms"],
+        "bound_by": ppo_t["bound_by"],
+        "library_ms": None,
+        "device_ms": ppo_t["device_ms"],
+        "reduce_launches": fused_launches["ppo_reduce"],
+        "reduce_device_ms": ppo_t["reduce_device_ms"],
+        "autodiff_ms": ppo_t["autodiff_ms"],
+        "bf16": ppo_time["bf16"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

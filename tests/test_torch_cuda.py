@@ -6,15 +6,22 @@ PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
 
-The kernel is held to its plain PyTorch version with the tolerance the CPU
-tests give the plume sample (rtol 1e-5, atol 1e-4).
+The plume kernel is held to its plain PyTorch version with the tolerance
+the CPU tests give the plume sample (rtol 1e-5, atol 1e-4).  The fused PPO
+kernel is held to its plain version with the tolerances of
+``tests/test_fused_update.py`` (grads atol 2e-5 x max|grad|, metrics rtol
+2e-5, atol 2e-6), in f32 and under bf16 compute, and two calls give
+bit-equal grads.
 """
 
 import pytest
 import torch
 
-from tpu_plume_torch.core import get_preset
+from tpu_plume_torch.core import PPOConfig, get_preset
+from tpu_plume_torch.models import ActorCritic
 from tpu_plume_torch.ops import plume
+from tpu_plume_torch.ops import ppo as fused_ops
+from tpu_plume_torch.rl.ppo import PPOBatch
 
 pytestmark = pytest.mark.cuda
 
@@ -59,3 +66,52 @@ def test_plume_wrapper_raises_on_bad_cuda_inputs(card):
         plume.sample_plume(pos, source.cpu(), bits, cfg)
     with pytest.raises(ValueError):
         plume.sample_plume(pos.t().contiguous().t(), source, bits, cfg)
+
+
+def _ppo_batch(b, d, seed, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return PPOBatch(
+        obs=torch.randn(b, d, device=device, generator=g),
+        actions=torch.randint(0, 5, (b,), device=device, generator=g),
+        old_log_probs=-1.6 + 0.2 * torch.randn(b, device=device, generator=g),
+        advantages=torch.randn(b, device=device, generator=g),
+        returns=torch.randn(b, device=device, generator=g),
+        old_values=torch.randn(b, device=device, generator=g))
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,d,hidden", [(512, 6, (64, 32)),
+                                        (512, 12, (256, 128)),
+                                        (65536, 6, (256, 128))])
+def test_fused_ppo_kernel_matches_plain(card, b, d, hidden, bf16):
+    model = ActorCritic(d, 5, hidden).reset_parameters(
+        torch.Generator().manual_seed(b + d)).to(card)
+    batch = _ppo_batch(b, d, d, card)
+    cfg = PPOConfig(minibatch_size=b, bf16_compute=bf16)
+    before = fused_ops.launches
+    grads, metrics = fused_ops.fused_ppo_grads(model, batch, cfg)
+    again, _ = fused_ops.fused_ppo_grads(model, batch, cfg)
+    torch.cuda.synchronize()
+    assert fused_ops.launches == before + 2
+    want, want_m = fused_ops.fused_ppo_grads_plain(model, batch, cfg)
+    for name, g in grads.items():
+        assert torch.equal(g, again[name]), name
+        atol = 2e-5 * float(want[name].abs().max().clamp(min=1e-8))
+        torch.testing.assert_close(g, want[name], rtol=0, atol=atol)
+    for k, v in metrics.items():
+        torch.testing.assert_close(v, want_m[k], rtol=2e-5, atol=2e-6)
+
+
+def test_fused_ppo_wrapper_raises_on_bad_cuda_inputs(card):
+    model = ActorCritic(6, 5, (64, 32)).to(card)
+    batch = _ppo_batch(512, 6, 0, card)
+    cfg = PPOConfig(minibatch_size=512)
+    bad = batch.map(lambda x: x)
+    bad.actions = batch.actions.to(torch.int32)
+    with pytest.raises(TypeError):
+        fused_ops.fused_ppo_grads(model, bad, cfg)
+    bad = batch.map(lambda x: x[:500])
+    with pytest.raises(ValueError):
+        fused_ops.fused_ppo_grads(model, bad, cfg)
+    with pytest.raises(ValueError):
+        fused_ops.fused_ppo_grads(model.cpu(), batch, cfg)

@@ -17,8 +17,6 @@ through ``actor_critic_from_flax``).  Tolerances:
   two libraries).
 """
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -261,14 +259,3 @@ def test_curriculum_matches_jax(variant):
     assert ts.num_updates > 0
     assert float(ts.radius) != 50.0
 
-
-def test_update_options_of_later_slices_raise():
-    _, params = _flax()
-    m = _torch(params)
-    _, tb = _batch(32)
-    for flag in ("fused_update", "bf16_compute", "bf16_update", "f32_heads",
-                 "remat"):
-        cfg = dataclasses.replace(PPOConfig(minibatch_size=32), **{flag: True})
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ppo_update(m, ClippedAdam(m.parameters(), 1e-3, 0.5), tb, cfg,
-                       shuffles=[0] * cfg.epochs)

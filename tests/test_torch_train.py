@@ -87,11 +87,15 @@ def _jax_shuffles(key, batch_size, epochs):
             for ek in jax.random.split(key, epochs)]
 
 
-@pytest.fixture(scope="module")
-def one_iteration():
-    """One train iteration of each package from the same start."""
+def run_one_iteration(**ppo):
+    """One train iteration of each package from the same start, with the
+    PPO config fields ``ppo`` set on both: ``(jax_out, port_out,
+    start_params)``, each out ``(loop, stats, traj)``, the start params as
+    a port state_dict."""
     jcfg = _small(j_get_preset("ppo_v2_0"), JRolloutCfg)
     tcfg = _small(t_get_preset("ppo_v2_0"), RolloutConfig)
+    jcfg = jcfg.replace(ppo=dataclasses.replace(jcfg.ppo, **ppo))
+    tcfg = tcfg.replace(ppo=dataclasses.replace(tcfg.ppo, **ppo))
     k_model, k_roll, k_loop = jax.random.split(jax.random.PRNGKey(0), 3)
     ts = jtrain.make_train_state(jcfg, k_model)
     roll = j_init_rollout(k_roll, jcfg.env, N,
@@ -115,7 +119,7 @@ def one_iteration():
     shuffles = _jax_shuffles(k_update, N * T, jcfg.ppo.epochs)
 
     params0 = jax.tree.map(np.asarray, ts.params)
-    model = ActorCritic(6, 5, HIDDEN)
+    model = ttrain.make_policy_model(tcfg)
     model.load_state_dict(actor_critic_from_flax(params0))
     tloop = ttrain.LoopCarry(
         model=model,
@@ -128,7 +132,13 @@ def one_iteration():
     )
     jout = jtrain.build_train_step(jcfg)(jloop)
     tout = ttrain.build_train_step(tcfg)(tloop, draws=draws, shuffles=shuffles)
-    return jout, tout
+    return jout, tout, actor_critic_from_flax(params0)
+
+
+@pytest.fixture(scope="module")
+def one_iteration():
+    """One train iteration of each package from the same start."""
+    return run_one_iteration()[:2]
 
 
 def test_rollout_of_one_iteration_matches_jax(one_iteration):
@@ -220,7 +230,7 @@ def test_cli_train_on_cpu(tmp_path, capsys):
 
 
 def test_cli_refuses_flags_of_later_slices():
-    for flag in (["--bf16"], ["--arch", "lstm"], ["--netcdf"],
+    for flag in (["--train-guide", "fit"], ["--arch", "lstm"], ["--netcdf"],
                  ["--plume-model", "gridded"]):
         with pytest.raises(SystemExit):
             cli_main(["train", "--cpu", *flag])
@@ -243,11 +253,6 @@ UNPORTED = {
     "num_sources": ("env", {"num_sources": 2}),
     "env_3d": ("env", {"env_3d": True}),
     "lstm": ("ppo", {"arch": "lstm"}),
-    "bf16_compute": ("ppo", {"bf16_compute": True}),
-    "bf16_update": ("ppo", {"bf16_update": True}),
-    "f32_heads": ("ppo", {"f32_heads": True}),
-    "remat": ("ppo", {"remat": True}),
-    "fused_update": ("ppo", {"fused_update": True}),
     "distill_oracle": ("ppo", {"distill_oracle": "naive"}),
 }
 

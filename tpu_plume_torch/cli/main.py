@@ -36,6 +36,12 @@ def apply_overrides(cfg, args):
         ppo = dataclasses.replace(ppo, entropy_beta=args.entropy)
     if args.shuffle_mode:
         ppo = dataclasses.replace(ppo, shuffle_mode=args.shuffle_mode)
+    if args.bf16:
+        ppo = dataclasses.replace(ppo, bf16_compute=True)
+    if args.bf16_update:
+        ppo = dataclasses.replace(ppo, bf16_update=True)
+    if args.f32_heads:
+        ppo = dataclasses.replace(ppo, f32_heads=True)
     cfg = cfg.replace(env=env, rollout=rollout, ppo=ppo)
     if args.episodes:
         cfg = cfg.replace(total_episodes=args.episodes)
@@ -88,6 +94,14 @@ def build_parser():
     sp.add_argument("--shuffle-mode", choices=["roll", "permutation", "affine"],
                     help="PPO minibatch shuffle: circular rotation (default), "
                          "full random permutation, or an affine bijection")
+    sp.add_argument("--bf16", action="store_true",
+                    help="bfloat16 compute in the whole policy (params f32)")
+    sp.add_argument("--bf16-update", action="store_true",
+                    help="bfloat16 compute in the PPO update only (f32 "
+                         "rollout and params)")
+    sp.add_argument("--f32-heads", action="store_true",
+                    help="keep the actor/critic heads in f32 under --bf16 or "
+                         "--bf16-update")
     sp.add_argument("--sync-every", type=int,
                     help="iterations per batched drain of episode records to "
                          "the CSV (default 8)")

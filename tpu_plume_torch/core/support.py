@@ -9,7 +9,6 @@ from __future__ import annotations
 
 from tpu_plume_torch.core.config import EnvConfig, PPOConfig
 
-_FUSED = "ROADMAP.md Queue 1, slice 2 (fused PPO update and mixed precision)"
 _BANKS = "ROADMAP.md Queue 1, slice 5 (gridded banks and 3-D flight)"
 _ANALYTIC = "ROADMAP.md Queue 1, slice 6 (anisotropic and multi-source plumes)"
 _RNN = "ROADMAP.md Queue 1, slice 7 (recurrent policy)"
@@ -35,10 +34,6 @@ def check_env(cfg: EnvConfig) -> None:
 def check_ppo(cfg: PPOConfig) -> None:
     if cfg.arch != "mlp":
         _unported(f"arch={cfg.arch!r}", _RNN)
-    for flag in ("fused_update", "bf16_compute", "bf16_update", "f32_heads",
-                 "remat"):
-        if getattr(cfg, flag):
-            _unported(flag, _FUSED)
     if cfg.distill_oracle is not None:
         _unported("distill_oracle", _IMITATION)
 

@@ -5,8 +5,16 @@
 into minibatches after a shuffle: a random circular roll (default), an
 affine index bijection, or a full permutation.  The roll offsets or index
 permutations may be given by the caller, which is how the tests reproduce
-the JAX package's shuffles.  Each minibatch step is autodiff, a global-norm
-clip and Adam (``tpu_plume_torch.train.ppo_trainer.ClippedAdam``).
+the JAX package's shuffles.  Each minibatch step takes the gradients, then
+a global-norm clip and Adam (``tpu_plume_torch.train.ppo_trainer.ClippedAdam``).
+
+The gradients are autodiff of ``ppo_loss``, with the loss forward recomputed
+in the backward under ``cfg.remat`` (``torch.utils.checkpoint``), or, under
+``cfg.fused_update``, the fused kernel's (``tpu_plume_torch.ops.ppo``): it
+takes every minibatch when the batch has no per-sample weights, the model
+is the standard feedforward ActorCritic and the minibatch has a row tile
+(the JAX gate, ``tpu_plume/rl/ppo.py:294-302``).  A batch on the card then
+goes to the CUDA kernel, one on the CPU to the kernel's plain version.
 """
 
 from __future__ import annotations
@@ -16,9 +24,11 @@ from dataclasses import dataclass
 from typing import Sequence
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from tpu_plume_torch.core.config import PPOConfig
 from tpu_plume_torch.core.support import check_ppo
+from tpu_plume_torch.ops import ppo as fused_ops
 
 
 @dataclass
@@ -145,6 +155,10 @@ def ppo_update(model: torch.nn.Module, optimizer, batch: PPOBatch,
     if len(shuffles) != cfg.epochs:
         raise ValueError(f"{len(shuffles)} shuffles for {cfg.epochs} epochs")
 
+    fused = (cfg.fused_update and batch.weights is None
+             and fused_ops.supports(model) and fused_ops.pick_tile(mb) > 0)
+    params = dict(model.named_parameters()) if fused else None
+
     sums: dict[str, torch.Tensor] = {}
     for shuffle in shuffles:
         if isinstance(shuffle, int):
@@ -153,9 +167,18 @@ def ppo_update(model: torch.nn.Module, optimizer, batch: PPOBatch,
             shuffled = batch.map(lambda x: x[shuffle])
         for i in range(num_minibatches):
             part = shuffled.map(lambda x: x[i * mb:(i + 1) * mb])
-            loss, metrics = ppo_loss(model, part, cfg)
-            optimizer.zero_grad(set_to_none=True)
-            loss.backward()
+            if fused:
+                grads, metrics = fused_ops.fused_ppo_grads(model, part, cfg)
+                for name, g in grads.items():
+                    params[name].grad = g
+            else:
+                if cfg.remat:
+                    loss, metrics = checkpoint(ppo_loss, model, part, cfg,
+                                               use_reentrant=False)
+                else:
+                    loss, metrics = ppo_loss(model, part, cfg)
+                optimizer.zero_grad(set_to_none=True)
+                loss.backward()
             optimizer.step()
             for k, v in metrics.items():
                 sums[k] = sums[k] + v if k in sums else v

@@ -85,10 +85,25 @@ class ClippedAdam:
         return self.adam.state_dict()
 
 
-def make_policy_model(cfg: TrainConfig) -> ActorCritic:
+def policy_dtypes(cfg: TrainConfig, dtype: torch.dtype | None = None):
+    """(compute dtype, head dtype) of the policy: ``dtype`` defaults to
+    bf16 under ``bf16_compute``, else f32; ``f32_heads`` keeps the heads in
+    f32 when the compute dtype is bf16 and is a no-op otherwise (head dtype
+    None follows the compute dtype)."""
+    if dtype is None:
+        dtype = torch.bfloat16 if cfg.ppo.bf16_compute else torch.float32
+    head_dtype = (torch.float32 if cfg.ppo.f32_heads
+                  and dtype == torch.bfloat16 else None)
+    return dtype, head_dtype
+
+
+def make_policy_model(cfg: TrainConfig, dtype: torch.dtype | None = None
+                      ) -> ActorCritic:
+    """The policy network; ``dtype`` overrides the compute dtype (params are
+    f32 regardless), as ``policy_dtypes`` sets it."""
     check_ppo(cfg.ppo)
     return ActorCritic(cfg.env.obs_dim, cfg.env.num_actions,
-                       cfg.ppo.hidden_sizes)
+                       cfg.ppo.hidden_sizes, *policy_dtypes(cfg, dtype))
 
 
 def make_train_state(cfg: TrainConfig, device, seed: int):
@@ -130,6 +145,12 @@ def build_train_step(cfg: TrainConfig, time_phases: bool = False):
     check_ppo(cfg.ppo)
     env_cfg, ppo_cfg, cur_cfg = cfg.env, cfg.ppo, cfg.curriculum
     T = cfg.rollout.unroll_length
+    # bf16_update split: the update's loss runs a bf16 twin of the model
+    # over the same f32 params; the rollout stays f32.  Ignored under
+    # bf16_compute, where the whole model is already bf16.
+    update_dtypes = None
+    if ppo_cfg.bf16_update and not ppo_cfg.bf16_compute:
+        update_dtypes = policy_dtypes(cfg, torch.bfloat16)
 
     def train_step(loop: LoopCarry, draws: ChunkDraws | None = None,
                    shuffles=None):
@@ -177,8 +198,11 @@ def build_train_step(cfg: TrainConfig, time_phases: bool = False):
             returns=ret,
             old_values=flat(traj.value),
         )
-        loss_metrics = ppo_update(loop.model, loop.optimizer, batch, ppo_cfg,
-                                  generator=loop.generator, shuffles=shuffles)
+        update_model = (loop.model if update_dtypes is None
+                        else loop.model.twin(*update_dtypes))
+        loss_metrics = ppo_update(update_model, loop.optimizer, batch,
+                                  ppo_cfg, generator=loop.generator,
+                                  shuffles=shuffles)
         mark()
 
         new_episodes = int(traj.done.sum())
