@@ -6,28 +6,39 @@ Needs one CUDA card and ``nvcc``; exits non-zero without them, and when run
 outside a checkout of the repository.  Phases, each of which must pass:
 
 1. the card's name and power limit, torch and CUDA versions;
-2. the build of every CUDA kernel of the main path from
+2. the build of every CUDA kernel of the main paths from
    ``tpu_plume_torch/csrc``, one ``nvcc`` per source, all started together;
 3. each kernel against its plain PyTorch version on the same inputs, with
    the tolerance the CPU tests use: the plume sample at the main path's
    shape and a large one; the fused PPO gradients in f32 and bf16 compute,
    at obs widths 6 and 12, hidden widths (256, 128) and (64, 32) and
    minibatches of 65536 and 512 rows, with two calls giving bit-equal
-   gradients, and in f32 also against autodiff of ``ppo_loss``;
+   gradients, and in f32 also against autodiff of ``ppo_loss``; the
+   bilinear and trilinear gathers at the TPU kernels' own call (one
+   [500, 500] field, one [8, 500, 500] volume) and at a bank's stacks
+   ([64, 500, 500], [32, 8, 500, 500]) at N = 4096 and 2^20, bit-equal or
+   within 1e-6 x max|field|, two calls bit-equal;
 4. each kernel's time, its plain version's and the least time the card
    could take for the same bytes and operations; for the fused PPO kernel
    also autodiff's forward and backward of ``ppo_loss`` on the same
-   minibatch;
+   minibatch; for the gathers also ``grid_sample`` on the same field or
+   volume (checked to agree within 1e-4 x max|field|);
 5. one train iteration at a small size on the card against the same
    iteration on the CPU (the CPU path is the one the tests hold to the JAX
-   package): f32, ``fused_update``, ``bf16_compute``, and both;
-6. the main path at full width: the ppo_v2_0 train step with 4096 envs x
-   128 steps and the 6->256->128 network in three variants (f32 autodiff,
-   ``fused_update``, ``bf16_compute``), each with one warm-up and three
-   timed iterations, the kernel launch counts read around the timed ones,
-   and one more iteration under the profiler;
-7. the ``train`` CLI for two iterations at the same width, in f32 and with
-   ``--bf16``.
+   package): f32, ``fused_update``, ``bf16_compute``, and both; wrf_les_3d
+   over a 64-cell [2, 3, 4, 64, 64] bank; a static [3, 64, 64] bank read
+   between cells;
+6. the main paths at full width, 4096 envs x 128 steps, minibatch 65536,
+   5 epochs, each with one warm-up and timed iterations, the kernel launch
+   counts set to 0 just before the timed iterations and read just after,
+   and one more iteration under the profiler: the ppo_v2_0 train step with
+   the 6->256->128 network in three variants (f32 autodiff,
+   ``fused_update``, ``bf16_compute``); wrf_les_3d (3-D flight through the
+   [4, 8, 8, 500, 500] bank of ``--synth-bank 3d``, the 7->256->128 network;
+   the trilinear kernel); the 64-field static bank of ``--synth-bank
+   static`` read between cells (the bilinear kernel);
+7. the ``train`` CLI for two iterations at the same width: ppo_v2_0 in f32
+   and with ``--bf16``, and ``--preset wrf_les_3d --synth-bank 3d``.
 
 Then it prints the ``kernels`` JSON line, the card's name and power limit,
 and, last, the result line ``{"ok": true, "device": {...}}``.
@@ -46,6 +57,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -69,6 +81,13 @@ METRIC_RTOL, METRIC_ATOL = 2e-5, 2e-6
 MAIN_MB, MAIN_D, MAIN_HIDDEN, MAIN_A = 65536, 6, (256, 128), 5
 # LayerNorm, ReLU and their backward: operations per hidden unit and row.
 PPO_ELEMENTWISE_OPS = 22
+# Gathers: the TPU kernels' own calls and a bank's stacks (the static bank
+# of ``--synth-bank static``, and the [K*T, Z, H, W] view of a [32, ...]
+# 3-D bank); parity within this share of max|field|.
+GATHER_SHAPES = {"bilinear": ((1, 500, 500), (64, 500, 500)),
+                 "trilinear_zyx": ((1, 8, 500, 500), (32, 8, 500, 500))}
+GATHER_ATOL_PER_MAX = 1e-6
+GRID_SAMPLE_ATOL_PER_MAX = 1e-4
 
 
 def log(*parts):
@@ -308,6 +327,124 @@ def time_ppo_kernel(ActorCritic, PPOConfig, PPOBatch, fused_ops,
     return out
 
 
+def gather_inputs(shape, n: int, seed: int):
+    """A stack of ``shape`` on the card with values in [0, 100), a random
+    row per query, and points from 1 beyond each edge of every axis after
+    the first, with exact grid points, the last index (and top level), and
+    points outside the grid on both sides."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    stack = 100.0 * torch.rand(shape, device="cuda", generator=g)
+    rows = torch.randint(0, shape[0], (n,), dtype=torch.int32, device="cuda",
+                         generator=g)
+    dims = torch.tensor(shape[1:], dtype=torch.float32, device="cuda")
+    pts = torch.rand(n, len(shape) - 1, device="cuda", generator=g) * (
+        dims + 2.0) - 1.0
+    pts[:4] = torch.stack([torch.zeros_like(dims), dims - 1, dims + 5.0,
+                           -3.0 * torch.ones_like(dims)])
+    pts[4:64] = torch.floor(pts[4:64])
+    return stack, rows, pts.contiguous()
+
+
+def _gather_fns(gather, name):
+    if name == "bilinear":
+        return gather.bilinear_cuda, gather.bilinear_plain
+    return gather.trilinear_zyx_cuda, gather.trilinear_zyx_plain
+
+
+def check_gather_kernels(gather) -> dict:
+    """Each gather kernel against its plain version at the TPU kernel's own
+    call and at a bank's stack, N = 4096 and 2^20; two calls bit-equal.
+    Returns the worst absolute error of each kernel."""
+    import torch
+
+    worst = {}
+    for name, shapes in GATHER_SHAPES.items():
+        kernel, plain = _gather_fns(gather, name)
+        worst[name] = 0.0
+        for shape in shapes:
+            for n in (MAIN_N, LARGE_N):
+                args = gather_inputs(shape, n, seed=n + len(shape) + shape[0])
+                got = kernel(*args)
+                again = kernel(*args)
+                torch.cuda.synchronize()
+                assert torch.equal(got, again), (name, shape, n, "repeat")
+                want = plain(*args)
+                err = float((got - want).abs().max())
+                scale = float(args[0].abs().max())
+                equal = torch.equal(got, want)
+                log(f"parity {name} {list(shape)} N={n}: max_abs_err "
+                    f"{err:.3e} ({'bit-equal' if equal else 'not bit-equal'}"
+                    f"), repeat bit-equal")
+                assert err <= GATHER_ATOL_PER_MAX * scale, (name, shape, n,
+                                                             err)
+                assert torch.isfinite(got).all()
+                worst[name] = max(worst[name], err)
+    return worst
+
+
+def grid_sample_call(stack, pts):
+    """``torch.nn.functional.grid_sample`` over a stack of one field or
+    volume at ``pts`` (index units, (x, y) or (z, x, y)): the one PyTorch
+    call that computes the gathers' function.  The normalised grid is built
+    here, outside the returned call."""
+    import torch
+
+    fn = torch.nn.functional.grid_sample
+    sizes = stack.shape[1:]
+    # grid_sample orders the grid's last axis innermost first: (y, x[, z]).
+    norm = [pts[:, i] * (2.0 / (sizes[i] - 1)) - 1.0
+            for i in reversed(range(len(sizes)))]
+    grid = torch.stack(norm, -1).view((1,) * len(sizes) + (-1, len(sizes)))
+    inp = stack.view((1,) + tuple(stack.shape))
+
+    def call():
+        return fn(inp, grid, mode="bilinear", padding_mode="border",
+                  align_corners=True).view(-1)
+
+    return call
+
+
+def time_gather_kernels(gather) -> dict:
+    """Each gather kernel's time at N = 4096 and 2^20 over the TPU kernel's
+    own call (and per call over the bank stack), beside its plain version's,
+    ``grid_sample``'s and the bound.  The bound counts each query's point,
+    row and output once, and each cell the corners touch once
+    (``gather.moved_bytes``)."""
+    out = {}
+    for name, (one, stack_shape) in GATHER_SHAPES.items():
+        kernel, plain = _gather_fns(gather, name)
+        kname = "bilinear_kernel" if name == "bilinear" else "trilinear_zyx"
+        out[name] = {}
+        for n, reps in ((MAIN_N, 2000), (LARGE_N, 200)):
+            args = gather_inputs(one, n, seed=n + 3)
+            lib = grid_sample_call(args[0], args[2])
+            lib_err = float((lib() - kernel(*args)).abs().max())
+            assert lib_err <= GRID_SAMPLE_ATOL_PER_MAX * float(
+                args[0].abs().max()), (name, n, lib_err)
+            ms = cuda_ms(lambda: kernel(*args), reps)
+            device_ms = kernel_device_ms(lambda: kernel(*args), kname)
+            plain_ms = cuda_ms(lambda: plain(*args), max(reps // 10, 20))
+            library_ms = cuda_ms(lib, reps)
+            library_device_ms = kernel_device_ms(lib, "grid_sampler")
+            bound_ms = gather.moved_bytes(*args) / HBM_BYTES_PER_S * 1e3
+            big = gather_inputs(stack_shape, n, seed=n + 5)
+            stack_ms = cuda_ms(lambda: kernel(*big), reps)
+            out[name][n] = dict(
+                ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                library_ms=library_ms, library_device_ms=library_device_ms,
+                library_max_abs_err=lib_err, bound_ms=bound_ms,
+                bound_by="bytes", stack_ms=stack_ms)
+            log(f"time {name} {list(one)} N={n}: per call {ms:.5f} ms, on "
+                f"the device {device_ms} ms, plain {plain_ms:.5f} ms, "
+                f"grid_sample {library_ms:.5f} ms (device "
+                f"{library_device_ms} ms, max_abs_err {lib_err:.3e}), bound "
+                f"{bound_ms:.6f} ms (bytes); per call over "
+                f"{list(stack_shape)} {stack_ms:.5f} ms")
+    return out
+
+
 def profile_iteration(step, loop):
     """Device kernel time, kernel count and busy share of one main-path
     iteration, from torch.profiler."""
@@ -337,7 +474,7 @@ def profile_iteration(step, loop):
     for e in top:
         log(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x "
             f"{e.key[:90]}")
-    return loop
+    return loop, device_ms / wall_ms
 
 
 def to_device(obj, device):
@@ -355,24 +492,88 @@ def to_device(obj, device):
     return obj
 
 
-def check_small_iteration_against_cpu(get_preset, RolloutConfig, ttrain,
-                                      draw_chunk, fused_ops, **ppo):
-    """One small train iteration on the card and on the CPU from the same
-    start, draws and shuffles, with the PPO config fields ``ppo`` set."""
+KERNEL_NAMES = ("plume_sample", "ppo_fused", "ppo_reduce", "bilinear",
+                "trilinear_zyx")
+
+
+def zero_counts(k) -> None:
+    """Set every kernel's launch count to 0 (``k`` holds the plume, ppo and
+    gather ops modules)."""
+    k.plume.launches = 0
+    k.fused_ops.launches = k.fused_ops.reduce_launches = 0
+    k.gather.bilinear.launches = k.gather.trilinear_zyx.launches = 0
+
+
+def read_counts(k) -> dict:
+    return dict(zip(KERNEL_NAMES, (
+        k.plume.launches, k.fused_ops.launches, k.fused_ops.reduce_launches,
+        k.gather.bilinear.launches, k.gather.trilinear_zyx.launches)))
+
+
+def expected_counts(cfg, bank, iters: int) -> dict:
+    """Launches of each kernel in ``iters`` train iterations by the port's
+    design: per env step two field samples (the step and the branchless
+    reset); an analytic sample is one plume launch, a sub-cell bank sample
+    one bilinear launch (static bank), one trilinear launch (time-varying
+    2-D bank) or two (3-D bank: frames t0 and t0+1); each minibatch step of
+    the fused update one fused and one reduction launch."""
+    env, ppo = cfg.env, cfg.ppo
+    n, t = cfg.rollout.num_envs, cfg.rollout.unroll_length
+    samples = iters * 2 * t
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    if env.plume_model != "gridded":
+        want["plume_sample"] = samples
+    elif env.subcell_sampling:
+        if bank.conc.dim() == 3:
+            want["bilinear"] = samples
+        else:
+            want["trilinear_zyx"] = samples * (bank.conc.dim() - 3)
+    if ppo.fused_update:
+        want["ppo_fused"] = want["ppo_reduce"] = (
+            iters * ppo.epochs * (n * t // ppo.minibatch_size))
+    return want
+
+
+def small_bank(gridded, kind, env):
+    """The small banks of the card-vs-CPU iterations, on the CPU: a 3-D
+    [2, 3, 4, 64, 64] bank or a static [3, 64, 64] one."""
     import torch
 
-    cfg = get_preset("ppo_v2_0")
+    gen = torch.Generator().manual_seed(0)
+    if kind == "3d":
+        return gridded.synthesize_3d_bank(gen, env, num_fields=2,
+                                          num_frames=3, num_levels=4,
+                                          steps_per_frame=8.0)
+    return gridded.synthesize_bank(gen, env, num_fields=3)
+
+
+def check_small_iteration_against_cpu(get_preset, RolloutConfig, ttrain,
+                                      draw_chunk, k, preset="ppo_v2_0",
+                                      bank_kind=None, env=None, **ppo):
+    """One small train iteration on the card and on the CPU from the same
+    start, draws and shuffles, with the PPO config fields ``ppo`` and the
+    env fields ``env`` set; with ``bank_kind`` on a 64-cell grid over a
+    small bank of that kind."""
+    import torch
+
+    cfg = get_preset(preset)
     ppo.setdefault("minibatch_size", 32)
+    env = dict(max_steps=6, initial_radius=200.0, **(env or {}))
+    radius = 200.0
+    if bank_kind is not None:
+        env.update(grid_size=64, source_padding=10.0, initial_radius=30.0)
+        radius = 30.0
     cfg = cfg.replace(
-        env=dataclasses.replace(cfg.env, max_steps=6, initial_radius=200.0),
+        env=dataclasses.replace(cfg.env, **env),
         ppo=dataclasses.replace(cfg.ppo, hidden_sizes=(64, 32), **ppo),
-        curriculum=dataclasses.replace(cfg.curriculum, initial_radius=200.0,
+        curriculum=dataclasses.replace(cfg.curriculum, initial_radius=radius,
                                        window_size=4),
         rollout=RolloutConfig(num_envs=16, unroll_length=8))
-    cpu = ttrain.init_loop(cfg, "cpu")
+    bank = (None if bank_kind is None
+            else small_bank(k.gridded, bank_kind, cfg.env))
+    cpu = ttrain.init_loop(cfg, "cpu", bank)
     draws = draw_chunk(torch.Generator().manual_seed(1), cfg.env, 8, 16)
     shuffles = [3, 77, 0, 101, 64]
-    step = ttrain.build_train_step(cfg)
 
     model = ttrain.make_policy_model(cfg).cuda()
     model.load_state_dict(cpu.model.state_dict())
@@ -385,96 +586,100 @@ def check_small_iteration_against_cpu(get_preset, RolloutConfig, ttrain,
     gpu = dataclasses.replace(
         gpu, rollout=dataclasses.replace(
             gpu.rollout, generator=torch.Generator(device="cuda")))
-    _, cstats, ctraj = step(cpu, draws=draws, shuffles=shuffles)
-    before = fused_ops.launches
-    _, gstats, gtraj = step(gpu, draws=to_device(draws, "cuda"),
-                            shuffles=shuffles)
+    _, cstats, ctraj = ttrain.build_train_step(cfg, bank)(
+        cpu, draws=draws, shuffles=shuffles)
+    gpu_bank = None if bank is None else bank.to("cuda")
+    gstep = ttrain.build_train_step(cfg, gpu_bank)
+    zero_counts(k)
+    _, gstats, gtraj = gstep(gpu, draws=to_device(draws, "cuda"),
+                             shuffles=shuffles)
     torch.cuda.synchronize()
-    fused = fused_ops.launches - before
-    rows = cfg.rollout.num_envs * cfg.rollout.unroll_length
-    want = (cfg.ppo.epochs * rows // cfg.ppo.minibatch_size
-            if cfg.ppo.fused_update else 0)
-    assert fused == want, f"ppo_fused launches {fused} != {want}"
+    counts = read_counts(k)
+    want = expected_counts(cfg, bank, 1)
+    assert counts == want, f"launches {counts} != {want}"
     assert torch.equal(gtraj.action.cpu(), ctraj.action), "actions differ"
     assert torch.equal(gtraj.done.cpu(), ctraj.done), "dones differ"
     torch.testing.assert_close(gtraj.reward.cpu(), ctraj.reward, rtol=RTOL,
                                atol=ATOL)
-    for k in ("loss/total", "loss/value", "loss/entropy"):
-        assert math.isclose(float(gstats[k]), float(cstats[k]), rel_tol=1e-4,
-                            abs_tol=1e-5), (k, gstats[k], cstats[k])
-    log(f"small iteration {ppo}, card vs CPU: actions and dones equal, "
-        f"{int(ctraj.done.sum())} episodes ended, {fused} ppo_fused launches, "
-        f"loss/total {float(gstats['loss/total']):.6f} vs "
+    torch.testing.assert_close(gtraj.obs.cpu(), ctraj.obs, rtol=RTOL,
+                               atol=ATOL)
+    for key in ("loss/total", "loss/value", "loss/entropy"):
+        assert math.isclose(float(gstats[key]), float(cstats[key]),
+                            rel_tol=1e-4, abs_tol=1e-5), (
+            key, gstats[key], cstats[key])
+    label = {"preset": preset, "bank": bank_kind, **(env or {}), **ppo}
+    log(f"small iteration {label}, card vs CPU: actions and dones equal, "
+        f"{int(ctraj.done.sum())} episodes ended, launches "
+        f"{ {n: c for n, c in counts.items() if c} }, loss/total "
+        f"{float(gstats['loss/total']):.6f} vs "
         f"{float(cstats['loss/total']):.6f}")
 
 
-def run_main_path(get_preset, ttrain, plume, fused_ops, label,
-                  profile=True, **ppo):
-    """The full-width train step with the PPO config fields ``ppo`` set:
-    warm-up, then three timed iterations with the launch counts set to 0
-    just before them and read just after, then, with ``profile``, one
-    profiled iteration.  Returns the counts, env-steps/s and phase ms."""
+def run_main_path(ttrain, k, label, cfg, bank=None, iters=3, profile=True):
+    """The full-width train step of ``cfg`` (over ``bank``, on the card):
+    warm-up, then ``iters`` timed iterations with every launch count set
+    to 0 just before them and read just after, then, with ``profile``, one
+    profiled iteration.  Returns the counts, env-steps/s, phase ms, busy
+    share and peak device memory."""
     import torch
 
-    cfg = get_preset("ppo_v2_0")
-    cfg = cfg.replace(ppo=dataclasses.replace(cfg.ppo, minibatch_size=MAIN_MB,
-                                              **ppo))
     n, t = cfg.rollout.num_envs, cfg.rollout.unroll_length
-    loop = ttrain.init_loop(cfg, "cuda")
-    step = ttrain.build_train_step(cfg, time_phases=True)
+    loop = ttrain.init_loop(cfg, "cuda", bank)
+    step = ttrain.build_train_step(cfg, bank, time_phases=True)
     t0 = time.perf_counter()
     loop, stats, _ = step(loop)
     torch.cuda.synchronize()
     log(f"main path {label} warm-up iteration: "
         f"{time.perf_counter() - t0:.3f} s")
 
-    iters = 3
     phases = {"rollout": 0.0, "gae": 0.0, "update": 0.0}
-    plume.launches = 0
-    fused_ops.launches = fused_ops.reduce_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(k)
     t0 = time.perf_counter()
     for _ in range(iters):
         loop, stats, traj = step(loop)
-        for k in phases:
-            phases[k] += stats[f"time/{k}_ms"]
-        for k in ("loss/total", "loss/policy", "loss/value", "loss/entropy"):
-            assert math.isfinite(float(stats[k])), (k, stats[k])
+        for key in phases:
+            phases[key] += stats[f"time/{key}_ms"]
+        for key in ("loss/total", "loss/policy", "loss/value",
+                    "loss/entropy"):
+            assert math.isfinite(float(stats[key])), (key, stats[key])
         assert traj.obs.shape == (t, n, cfg.env.obs_dim)
         assert torch.isfinite(traj.obs).all() and torch.isfinite(traj.reward).all()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {"plume_sample": plume.launches, "ppo_fused": fused_ops.launches,
-              "ppo_reduce": fused_ops.reduce_launches}
-    want = iters * 2 * t
-    assert counts["plume_sample"] == want, (label, counts, want)
-    steps = cfg.ppo.epochs * (n * t // cfg.ppo.minibatch_size)
-    want = iters * steps if cfg.ppo.fused_update else 0
-    assert counts["ppo_fused"] == counts["ppo_reduce"] == want, (
-        label, counts, want)
+    counts = read_counts(k)
+    want = expected_counts(cfg, bank, iters)
+    assert counts == want, (label, counts, want)
+    max_mem = torch.cuda.max_memory_allocated()
     sps = iters * n * t / wall
-    log(f"main path {label}: ppo_v2_0 {n} envs x {t} steps, minibatch "
+    log(f"main path {label}: {cfg.name} {n} envs x {t} steps, minibatch "
         f"{cfg.ppo.minibatch_size}, {cfg.ppo.epochs} epochs: {iters} "
         f"iterations in {wall:.3f} s = {sps:.1f} env-steps/s")
     log(f"main path {label} ms per iteration: " + ", ".join(
-        f"{k} {v / iters:.2f}" for k, v in phases.items())
-        + f", whole {wall / iters * 1e3:.2f}")
+        f"{key} {v / iters:.2f}" for key, v in phases.items())
+        + f", whole {wall / iters * 1e3:.2f}; max_memory_allocated "
+        f"{max_mem} B")
     log(f"main path {label} last iteration: loss/total "
         f"{float(stats['loss/total']):.5f}, episodes "
         f"{stats['rollout/episodes']}, radius "
-        f"{stats['curriculum/radius']:.2f}; launches {counts}")
+        f"{stats['curriculum/radius']:.2f}; launches over the {iters} timed "
+        f"iterations {counts}, per iteration "
+        f"{ {name: c // iters for name, c in counts.items()} }")
+    busy = None
     if profile:
-        profile_iteration(step, loop)
+        loop, busy = profile_iteration(step, loop)
     return dict(counts=counts, sps=sps, whole_ms=wall / iters * 1e3,
-                **{k: v / iters for k, v in phases.items()})
+                busy=busy, max_memory_allocated=max_mem,
+                **{key: v / iters for key, v in phases.items()})
 
 
-def run_cli(cli_main, ActorCritic, *flags):
+def run_cli(cli_main, ActorCritic, preset, obs_dim, num_actions, *flags):
     import torch
 
     with tempfile.TemporaryDirectory() as tmp:
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
-            cli_main(["train", "--preset", "ppo_v2_0", "--out", tmp,
+            cli_main(["train", "--preset", preset, "--out", tmp,
                       "--iterations", "2", "--minibatch", str(MAIN_MB),
                       *flags])
         res = json.loads(out.getvalue().strip().splitlines()[-1])
@@ -485,12 +690,12 @@ def run_cli(cli_main, ActorCritic, *flags):
         ckpt = torch.load(os.path.join(tmp, "checkpoint.pt"),
                           weights_only=False)
         assert ckpt["counters"]["iteration"] == 2
-        model = ActorCritic(MAIN_D, MAIN_A, MAIN_HIDDEN)
+        model = ActorCritic(obs_dim, num_actions, MAIN_HIDDEN)
         model.load_state_dict(torch.load(
             os.path.join(tmp, "model", "ppo_successful_models.pth")))
         assert all(torch.isfinite(p).all() for p in model.parameters())
-        log(f"cli train {' '.join(flags) or '(f32)'}: 2 iterations, "
-            f"{res['episodes']} episodes in the CSV, "
+        log(f"cli train --preset {preset} {' '.join(flags) or '(f32)'}: 2 "
+            f"iterations, {res['episodes']} episodes in the CSV, "
             f"{res['steps_per_sec']:.1f} env-steps/s after the first; "
             "checkpoint and .pth load")
 
@@ -515,8 +720,9 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from tpu_plume_torch.cli.main import main as cli_main
     from tpu_plume_torch.core.config import PPOConfig, RolloutConfig, get_preset
+    from tpu_plume_torch.fields import gridded
     from tpu_plume_torch.models import ActorCritic
-    from tpu_plume_torch.ops import build, plume
+    from tpu_plume_torch.ops import build, gather, plume
     from tpu_plume_torch.ops import ppo as fused_ops
     from tpu_plume_torch.rl.ppo import PPOBatch, ppo_loss
     from tpu_plume_torch.rollout.rollout import draw_chunk
@@ -531,42 +737,75 @@ def main() -> int:
     log(f"card: {card}; {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
 
-    build_kernels(build, ("plume", "ppo"))
+    build_kernels(build, ("plume", "ppo", "gather"))
 
     plume_report = check_plume_kernel(get_preset, plume)
     ppo_args = (ActorCritic, PPOConfig, PPOBatch, fused_ops, ppo_loss)
     ppo_err = check_ppo_kernel(*ppo_args)
     ppo_time = time_ppo_kernel(*ppo_args)
+    gather_err = check_gather_kernels(gather)
+    gather_time = time_gather_kernels(gather)
 
-    small = (get_preset, RolloutConfig, ttrain, draw_chunk, fused_ops)
+    k = types.SimpleNamespace(plume=plume, fused_ops=fused_ops, gather=gather,
+                              gridded=gridded)
+    small = (get_preset, RolloutConfig, ttrain, draw_chunk, k)
     check_small_iteration_against_cpu(*small)
     check_small_iteration_against_cpu(*small, fused_update=True,
                                       minibatch_size=128)
     check_small_iteration_against_cpu(*small, bf16_compute=True)
     check_small_iteration_against_cpu(*small, fused_update=True,
                                       bf16_compute=True, minibatch_size=128)
+    check_small_iteration_against_cpu(*small, preset="wrf_les_3d",
+                                      bank_kind="3d")
+    check_small_iteration_against_cpu(
+        *small, bank_kind="static",
+        env=dict(plume_model="gridded", subcell_sampling=True))
 
-    # The three variants in turns, A B C C B A, each block on a fresh loop,
-    # so that a drift of the host's speed during the run shows as a
-    # difference between a variant's two blocks.
+    # The three ppo_v2_0 variants in turns, A B C C B A, each block on a
+    # fresh loop, so that a drift of the host's speed during the run shows
+    # as a difference between a variant's two blocks.
     variants = {"f32": {}, "fused_update": dict(fused_update=True),
                 "bf16_compute": dict(bf16_compute=True)}
     runs = {name: [] for name in variants}
+    v20 = get_preset("ppo_v2_0")
     for i, name in enumerate(list(variants) + list(reversed(variants))):
-        runs[name].append(run_main_path(
-            get_preset, ttrain, plume, fused_ops, name, profile=i < 3,
-            **variants[name]))
+        cfg = v20.replace(ppo=dataclasses.replace(
+            v20.ppo, minibatch_size=MAIN_MB, **variants[name]))
+        runs[name].append(run_main_path(ttrain, k, name, cfg,
+                                        profile=i < 3))
         torch.cuda.empty_cache()
     for name, blocks in runs.items():
         log(f"main path summary {name} (blocks in run order): env-steps/s "
             + ", ".join(f"{b['sps']:.1f}" for b in blocks) + "; ms "
-            + "; ".join(", ".join(f"{k} {b[k]:.2f}" for k in
+            + "; ".join(", ".join(f"{key} {b[key]:.2f}" for key in
                                   ("rollout", "gae", "update", "whole_ms"))
                         for b in blocks))
     launches = runs["f32"][0]["counts"]
     fused_launches = runs["fused_update"][0]["counts"]
-    run_cli(cli_main, ActorCritic)
-    run_cli(cli_main, ActorCritic, "--bf16")
+
+    # wrf_les_3d at full width: the bank of --synth-bank 3d, no cuts.
+    w3 = get_preset("wrf_les_3d")
+    w3 = w3.replace(ppo=dataclasses.replace(w3.ppo, minibatch_size=MAIN_MB))
+    bank = gridded.synthesize_3d_bank(
+        torch.Generator(device="cuda").manual_seed(0), w3.env)
+    log(f"wrf_les_3d bank {list(bank.conc.shape)}, {bank.conc.numel() * 4} B")
+    wrf = run_main_path(ttrain, k, "wrf_les_3d", w3, bank)
+    del bank
+    torch.cuda.empty_cache()
+    # A static bank read between cells: the bilinear kernel's path.
+    st = v20.replace(
+        ppo=dataclasses.replace(v20.ppo, minibatch_size=MAIN_MB),
+        env=dataclasses.replace(v20.env, plume_model="gridded",
+                                subcell_sampling=True))
+    bank = gridded.synthesize_bank(
+        torch.Generator(device="cuda").manual_seed(0), st.env, num_fields=64)
+    static = run_main_path(ttrain, k, "static_subcell", st, bank, iters=2)
+    del bank
+    torch.cuda.empty_cache()
+
+    run_cli(cli_main, ActorCritic, "ppo_v2_0", MAIN_D, MAIN_A)
+    run_cli(cli_main, ActorCritic, "ppo_v2_0", MAIN_D, MAIN_A, "--bf16")
+    run_cli(cli_main, ActorCritic, "wrf_les_3d", 7, 7, "--synth-bank", "3d")
 
     main_t = plume_report["timing"][MAIN_N]
     ppo_t = ppo_time["f32"]
@@ -601,6 +840,25 @@ def main() -> int:
         "autodiff_ms": ppo_t["autodiff_ms"],
         "bf16": ppo_time["bf16"],
     }]
+    for name, replaces, run in (
+            ("bilinear", "tpu_plume/ops/pallas_gather.py:31", static),
+            ("trilinear_zyx", "tpu_plume/ops/pallas_trilinear.py:41", wrf)):
+        t4 = gather_time[name][MAIN_N]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "tpu_plume_torch/csrc/gather.cu",
+            "replaces": replaces,
+            "launches": run["counts"][name],
+            "max_abs_err": gather_err[name],
+            "ms": t4["ms"],
+            "plain_ms": t4["plain_ms"],
+            "bound_ms": t4["bound_ms"],
+            "bound_by": t4["bound_by"],
+            "library_ms": t4["library_ms"],
+            "device_ms": t4["device_ms"],
+            "large_n": gather_time[name][LARGE_N],
+        })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

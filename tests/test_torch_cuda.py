@@ -11,7 +11,10 @@ the CPU tests give the plume sample (rtol 1e-5, atol 1e-4).  The fused PPO
 kernel is held to its plain version with the tolerances of
 ``tests/test_fused_update.py`` (grads atol 2e-5 x max|grad|, metrics rtol
 2e-5, atol 2e-6), in f32 and under bf16 compute, and two calls give
-bit-equal grads.
+bit-equal grads.  The bilinear and trilinear gather kernels repeat their
+plain versions' operations in order with no contracted multiply-adds, so
+they are held to them within 1e-6 x max|field| (bit-equal in practice), at
+the TPU kernels' own call (a stack of one) and at a bank's stacks.
 """
 
 import pytest
@@ -19,7 +22,7 @@ import torch
 
 from tpu_plume_torch.core import PPOConfig, get_preset
 from tpu_plume_torch.models import ActorCritic
-from tpu_plume_torch.ops import plume
+from tpu_plume_torch.ops import gather, plume
 from tpu_plume_torch.ops import ppo as fused_ops
 from tpu_plume_torch.rl.ppo import PPOBatch
 
@@ -115,3 +118,54 @@ def test_fused_ppo_wrapper_raises_on_bad_cuda_inputs(card):
         fused_ops.fused_ppo_grads(model, bad, cfg)
     with pytest.raises(ValueError):
         fused_ops.fused_ppo_grads(model.cpu(), batch, cfg)
+
+
+def _gather_inputs(shape, n, seed, device):
+    """A stack of the given shape, rows over it, and points over every axis
+    after the first, from 1 beyond each edge, with exact grid points, the
+    last index, the top level and points outside both sides."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    stack = 100.0 * torch.rand(shape, device=device, generator=g)
+    rows = torch.randint(0, shape[0], (n,), dtype=torch.int32, device=device,
+                         generator=g)
+    dims = torch.tensor(shape[1:], dtype=torch.float32, device=device)
+    pts = torch.rand(n, len(shape) - 1, device=device, generator=g) * (
+        dims + 2.0) - 1.0
+    pts[:4] = torch.stack([torch.zeros_like(dims), dims - 1, dims + 5.0,
+                           -3.0 * torch.ones_like(dims)])
+    pts[4:8] = torch.floor(pts[4:8])
+    return stack, rows, pts.contiguous()
+
+
+@pytest.mark.parametrize("n", [1, 4096, 100_003])
+@pytest.mark.parametrize("shape", [(1, 500, 500), (64, 500, 500), (3, 7, 9),
+                                   (1, 8, 500, 500), (32, 8, 500, 500),
+                                   (5, 1, 6, 4), (2, 2, 2, 2)])
+def test_gather_kernels_match_plain(card, shape, n):
+    stack, rows, pts = _gather_inputs(shape, max(n, 8), n + len(shape), card)
+    wrapper, plain = ((gather.bilinear, gather.bilinear_plain)
+                      if len(shape) == 3 else
+                      (gather.trilinear_zyx, gather.trilinear_zyx_plain))
+    before = wrapper.launches
+    got = wrapper(stack, rows, pts)
+    again = wrapper(stack, rows, pts)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2
+    assert torch.equal(got, again)
+    want = plain(stack, rows, pts)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-6 * float(stack.abs().max()))
+
+
+def test_gather_wrappers_raise_on_bad_cuda_inputs(card):
+    stack, rows, pts = _gather_inputs((4, 6, 8), 64, 0, card)
+    with pytest.raises(TypeError):
+        gather.bilinear(stack, rows.long(), pts)
+    with pytest.raises(ValueError):
+        gather.bilinear(stack, rows.cpu(), pts)
+    with pytest.raises(ValueError):
+        gather.bilinear(stack, rows, pts.t().contiguous().t())
+    with pytest.raises(ValueError):
+        gather.trilinear_zyx(stack, rows, pts)
+    with pytest.raises(ValueError):
+        gather.bilinear(stack[:, :1].contiguous(), rows, pts)

@@ -231,7 +231,7 @@ def test_cli_train_on_cpu(tmp_path, capsys):
 
 def test_cli_refuses_flags_of_later_slices():
     for flag in (["--train-guide", "fit"], ["--arch", "lstm"], ["--netcdf"],
-                 ["--plume-model", "gridded"]):
+                 ["--plume-model", "anisotropic"]):
         with pytest.raises(SystemExit):
             cli_main(["train", "--cpu", *flag])
 
@@ -247,13 +247,13 @@ def test_entry_points_raise_without_a_card(tmp_path, monkeypatch):
     assert resolve_device("cpu").type == "cpu"
 
 
-UNPORTED = {
-    "anisotropic": ("env", {"plume_model": "anisotropic"}),
-    "gridded": ("env", {"plume_model": "gridded"}),
-    "num_sources": ("env", {"num_sources": 2}),
-    "env_3d": ("env", {"env_3d": True}),
-    "lstm": ("ppo", {"arch": "lstm"}),
-    "distill_oracle": ("ppo", {"distill_oracle": "naive"}),
+UNPORTED = {   # name: (config part, fields, ROADMAP Queue 1 slice)
+    "anisotropic": ("env", {"plume_model": "anisotropic"}, 6),
+    "num_sources": ("env", {"num_sources": 2}, 6),
+    # 3-D flight over the analytic plume; over a bank it is ported
+    "env_3d": ("env", {"env_3d": True}, 6),
+    "lstm": ("ppo", {"arch": "lstm"}, 7),
+    "distill_oracle": ("ppo", {"distill_oracle": "naive"}, 10),
 }
 
 
@@ -262,14 +262,22 @@ def test_unported_options_raise_naming_roadmap(name, tmp_path):
     cfg = _train_cfg()
     guide = None
     if name == "guide":
-        guide = object()
+        guide, item = object(), 9
     else:
-        part, kw = UNPORTED[name]
+        part, kw, item = UNPORTED[name]
         cfg = cfg.replace(**{part: dataclasses.replace(getattr(cfg, part),
                                                        **kw)})
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1"):
+    with pytest.raises(NotImplementedError,
+                       match=rf"ROADMAP\.md Queue 1, slice {item} "):
         ttrain.train_ppo(cfg, str(tmp_path), device="cpu", max_iterations=1,
                          guide=guide)
+
+
+def test_gridded_without_a_bank_raises_value_error(tmp_path):
+    cfg = _train_cfg()
+    cfg = cfg.replace(env=dataclasses.replace(cfg.env, plume_model="gridded"))
+    with pytest.raises(ValueError, match="requires a FieldBank"):
+        ttrain.train_ppo(cfg, str(tmp_path), device="cpu", max_iterations=1)
 
 
 _BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "tpu_plume")

@@ -1,10 +1,12 @@
 """Command line of the port:
 
     python -m tpu_plume_torch.cli train --preset ppo_v2_0 --out runs/torch_v20
+    python -m tpu_plume_torch.cli train --preset wrf_les_3d --synth-bank 3d
 
 Runs on the card; ``--cpu`` runs on the CPU.  The flags are the JAX CLI's
 (``python -m tpu_plume.cli train``) for the paths the port runs; a flag of
-a path it does not run yet is not accepted.
+a path it does not run yet is not accepted (``--bank file.nc`` among them:
+banks are synthesized from ``--bank-seed``).
 """
 
 from __future__ import annotations
@@ -14,10 +16,13 @@ import dataclasses
 import json
 
 from tpu_plume_torch.core.config import PRESETS, get_preset
+from tpu_plume_torch.core.device import resolve_device
 
 
 def apply_overrides(cfg, args):
     env = cfg.env
+    if args.plume_model:
+        env = dataclasses.replace(env, plume_model=args.plume_model)
     if args.obs_memory:
         env = dataclasses.replace(env, obs_memory=True)
     if args.reward:
@@ -50,17 +55,57 @@ def apply_overrides(cfg, args):
     return cfg
 
 
+def make_bank(args, cfg, device):
+    """The ``FieldBank`` of a gridded config, synthesized on ``device`` from
+    ``--bank-seed`` (the JAX CLI's ``_make_bank`` rules and defaults); None
+    for an analytic plume model."""
+    import torch
+
+    from tpu_plume_torch.fields import gridded
+
+    kind = args.synth_bank
+    if kind is not None and cfg.env.plume_model != "gridded":
+        # a bank flag on a non-gridded env would be silently ignored
+        raise SystemExit(
+            f"--synth-bank given but plume_model='{cfg.env.plume_model}' "
+            f"would ignore it; add --plume-model gridded (or a gridded "
+            f"preset)")
+    if kind is None:
+        if cfg.env.plume_model == "gridded":
+            raise SystemExit('plume_model="gridded" needs --synth-bank')
+        return None
+    gen = torch.Generator(device=device).manual_seed(args.bank_seed)
+    k = args.bank_fields or (4 if kind == "3d" else 64)
+    if kind == "static":
+        return gridded.synthesize_bank(gen, cfg.env, num_fields=k)
+    if kind == "les":
+        return gridded.synthesize_les_bank(
+            gen, cfg.env, num_fields=args.bank_fields or 16,
+            num_frames=args.bank_frames or 16,
+            steps_per_frame=args.bank_spf or 64.0)
+    if kind == "time":
+        return gridded.synthesize_time_varying_bank(
+            gen, cfg.env, num_fields=k, num_frames=args.bank_frames or 16,
+            steps_per_frame=args.bank_spf or 64.0)
+    return gridded.synthesize_3d_bank(
+        gen, cfg.env, num_fields=k, num_frames=args.bank_frames or 8,
+        num_levels=args.bank_levels or 8,
+        steps_per_frame=args.bank_spf or 128.0)
+
+
 def cmd_train(args):
     from tpu_plume_torch.train import train_ppo
 
     cfg = apply_overrides(get_preset(args.preset), args)
+    device = resolve_device("cpu" if args.cpu else None)
     res = train_ppo(
         cfg,
         args.out,
-        device="cpu" if args.cpu else None,
+        device=device,
         write_csv=not args.no_csv,
         max_iterations=args.iterations,
         sync_every=args.sync_every,
+        bank=make_bank(args, cfg, device),
     )
     print(json.dumps({
         "episodes": res.episodes,
@@ -91,6 +136,15 @@ def build_parser():
                          "(the reference README's R = dCH4 - 0.2*|dtheta|)")
     sp.add_argument("--obs-memory", action="store_true",
                     help="append [dconc, prev-action one-hot] to the obs")
+    sp.add_argument("--plume-model", choices=["isotropic", "gridded"],
+                    help="plume field model (gridded needs --synth-bank)")
+    sp.add_argument("--synth-bank", choices=["static", "time", "3d", "les"],
+                    help="procedurally synthesize a gridded field bank")
+    sp.add_argument("--bank-fields", type=int, help="bank rows K")
+    sp.add_argument("--bank-frames", type=int, help="time frames T")
+    sp.add_argument("--bank-levels", type=int, help="z levels Z (3d)")
+    sp.add_argument("--bank-spf", type=float, help="env steps per frame")
+    sp.add_argument("--bank-seed", type=int, default=0)
     sp.add_argument("--shuffle-mode", choices=["roll", "permutation", "affine"],
                     help="PPO minibatch shuffle: circular rotation (default), "
                          "full random permutation, or an affine bijection")

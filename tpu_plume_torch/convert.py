@@ -1,4 +1,5 @@
-"""Parameters between the flax ``ActorCritic`` layout and the port's module.
+"""Parameters between the flax ``ActorCritic`` layout and the port's module,
+and field banks from the JAX package's arrays into the port.
 
 Works on plain numpy arrays, so neither side needs the other's framework:
 flax ``{"params": {"Dense_0": {"kernel", "bias"}, "LayerNorm_0": {"scale",
@@ -59,3 +60,18 @@ def actor_critic_to_flax(state_dict: dict) -> dict:
         else:
             p[flax_name] = {"kernel": np.ascontiguousarray(w.T), "bias": b}
     return {"params": p}
+
+
+def field_bank_from_numpy(conc, source, wind=None, steps_per_frame=1.0,
+                          z_extent=0.0, device="cpu"):
+    """A ``FieldBank`` of the port on ``device`` from a bank's arrays (the
+    fields of the JAX package's ``FieldBank``, as numpy arrays)."""
+    from tpu_plume_torch.fields.gridded import FieldBank
+
+    def tensor(a):
+        return torch.from_numpy(np.array(a, np.float32, order="C")).to(device)
+
+    return FieldBank(conc=tensor(conc), source=tensor(source),
+                     wind=None if wind is None else tensor(wind),
+                     steps_per_frame=float(steps_per_frame),
+                     z_extent=float(z_extent))

@@ -9,8 +9,8 @@ from __future__ import annotations
 
 from tpu_plume_torch.core.config import EnvConfig, PPOConfig
 
-_BANKS = "ROADMAP.md Queue 1, slice 5 (gridded banks and 3-D flight)"
-_ANALYTIC = "ROADMAP.md Queue 1, slice 6 (anisotropic and multi-source plumes)"
+_ANALYTIC = ("ROADMAP.md Queue 1, slice 6 (anisotropic, multi-source and "
+             "3-D analytic plumes)")
 _RNN = "ROADMAP.md Queue 1, slice 7 (recurrent policy)"
 _GUIDES = "ROADMAP.md Queue 1, slice 9 (guides)"
 _IMITATION = "ROADMAP.md Queue 1, slice 10 (imitation, GAIL and distilled PPO)"
@@ -20,15 +20,18 @@ def _unported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet: {item}")
 
 
-def check_env(cfg: EnvConfig) -> None:
-    if cfg.plume_model == "gridded":
-        _unported('plume_model="gridded"', _BANKS)
-    if cfg.plume_model != "isotropic":
-        _unported(f"plume_model={cfg.plume_model!r}", _ANALYTIC)
+def check_sources(cfg: EnvConfig) -> None:
     if cfg.num_sources > 1:
         _unported("num_sources > 1", _ANALYTIC)
-    if cfg.env_3d:
-        _unported("env_3d", _BANKS)
+
+
+def check_env(cfg: EnvConfig) -> None:
+    if cfg.plume_model not in ("isotropic", "gridded"):
+        _unported(f"plume_model={cfg.plume_model!r}", _ANALYTIC)
+    check_sources(cfg)
+    if cfg.env_3d and cfg.plume_model != "gridded":
+        # The analytic 3-D field needs the plume kernel's z term.
+        _unported(f"env_3d with plume_model={cfg.plume_model!r}", _ANALYTIC)
 
 
 def check_ppo(cfg: PPOConfig) -> None:

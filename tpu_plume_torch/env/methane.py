@@ -1,14 +1,18 @@
-"""MethaneEnv over a batch of N envs (port of ``tpu_plume/env/methane.py``,
-2-D analytic isotropic plume).
+"""MethaneEnv over a batch of N envs (port of ``tpu_plume/env/methane.py``:
+the analytic isotropic plume in 2-D flight, and gridded banks in 2-D or 3-D
+flight).
 
-    reset_from_draws(u_src, bits, cfg, radius, explore_bonus) -> (EnvState, obs)
-    step_noise(state, action, turb_noise, cfg)                -> (EnvState, Transition)
-    auto_reset_from_draws(state, obs, done, u_src, bits, cfg) -> (EnvState, obs)
+    reset_from_draws(u_src, bits, cfg, radius, explore_bonus, bank) -> (EnvState, obs)
+    step_noise(state, action, turb_noise, cfg, bank)                -> (EnvState, Transition)
+    auto_reset_from_draws(state, obs, done, u_src, bits, cfg, bank) -> (EnvState, obs)
 
 Every tensor carries the env axis first.  The functions return new states
-and do not modify their inputs.  Observation layout, all nominally in
-[0, 1]: [x/G, y/G, conc/peak, tke/(3*TI), t/max_steps, explore_level], plus
-[dconc/peak, one-hot(prev action)] with ``obs_memory``.
+and do not modify their inputs.  ``bank`` is the ``FieldBank`` of
+``plume_model="gridded"`` (None otherwise).  Observation layout, all
+nominally in [0, 1]: [x/G, y/G, conc/peak, tke/(3*TI), t/max_steps,
+explore_level], with z/domain_height after (x, y) in 3-D flight (``env_3d``),
+plus [dconc/peak, one-hot(prev action)] with ``obs_memory``.  3-D flight
+adds +z and -z actions of ``z_move_step``; success stays a horizontal gate.
 
 The visit grid is read and written by direct indexing at each env's explore
 cell; the JAX package uses one-hot masks there, with the same counts.
@@ -29,11 +33,12 @@ from tpu_plume_torch.fields.analytic import (
     new_field_from_draws,
     sample_conc_tke,
 )
+from tpu_plume_torch.fields.gridded import bank_wind
 
 
 @dataclass
 class EnvState:
-    pos: torch.Tensor            # f32[N, 2] agent position
+    pos: torch.Tensor            # f32[N, pos_dim] agent position
     t: torch.Tensor              # i32[N] step count within episode
     visited: torch.Tensor        # i32[N, D, D] per-cell visit counts
     field: FieldState            # per-episode plume
@@ -74,7 +79,10 @@ class Transition:
 
 def select(mask: torch.Tensor, a, b):
     """Per-env ``where(mask, a, b)`` over tensors or (nested) dataclasses of
-    tensors whose first axis is the env axis."""
+    tensors whose first axis is the env axis; a field None in both stays
+    None."""
+    if a is None and b is None:
+        return None
     if dataclasses.is_dataclass(a):
         return type(a)(**{f.name: select(mask, getattr(a, f.name),
                                          getattr(b, f.name))
@@ -92,21 +100,33 @@ def _explore_index(pos: torch.Tensor, cfg: EnvConfig):
 
 
 @functools.lru_cache(maxsize=16)
-def _action_table(move_step: float, device: torch.device) -> torch.Tensor:
-    """stay / +y / -y / +x / -x."""
+def _action_table(move_step: float, z_move_step: float | None,
+                  device: torch.device) -> torch.Tensor:
+    """stay / +y / -y / +x / -x, and +z / -z in 3-D flight (``z_move_step``
+    not None)."""
     m = move_step
-    return torch.tensor(
-        [[0.0, 0.0], [0.0, m], [0.0, -m], [m, 0.0], [-m, 0.0]],
-        dtype=torch.float32, device=device)
+    rows = [[0.0, 0.0], [0.0, m], [0.0, -m], [m, 0.0], [-m, 0.0]]
+    if z_move_step is not None:
+        zm = z_move_step
+        rows = [r + [0.0] for r in rows] + [[0.0, 0.0, zm], [0.0, 0.0, -zm]]
+    return torch.tensor(rows, dtype=torch.float32, device=device)
+
+
+def action_table(cfg: EnvConfig, device) -> torch.Tensor:
+    """f32[num_actions, pos_dim] displacement of each action."""
+    return _action_table(cfg.move_step,
+                         cfg.z_move_step if cfg.env_3d else None,
+                         torch.device(device))
 
 
 def observe(state: EnvState, cfg: EnvConfig) -> torch.Tensor:
     rows, cx, cy = _explore_index(state.pos, cfg)
     visits = state.visited[rows, cx, cy].to(torch.float32)
     explore_level = torch.clamp(visits / cfg.explore_visit_norm, max=1.0)
-    obs = torch.stack([
-        state.pos[:, 0] / cfg.grid_size,
-        state.pos[:, 1] / cfg.grid_size,
+    parts = [state.pos[:, 0] / cfg.grid_size, state.pos[:, 1] / cfg.grid_size]
+    if cfg.env_3d:
+        parts.append(state.pos[:, 2] / cfg.domain_height)
+    obs = torch.stack(parts + [
         state.conc / cfg.conc_peak,
         state.tke / (cfg.turbulence_intensity * 3.0),
         state.t.to(torch.float32) / cfg.max_steps,
@@ -120,16 +140,17 @@ def observe(state: EnvState, cfg: EnvConfig) -> torch.Tensor:
     return obs
 
 
-def _fresh_state(field: FieldState, radius, explore_bonus,
-                 cfg: EnvConfig) -> EnvState:
+def _fresh_state(field: FieldState, radius, explore_bonus, cfg: EnvConfig,
+                 bank) -> EnvState:
     n = field.seed.shape[0]
     dev = field.seed.device
-    pos = torch.zeros(n, 2, dtype=torch.float32, device=dev)
-    conc0, tke0 = sample_conc_tke(field, pos, cfg)
+    pos = torch.zeros(n, cfg.pos_dim, dtype=torch.float32, device=dev)
+    t = torch.zeros(n, dtype=torch.int32, device=dev)
+    conc0, tke0 = sample_conc_tke(field, pos, cfg, bank, t)
     d = cfg.grid_divisions
     return EnvState(
         pos=pos,
-        t=torch.zeros(n, dtype=torch.int32, device=dev),
+        t=t,
         visited=torch.zeros(n, d, d, dtype=torch.int32, device=dev),
         field=field,
         radius=radius,
@@ -143,29 +164,31 @@ def _fresh_state(field: FieldState, radius, explore_bonus,
 
 def reset_from_draws(u_src: torch.Tensor, bits: torch.Tensor, cfg: EnvConfig,
                      radius: float | None = None,
-                     explore_bonus: float | None = None):
+                     explore_bonus: float | None = None, bank=None):
     """Fresh episodes for N envs from uniform draws u_src f32[N, 2] and
-    seeds ``bits`` int32[N]: new source and field, agent at the origin,
-    cleared visit grid."""
+    seeds ``bits`` int32[N]: new source and field (or bank row), agent at
+    the origin, cleared visit grid."""
     check_env(cfg)
     n, dev = bits.shape[0], bits.device
     radius = cfg.initial_radius if radius is None else radius
     explore_bonus = (cfg.explore_bonus_init if explore_bonus is None
                      else explore_bonus)
     state = _fresh_state(
-        new_field_from_draws(u_src, bits, cfg),
+        new_field_from_draws(u_src, bits, cfg, bank),
         torch.full((n,), radius, dtype=torch.float32, device=dev),
         torch.full((n,), explore_bonus, dtype=torch.float32, device=dev),
-        cfg,
+        cfg, bank,
     )
     return state, observe(state, cfg)
 
 
 def step_noise(state: EnvState, action: torch.Tensor, turb_noise: torch.Tensor,
-               cfg: EnvConfig):
+               cfg: EnvConfig, bank=None):
     """One step of every env with its turbulence-displacement normals
-    turb_noise f32[N, 2] given by the caller."""
+    turb_noise f32[N, pos_dim] given by the caller."""
     check_env(cfg)
+    if cfg.elastic_walls and cfg.env_3d:
+        raise ValueError("elastic_walls (v1_0) is a 2-D-only reward variant")
     g = float(cfg.grid_size)
     move_step = cfg.move_step
     tke_norm = cfg.turbulence_intensity * 3.0
@@ -175,11 +198,15 @@ def step_noise(state: EnvState, action: torch.Tensor, turb_noise: torch.Tensor,
     prev_conc, prev_tke = state.conc, state.tke
     prev_conc_n = prev_conc / cfg.conc_peak
 
-    table = _action_table(move_step, state.pos.device)
+    table = action_table(cfg, state.pos.device)
     delta = table[action]
     delta_norm = torch.sqrt((delta * delta).sum(-1))
     if cfg.reward_variant == "v1_0":
         move_penalty = torch.full_like(delta_norm, -cfg.v10_flat_move_penalty)
+    elif cfg.env_3d:
+        # vertical steps are full moves despite the smaller step size
+        moved = (delta_norm > 0.0).to(torch.float32)
+        move_penalty = -cfg.move_penalty_coef * (1.0 - moved)
     else:
         move_penalty = -cfg.move_penalty_coef * (1.0 - delta_norm / move_step)
 
@@ -187,8 +214,13 @@ def step_noise(state: EnvState, action: torch.Tensor, turb_noise: torch.Tensor,
     turb_eff = (move_step * cfg.turb_displacement_coef * turb_noise
                 * prev_tke[:, None] / tke_norm)
     raw = state.pos + delta + turb_eff
-    # wind_advect_coef moves the agent by the field wind, which is zero for
-    # the isotropic plume, so it adds nothing here.
+    # Horizontal advection by the bank's wind; the isotropic plume's wind
+    # is zero, so there it adds nothing.
+    if cfg.wind_advect_coef and cfg.plume_model == "gridded":
+        advect = cfg.wind_advect_coef * bank_wind(bank, state.field.idx, t_new)
+        if cfg.env_3d:
+            advect = torch.cat([advect, torch.zeros_like(advect[:, :1])], -1)
+        raw = raw + advect
 
     if cfg.elastic_walls:
         # V1.0 bounce-back walls: clip to a 10% margin, then revert the whole
@@ -196,10 +228,14 @@ def step_noise(state: EnvState, action: torch.Tensor, turb_noise: torch.Tensor,
         cand = torch.clamp(raw, -0.1 * g, 1.1 * g)
         out = ((cand < 0.0) | (cand > g)).any(-1)
         new_pos = torch.where(out[:, None], state.pos, cand)
+    elif cfg.env_3d:
+        new_pos = torch.cat([
+            torch.clamp(raw[:, :2], 0.0, g - cfg.clip_edge_eps),
+            torch.clamp(raw[:, 2:], 0.0, cfg.domain_height)], -1)
     else:
         new_pos = torch.clamp(raw, 0.0, g - cfg.clip_edge_eps)
 
-    cur_conc, cur_tke = sample_conc_tke(state.field, new_pos, cfg)
+    cur_conc, cur_tke = sample_conc_tke(state.field, new_pos, cfg, bank, t_new)
     cur_conc_n = cur_conc / cfg.conc_peak
     border_units = torch.minimum(
         torch.minimum(new_pos[:, 0], g - new_pos[:, 0]),
@@ -260,9 +296,10 @@ def step_noise(state: EnvState, action: torch.Tensor, turb_noise: torch.Tensor,
     total_reward = (conc_reward + explore_reward + move_penalty + tke_penalty
                     + boundary_penalty)
 
-    # Terminal bonus within the curriculum radius: min(500, 150 R0/R), or
-    # the uncapped 100 R0/R of V1.0, plus the optional depth and gate terms.
-    d = new_pos - state.field.source
+    # Terminal bonus within the (horizontal) curriculum radius: min(500,
+    # 150 R0/R), or the uncapped 100 R0/R of V1.0, plus the optional depth
+    # and gate terms.
+    d = new_pos[:, :2] - state.field.source
     distance = torch.sqrt((d * d).sum(-1))
     reached = distance <= state.radius
     if cfg.reward_variant == "v1_0":
@@ -298,10 +335,10 @@ def step_noise(state: EnvState, action: torch.Tensor, turb_noise: torch.Tensor,
 
 def auto_reset_from_draws(state: EnvState, obs: torch.Tensor,
                           done: torch.Tensor, u_src: torch.Tensor,
-                          bits: torch.Tensor, cfg: EnvConfig):
+                          bits: torch.Tensor, cfg: EnvConfig, bank=None):
     """Swap a fresh episode (from the draws) into every env where ``done``,
     carrying the curriculum values; ``obs`` is the post-step observation."""
-    fresh = _fresh_state(new_field_from_draws(u_src, bits, cfg),
-                         state.radius, state.explore_bonus, cfg)
+    fresh = _fresh_state(new_field_from_draws(u_src, bits, cfg, bank),
+                         state.radius, state.explore_bonus, cfg, bank)
     fresh_obs = observe(fresh, cfg)
     return select(done, fresh, state), select(done, fresh_obs, obs)

@@ -1,0 +1,382 @@
+"""Gridded plume fields: a device-resident bank of mean-concentration grids
+(port of ``tpu_plume/fields/gridded.py`` without the NetCDF reader and
+writer).
+
+Each episode samples a row of a ``FieldBank`` and the env reads the row at
+the agent's position.  Banks are synthesized here from a
+``torch.Generator`` (``synthesize_*``); each synthesizer's body, given its
+draws, is a function of its own (``build_*``), so the tests feed it the JAX
+package's draws.
+
+Two reads:
+  - ``sample_bank``: the grid cell, linear in t (4-D banks) and in t and z
+    (5-D banks), by plain tensor indexing, as the JAX package leaves it to
+    an XLA gather;
+  - ``sample_bank_points``: sub-cell samples at float (x, y, z, t) points,
+    through the bilinear and trilinear gather kernels of
+    ``tpu_plume_torch.ops.gather``.  A static bank [K, H, W] is one
+    bilinear launch at rows ``idx``; a time-varying bank [K, T, H, W] is
+    one trilinear launch with the frame axis as the kernel's z; a 3-D bank
+    [K, T, Z, H, W] is two trilinear launches over its [K*T, Z, H, W] view,
+    at frames t0 and t0+1, lerped by the frame weight.
+
+The JAX package's packed layout (``pack_time_levels``, ``maybe_pack``,
+``conc_packed``) and its "packed" and "fused" formulations are not ported:
+they are TPU layouts that cut the number of XLA gathers (a 4.1 GB copy of
+the wrf_les_3d bank) and that no kernel here reads.  Every ``gather_mode``
+the JAX package accepts is accepted here and samples the same function
+through the kernels; the JAX package holds all of its modes to one
+function (``tests/test_fields_ops.py:312-357``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass
+
+import torch
+
+from tpu_plume_torch.core.config import EnvConfig
+from tpu_plume_torch.ops import gather
+
+GATHER_MODES = ("auto", "packed", "corner", "fused")
+
+
+@dataclass
+class FieldBank:
+    """A bank of K plume fields on one device.
+
+    ``conc`` layouts (f32, contiguous):
+      [K, H, W]          static 2-D fields;
+      [K, T, H, W]       time-varying 2-D fields, linear over frames at
+                         ``steps_per_frame`` env steps a frame;
+      [K, T, Z, H, W]    time-varying 3-D volumes whose z axis spans
+                         ``z_extent`` grid units, linear between levels.
+    ``wind`` is None, f32[K, 2] or f32[K, T, 2] (per frame)."""
+
+    conc: torch.Tensor
+    source: torch.Tensor              # f32[K, 2] source position per field
+    wind: torch.Tensor | None = None
+    steps_per_frame: float = 1.0
+    z_extent: float = 0.0
+
+    def to(self, device) -> "FieldBank":
+        return dataclasses.replace(
+            self, conc=self.conc.to(device), source=self.source.to(device),
+            wind=None if self.wind is None else self.wind.to(device))
+
+
+def _frame_coord(bank: FieldBank, t, like: torch.Tensor) -> torch.Tensor:
+    """Env step ``t`` (None: 0) in frame-index units."""
+    return (torch.zeros_like(like, dtype=torch.float32) if t is None
+            else t.to(torch.float32)) / bank.steps_per_frame
+
+
+def _frame_weights(bank: FieldBank, t, like: torch.Tensor):
+    """(t0 i32, ft f32): lower frame and its weight at env step ``t``.  A
+    one-frame bank gets t0 = -1 and ft = 1, which reads frame 0 (negative
+    indices wrap), as in the JAX package."""
+    num_frames = bank.conc.shape[1]
+    tf = _frame_coord(bank, t, like)
+    t0 = torch.clamp(torch.floor(tf).to(torch.int32), 0, num_frames - 2)
+    ft = torch.clamp(tf - t0, 0.0, 1.0)
+    return t0, ft
+
+
+def _level_coord(bank: FieldBank, z, like: torch.Tensor) -> torch.Tensor:
+    """Height ``z`` (grid units in [0, z_extent]) in level-index units."""
+    num_levels = bank.conc.shape[2]
+    zeros = torch.zeros_like(like, dtype=torch.float32)
+    if num_levels == 1 or z is None:
+        return zeros
+    return z.to(torch.float32) * ((num_levels - 1) / max(bank.z_extent, 1e-9))
+
+
+def _level_weights(bank: FieldBank, z, like: torch.Tensor):
+    """(z0 i32, fz f32): lower level and its weight at height ``z``."""
+    num_levels = bank.conc.shape[2]
+    zf = _level_coord(bank, z, like)
+    if num_levels == 1:
+        return zf.to(torch.int32), zf
+    z0 = torch.clamp(torch.floor(zf).to(torch.int32), 0, num_levels - 2)
+    fz = torch.clamp(zf - z0, 0.0, 1.0)
+    return z0, fz
+
+
+def sample_bank(bank: FieldBank, idx, ix, iy, t=None, z=None) -> torch.Tensor:
+    """Bank rows ``idx`` at integer cells (ix, iy), linear in t (4-D banks)
+    and in t and z (5-D banks).  Broadcasts."""
+    conc = bank.conc
+    if conc.dim() == 3:
+        return conc[idx, ix, iy]
+    t0, ft = _frame_weights(bank, t, ix)
+    if conc.dim() == 4:
+        a = conc[idx, t0, ix, iy]
+        b = conc[idx, t0 + 1, ix, iy]
+        return (1.0 - ft) * a + ft * b
+    z0, fz = _level_weights(bank, z, ix)
+    z1 = torch.clamp(z0 + 1, max=conc.shape[2] - 1)
+
+    def at(ti, zi):
+        return conc[idx, ti, zi, ix, iy]
+
+    lo = (1.0 - fz) * at(t0, z0) + fz * at(t0, z1)
+    hi = (1.0 - fz) * at(t0 + 1, z0) + fz * at(t0 + 1, z1)
+    return (1.0 - ft) * lo + ft * hi
+
+
+def sample_bank_points(bank: FieldBank, idx: torch.Tensor, x: torch.Tensor,
+                       y: torch.Tensor, t=None, z=None, *,
+                       gather_mode: str = "auto") -> torch.Tensor:
+    """Sub-cell samples f32[N] of bank rows ``idx`` i32[N] at float points:
+    bilinear in (x, y), linear in z (5-D banks) and in t (4-D and 5-D
+    banks), clamped to the grid.  Through the gather kernels on the card,
+    their plain versions on the CPU; every ``gather_mode`` samples this one
+    function."""
+    if gather_mode not in GATHER_MODES:
+        raise ValueError(f"gather_mode must be one of {GATHER_MODES}, got "
+                         f"{gather_mode!r}")
+    conc = bank.conc
+    x = x.to(torch.float32)
+    y = y.to(torch.float32)
+    if conc.dim() == 3:
+        return gather.bilinear(conc, idx, torch.stack([x, y], -1))
+    if conc.dim() == 4:
+        tf = _frame_coord(bank, t, x)
+        return gather.trilinear_zyx(conc, idx, torch.stack([tf, x, y], -1))
+    k, nt, nz, h, w = conc.shape
+    pts = torch.stack([_level_coord(bank, z, x), x, y], -1)
+    volumes = conc.view(k * nt, nz, h, w)
+    if nt == 1:      # one frame: no time interpolation (and no row idx - 1)
+        return gather.trilinear_zyx(volumes, idx, pts)
+    t0, ft = _frame_weights(bank, t, x)
+    row0 = idx * nt + t0
+    a = gather.trilinear_zyx(volumes, row0, pts)
+    b = gather.trilinear_zyx(volumes, row0 + 1, pts)
+    return (1.0 - ft) * a + ft * b
+
+
+def bank_wind(bank: FieldBank, idx: torch.Tensor, t=None) -> torch.Tensor:
+    """Per-episode horizontal wind f32[N, 2] of rows ``idx``, linear over
+    frames for per-frame wind; zeros when the bank carries none."""
+    if bank.wind is None:
+        return torch.zeros(idx.shape + (2,), dtype=torch.float32,
+                           device=idx.device)
+    if bank.wind.dim() == 2:
+        return bank.wind[idx]
+    num_frames = bank.wind.shape[1]
+    tf = _frame_coord(bank, t, idx)
+    t0 = torch.clamp(torch.floor(tf).to(torch.int32), 0,
+                     max(num_frames - 2, 0))
+    ft = torch.clamp(tf - t0, 0.0, 1.0)
+    a = bank.wind[idx, t0]
+    b = bank.wind[idx, torch.clamp(t0 + 1, max=num_frames - 1)]
+    return (1.0 - ft[..., None]) * a + ft[..., None] * b
+
+
+# --- synthesis --------------------------------------------------------------
+
+
+def _uniform(generator: torch.Generator, shape, lo: float, hi: float):
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    return lo + (hi - lo) * u
+
+
+def _grid(g: int, device):
+    """Cell coordinates (ix [g, 1], iy [1, g]) as f32."""
+    r = torch.arange(g, dtype=torch.int32, device=device).to(torch.float32)
+    return r[:, None], r[None, :]
+
+
+def _draw_sources(generator, cfg: EnvConfig, num_fields: int, g: int):
+    lo, hi = cfg.source_padding, g - cfg.source_padding
+    return _uniform(generator, (num_fields, 2), lo, hi)
+
+
+def _winds(theta: torch.Tensor) -> torch.Tensor:
+    return torch.stack([torch.cos(theta), torch.sin(theta)], dim=-1)
+
+
+def build_static_bank(sources: torch.Tensor, theta: torch.Tensor,
+                      cfg: EnvConfig) -> FieldBank:
+    """``synthesize_bank``'s body: one anisotropic plume per source with a
+    unit wind at angle ``theta`` f32[K]."""
+    from tpu_plume_torch.fields.analytic import anisotropic_base
+
+    fx, fy = _grid(cfg.grid_size, sources.device)
+    winds = _winds(theta)
+    conc = torch.stack([anisotropic_base(s, wnd, fx, fy, cfg)
+                        for s, wnd in zip(sources, winds)])
+    return FieldBank(conc=conc.contiguous(), source=sources)
+
+
+def synthesize_bank(generator: torch.Generator, cfg: EnvConfig,
+                    num_fields: int = 64) -> FieldBank:
+    """A static anisotropic-dispersion bank [K, G, G] (sigma_y = 0.3 x^0.71
+    plumes with random wind directions) on the generator's device."""
+    sources = _draw_sources(generator, cfg, num_fields, cfg.grid_size)
+    theta = _uniform(generator, (num_fields,), 0.0, 2 * math.pi)
+    return build_static_bank(sources, theta, cfg)
+
+
+def _frame_thetas(theta0, veer, num_frames):
+    tfs = torch.linspace(0.0, 1.0, num_frames, device=theta0.device)
+    return theta0[:, None] + veer[:, None] * tfs[None, :]
+
+
+def build_time_varying_bank(sources, theta0, veer, cfg: EnvConfig,
+                            num_frames: int = 16,
+                            steps_per_frame: float = 64.0,
+                            grid: int | None = None) -> FieldBank:
+    """``synthesize_time_varying_bank``'s body: the wind veers from
+    ``theta0`` by ``veer`` radians across the frames."""
+    from tpu_plume_torch.fields.analytic import anisotropic_base
+
+    fx, fy = _grid(grid or cfg.grid_size, sources.device)
+    thetas = _frame_thetas(theta0, veer, num_frames)
+    wind = _winds(thetas)                                    # [K, T, 2]
+    conc = torch.stack([
+        torch.stack([anisotropic_base(s, wnd, fx, fy, cfg) for wnd in ws])
+        for s, ws in zip(sources, wind)])
+    return FieldBank(conc=conc.contiguous(), source=sources, wind=wind,
+                     steps_per_frame=steps_per_frame)
+
+
+def synthesize_time_varying_bank(generator: torch.Generator, cfg: EnvConfig,
+                                 num_fields: int = 8, num_frames: int = 16,
+                                 steps_per_frame: float = 64.0,
+                                 grid: int | None = None) -> FieldBank:
+    """Time-varying anisotropic plumes [K, T, G, G] whose wind direction
+    veers across the frames."""
+    g = grid or cfg.grid_size
+    sources = _draw_sources(generator, cfg, num_fields, g)
+    theta0 = _uniform(generator, (num_fields,), 0.0, 2 * math.pi)
+    veer = _uniform(generator, (num_fields,), -1.0, 1.0)
+    return build_time_varying_bank(sources, theta0, veer, cfg, num_frames,
+                                   steps_per_frame, g)
+
+
+def build_3d_bank(sources, theta0, veer, cfg: EnvConfig, num_frames: int = 8,
+                  num_levels: int = 8, steps_per_frame: float = 128.0,
+                  z_extent: float | None = None, grid: int | None = None,
+                  wind_speed: float = 2.0) -> FieldBank:
+    """``synthesize_3d_bank``'s body: veering wind of ``wind_speed`` and the
+    Gaussian-dispersion vertical profile at ``num_levels`` heights evenly
+    over [0, z_extent]; built one frame at a time."""
+    from tpu_plume_torch.fields.analytic import anisotropic_base
+
+    dev = sources.device
+    fx, fy = _grid(grid or cfg.grid_size, dev)
+    ze = cfg.domain_height if z_extent is None else z_extent
+    levels = torch.linspace(0.0, ze, num_levels, device=dev)[:, None, None]
+    wind = wind_speed * _winds(_frame_thetas(theta0, veer, num_frames))
+    g = fx.shape[0]
+    conc = torch.empty(len(sources), num_frames, num_levels, g, g,
+                       dtype=torch.float32, device=dev)
+    for k, s in enumerate(sources):
+        for f in range(num_frames):
+            conc[k, f] = anisotropic_base(s, wind[k, f], fx, fy, cfg, z=levels)
+    return FieldBank(conc=conc, source=sources, wind=wind,
+                     steps_per_frame=steps_per_frame, z_extent=ze)
+
+
+def synthesize_3d_bank(generator: torch.Generator, cfg: EnvConfig,
+                       num_fields: int = 4, num_frames: int = 8,
+                       num_levels: int = 8, steps_per_frame: float = 128.0,
+                       z_extent: float | None = None, grid: int | None = None,
+                       wind_speed: float = 2.0) -> FieldBank:
+    """A time-varying 3-D volume bank [K, T, Z, G, G]: anisotropic plumes
+    with veering per-frame wind and a vertical profile, in the layout of
+    real WRF-LES output."""
+    g = grid or cfg.grid_size
+    sources = _draw_sources(generator, cfg, num_fields, g)
+    theta0 = _uniform(generator, (num_fields,), 0.0, 2 * math.pi)
+    veer = _uniform(generator, (num_fields,), -1.0, 1.0)
+    return build_3d_bank(sources, theta0, veer, cfg, num_frames, num_levels,
+                         steps_per_frame, z_extent, g, wind_speed)
+
+
+@dataclass
+class LesDraws:
+    """The draws of ``synthesize_les_bank``: per field f32[K], per puff
+    f32[K, P]."""
+
+    sources: torch.Tensor
+    theta0: torch.Tensor
+    bend: torch.Tensor
+    phase: torch.Tensor
+    puff_phase: torch.Tensor
+    puff_rate: torch.Tensor
+    veer: torch.Tensor
+
+
+def build_les_bank(d: LesDraws, cfg: EnvConfig, num_frames: int = 16,
+                   steps_per_frame: float = 64.0, grid: int | None = None,
+                   meander_amp: float = 35.0,
+                   meander_wavelength: float = 160.0,
+                   width_gain: float = 0.12,
+                   intermittency: float = 1.5) -> FieldBank:
+    """``synthesize_les_bank``'s body: meandering, curved centerlines with
+    intermittent advecting puffs, outside the Gaussian-ribbon family; each
+    field scaled so its maximum is ``cfg.conc_peak``."""
+    dev = d.sources.device
+    g = grid or cfg.grid_size
+    ix, iy = _grid(g, dev)
+    num_puffs = d.puff_phase.shape[1]
+    s_max = 1.1 * g
+    spacing = s_max / num_puffs
+    tfs = torch.linspace(0.0, 1.0, num_frames, device=dev)
+    puffs = torch.arange(num_puffs, device=dev).to(torch.float32)
+    lam = meander_wavelength
+
+    def one_frame(k, tf):
+        src, th = d.sources[k], d.theta0[k] + d.veer[k] * tf
+        dx, dy = ix - src[0], iy - src[1]
+        s = dx * torch.cos(th) + dy * torch.sin(th)         # downstream
+        n = -dx * torch.sin(th) + dy * torch.cos(th)        # crosswind
+        ramp = torch.clamp(s / lam, 0.0, 1.0)
+        center = (meander_amp * ramp
+                  * torch.sin(2 * math.pi * (s / lam - tf) + d.phase[k])
+                  + d.bend[k] * s * s / s_max)
+        sig_n = 2.0 + width_gain * torch.clamp(s, min=0.0)
+        sig_s = 3.0 * sig_n
+        sj = torch.remainder(puffs * spacing + tf * 2.0 * spacing, s_max)
+        env = torch.clamp(torch.sin(2 * math.pi * (d.puff_rate[k] * tf)
+                                    + d.puff_phase[k]), min=0.0) ** intermittency
+        amp = env * 30.0 / (sj + 30.0)
+        blob = amp[:, None, None] * torch.exp(
+            -((s[None] - sj[:, None, None]) ** 2 / (2.0 * sig_s[None] ** 2)
+              + (n[None] - center[None]) ** 2 / (2.0 * sig_n[None] ** 2)))
+        near = torch.exp(-(dx * dx + dy * dy) / (2.0 * 3.0 ** 2))
+        return torch.sum(blob, dim=0) * (s > -5.0) + near
+
+    fields = []
+    for k in range(len(d.sources)):
+        f = torch.stack([one_frame(k, tf) for tf in tfs])
+        fields.append(f * (cfg.conc_peak / torch.clamp(f.max(), min=1e-6)))
+    wind = _winds(d.theta0[:, None] + d.veer[:, None] * tfs[None, :])
+    return FieldBank(conc=torch.stack(fields), source=d.sources, wind=wind,
+                     steps_per_frame=steps_per_frame)
+
+
+def synthesize_les_bank(generator: torch.Generator, cfg: EnvConfig,
+                        num_fields: int = 16, num_frames: int = 16,
+                        steps_per_frame: float = 64.0, grid: int | None = None,
+                        num_puffs: int = 12, **shape) -> FieldBank:
+    """A model-mismatch surrogate for WRF-LES output [K, T, G, G]
+    (``build_les_bank`` says what it holds); ``shape`` passes
+    ``meander_amp``, ``meander_wavelength``, ``width_gain`` and
+    ``intermittency`` on."""
+    g = grid or cfg.grid_size
+    two_pi = 2 * math.pi
+    draws = LesDraws(
+        sources=_draw_sources(generator, cfg, num_fields, g),
+        theta0=_uniform(generator, (num_fields,), 0.0, two_pi),
+        bend=_uniform(generator, (num_fields,), -0.6, 0.6),
+        phase=_uniform(generator, (num_fields,), 0.0, two_pi),
+        puff_phase=_uniform(generator, (num_fields, num_puffs), 0.0, two_pi),
+        puff_rate=_uniform(generator, (num_fields, num_puffs), 0.5, 2.0),
+        veer=_uniform(generator, (num_fields,), -0.5, 0.5),
+    )
+    return build_les_bank(draws, cfg, num_frames, steps_per_frame, g, **shape)

@@ -36,24 +36,31 @@ def cell_of(pos: torch.Tensor, grid_size: int):
     return ij[..., 0], ij[..., 1]
 
 
-def sample_plume_plain(pos: torch.Tensor, source: torch.Tensor,
-                       seed: torch.Tensor, cfg: EnvConfig):
-    """The kernel's function in plain PyTorch: pos f32[N, 2], source
-    f32[N, 2], seed int32[N] (uint32 bit pattern) -> conc, tke f32[N]."""
-    ix, iy = cell_of(pos, cfg.grid_size)
+def turbulence(seed: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor,
+               cfg: EnvConfig) -> torch.Tensor:
+    """TI * (|N| or N + 0.3 sin(0.05 ix) cos(0.07 iy) + 0.2 U) at integer
+    cells, N and U hashed from (seed, ix, iy) (``_turbulence``,
+    ``tpu_plume/fields/analytic.py:148-156``)."""
     fx = ix.to(torch.float32)
     fy = iy.to(torch.float32)
-    dx = fx - source[..., 0]
-    dy = fy - source[..., 1]
-    base = cfg.conc_peak * torch.exp(
-        -(dx * dx + dy * dy) / (2.0 * cfg.plume_sigma**2))
-
     n = prng.cell_normal(seed, ix, iy, SALT_NORMAL)
     if not cfg.turbulence_signed_normal:
         n = torch.abs(n)
     u = prng.cell_uniform(seed, ix, iy, SALT_UNIFORM)
     wave = 0.3 * torch.sin(0.05 * fx) * torch.cos(0.07 * fy)
-    turb = cfg.turbulence_intensity * (n + wave + 0.2 * u)
+    return cfg.turbulence_intensity * (n + wave + 0.2 * u)
+
+
+def sample_plume_plain(pos: torch.Tensor, source: torch.Tensor,
+                       seed: torch.Tensor, cfg: EnvConfig):
+    """The kernel's function in plain PyTorch: pos f32[N, 2], source
+    f32[N, 2], seed int32[N] (uint32 bit pattern) -> conc, tke f32[N]."""
+    ix, iy = cell_of(pos, cfg.grid_size)
+    dx = ix.to(torch.float32) - source[..., 0]
+    dy = iy.to(torch.float32) - source[..., 1]
+    base = cfg.conc_peak * torch.exp(
+        -(dx * dx + dy * dy) / (2.0 * cfg.plume_sigma**2))
+    turb = turbulence(seed, ix, iy, cfg)
 
     conc = torch.clamp(base + turb, 0.0, cfg.conc_peak)
     tke = torch.abs(turb) * 2.0 if cfg.tke_abs_times_two else turb

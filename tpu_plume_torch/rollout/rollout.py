@@ -1,5 +1,6 @@
 """Rollout of the policy and the env over N envs for T steps (port of
-``tpu_plume/rollout/rollout.py``, feedforward policy).
+``tpu_plume/rollout/rollout.py``, feedforward policy, analytic plume or a
+gridded ``FieldBank`` passed as ``bank``).
 
 Per step: one policy forward over all envs, a Gumbel-max action sample,
 ``step_noise`` and the auto-reset of finished envs.  The chunk's randomness
@@ -77,7 +78,7 @@ class RolloutStep:
     value: torch.Tensor          # f32[N]
     reward: torch.Tensor         # f32[N]
     done: torch.Tensor           # bool[N]
-    pos: torch.Tensor            # f32[N, 2] post-step position
+    pos: torch.Tensor            # f32[N, pos_dim] post-step position
     conc: torch.Tensor           # f32[N] raw conc at the new cell
     episode: EpisodeRecord
 
@@ -86,7 +87,7 @@ class RolloutStep:
 class ChunkDraws:
     """The randomness of one chunk of T steps over N envs."""
 
-    turb_noise: torch.Tensor     # f32[T, N, 2] displacement normals
+    turb_noise: torch.Tensor     # f32[T, N, pos_dim] displacement normals
     gumbel: torch.Tensor | None  # f32[T, N, A] Gumbel noise; None = greedy
     u_src: torch.Tensor          # f32[T, N, 2] reset source uniforms
     bits: torch.Tensor           # i32[T, N] reset field seeds
@@ -117,7 +118,8 @@ def draw_chunk(generator: torch.Generator, cfg: EnvConfig, length: int,
     dev = generator.device
     t, n = length, num_envs
     return ChunkDraws(
-        turb_noise=torch.randn(t, n, 2, device=dev, generator=generator),
+        turb_noise=torch.randn(t, n, cfg.pos_dim, device=dev,
+                               generator=generator),
         gumbel=None if greedy else gumbel_noise((t, n, cfg.num_actions),
                                                 generator),
         u_src=torch.rand(t, n, 2, device=dev, generator=generator),
@@ -127,12 +129,14 @@ def draw_chunk(generator: torch.Generator, cfg: EnvConfig, length: int,
 
 def init_rollout(cfg: EnvConfig, num_envs: int, generator: torch.Generator,
                  radius: float | None = None,
-                 explore_bonus: float | None = None) -> RolloutCarry:
+                 explore_bonus: float | None = None,
+                 bank=None) -> RolloutCarry:
     """Fresh episodes in every env, on the generator's device."""
     dev = generator.device
     u_src = torch.rand(num_envs, 2, device=dev, generator=generator)
     env_state, obs = reset_from_draws(
-        u_src, random_bits((num_envs,), generator), cfg, radius, explore_bonus)
+        u_src, random_bits((num_envs,), generator), cfg, radius, explore_bonus,
+        bank)
     return RolloutCarry(env_state=env_state, obs=obs,
                         accum=EpisodeAccum.zeros(num_envs, dev),
                         generator=generator)
@@ -149,7 +153,7 @@ def _stack(items):
 @torch.no_grad()
 def rollout_chunk(model: torch.nn.Module, carry: RolloutCarry, cfg: EnvConfig,
                   length: int, greedy: bool = False,
-                  draws: ChunkDraws | None = None):
+                  draws: ChunkDraws | None = None, bank=None):
     """Run ``length`` policy+env steps for all envs.
 
     Returns ``(carry', traj: RolloutStep[T, N, ...], bootstrap_value f32[N])``
@@ -171,7 +175,7 @@ def rollout_chunk(model: torch.nn.Module, carry: RolloutCarry, cfg: EnvConfig,
             -1, action[:, None]).squeeze(-1)
 
         env_state, trans = step_noise(env_state, action, draws.turb_noise[t],
-                                      cfg)
+                                      cfg, bank)
         info = trans.info
         acc = EpisodeAccum(
             total_reward=acc.total_reward + trans.reward,
@@ -214,7 +218,7 @@ def rollout_chunk(model: torch.nn.Module, carry: RolloutCarry, cfg: EnvConfig,
                              for f in dataclasses.fields(acc)))
         env_state, obs = auto_reset_from_draws(
             env_state, trans.obs, trans.done, draws.u_src[t], draws.bits[t],
-            cfg)
+            cfg, bank)
 
     _, bootstrap_value = model(obs)
     carry = RolloutCarry(env_state=env_state, obs=obs, accum=acc,

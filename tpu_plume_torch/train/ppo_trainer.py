@@ -1,5 +1,5 @@
 """End-to-end PPO training (port of ``tpu_plume/train/ppo_trainer.py``,
-feedforward policy on the analytic plume).
+feedforward policy on the analytic plume or a gridded ``FieldBank``).
 
 One train step runs
 
@@ -132,9 +132,12 @@ def _sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
-def build_train_step(cfg: TrainConfig, time_phases: bool = False):
+def build_train_step(cfg: TrainConfig, bank=None, time_phases: bool = False):
     """One training iteration ``train_step(loop, draws=None, shuffles=None)
     -> (loop, stats, traj)``.
+
+    ``bank`` is the ``FieldBank`` of ``plume_model="gridded"``, on the
+    loop's device; the step holds it.
 
     ``draws`` (``ChunkDraws``) and ``shuffles`` (one roll offset or index
     permutation per epoch) replace the iteration's randomness.  With
@@ -143,6 +146,8 @@ def build_train_step(cfg: TrainConfig, time_phases: bool = False):
     ``time/update_ms``."""
     check_env(cfg.env)
     check_ppo(cfg.ppo)
+    if cfg.env.plume_model == "gridded" and bank is None:
+        raise ValueError('plume_model="gridded" requires a FieldBank')
     env_cfg, ppo_cfg, cur_cfg = cfg.env, cfg.ppo, cfg.curriculum
     T = cfg.rollout.unroll_length
     # bf16_update split: the update's loss runs a bf16 twin of the model
@@ -174,7 +179,7 @@ def build_train_step(cfg: TrainConfig, time_phases: bool = False):
 
         mark()
         carry, traj, bootstrap = rollout_chunk(loop.model, carry, env_cfg, T,
-                                               draws=draws)
+                                               draws=draws, bank=bank)
         mark()
         advantages, returns = compute_gae(
             traj.reward, traj.value, traj.done, bootstrap,
@@ -230,14 +235,16 @@ def build_train_step(cfg: TrainConfig, time_phases: bool = False):
     return train_step
 
 
-def init_loop(cfg: TrainConfig, device) -> LoopCarry:
-    """Fresh model, optimizer, envs and curriculum from ``cfg.seed``."""
+def init_loop(cfg: TrainConfig, device, bank=None) -> LoopCarry:
+    """Fresh model, optimizer, envs and curriculum from ``cfg.seed``;
+    ``bank`` (gridded model) on ``device``."""
     device = torch.device(device)
     model, optimizer = make_train_state(cfg, device, cfg.seed)
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
     rollout = init_rollout(cfg.env, cfg.rollout.num_envs, generator,
                            radius=cfg.curriculum.initial_radius,
-                           explore_bonus=cfg.env.explore_bonus_init)
+                           explore_bonus=cfg.env.explore_bonus_init,
+                           bank=bank)
     return LoopCarry(model=model, optimizer=optimizer, rollout=rollout,
                      curriculum=curriculum_init(cfg.curriculum,
                                                 cfg.env.explore_bonus_init),
@@ -327,20 +334,24 @@ def train_ppo(
     verbose: bool = True,
     sync_every: int | None = None,
     guide=None,
+    bank=None,
 ) -> TrainResult:
     """Train until ``cfg.total_episodes`` episodes complete (or
     ``max_iterations`` iterations).  ``device`` defaults to ``cuda`` and
     raises without a card; pass ``"cpu"`` to run on the CPU.
     ``sync_every`` is the number of iterations whose episode records are
     drained to the CSV in one batch (default 8).  ``guide`` (a training
-    guide) is not ported yet and raises."""
+    guide) is not ported yet and raises.  ``bank`` is the ``FieldBank`` of
+    ``plume_model="gridded"``; it is moved to ``device``."""
     device = resolve_device(device)
     check_env(cfg.env)
     check_ppo(cfg.ppo)
     check_guide(guide)
+    if bank is not None:
+        bank = bank.to(device)
     os.makedirs(out_dir, exist_ok=True)
-    loop = init_loop(cfg, device)
-    train_step = build_train_step(cfg)
+    loop = init_loop(cfg, device, bank)
+    train_step = build_train_step(cfg, bank)
     per_iter_steps = cfg.rollout.num_envs * cfg.rollout.unroll_length
     sync_every = max(8 if sync_every is None else sync_every, 1)
     episodes = successes = env_steps = iteration = 0
