@@ -17,12 +17,21 @@ outside a checkout of the repository.  Phases, each of which must pass:
    bilinear and trilinear gathers at the TPU kernels' own call (one
    [500, 500] field, one [8, 500, 500] volume) and at a bank's stacks
    ([64, 500, 500], [32, 8, 500, 500]) at N = 4096 and 2^20, bit-equal or
-   within 1e-6 x max|field|, two calls bit-equal;
+   within 1e-6 x max|field|, two calls bit-equal; the same kernels' bank
+   sample (the env step's sub-cell sample, one launch) against
+   ``sample_bank_conc_tke_plain`` at every bank layout (static [64, 500,
+   500], time-varying [8, 16, 500, 500], 3-D [4, 8, 8, 500, 500] in 3-D
+   and 2-D flight, one-frame [4, 1, 8, 500, 500]) with frames of 100 env
+   steps, N = 4096 and 2^20, both turbulence flag sets, within the plume
+   tolerance, two calls bit-equal, and bit-equal with the turbulence off;
 4. each kernel's time, its plain version's and the least time the card
    could take for the same bytes and operations; for the fused PPO kernel
    also autodiff's forward and backward of ``ppo_loss`` on the same
    minibatch; for the gathers also ``grid_sample`` on the same field or
-   volume (checked to agree within 1e-4 x max|field|);
+   volume (checked to agree within 1e-4 x max|field|), in two alternating
+   blocks (kernel, grid_sample, grid_sample, kernel); for the bank sample
+   its time over the main paths' banks and the host cost of each piece of
+   its wrapper;
 5. one train iteration at a small size on the card against the same
    iteration on the CPU (the CPU path is the one the tests hold to the JAX
    package): f32, ``fused_update``, ``bf16_compute``, and both; wrf_les_3d
@@ -31,12 +40,14 @@ outside a checkout of the repository.  Phases, each of which must pass:
 6. the main paths at full width, 4096 envs x 128 steps, minibatch 65536,
    5 epochs, each with one warm-up and timed iterations, the kernel launch
    counts set to 0 just before the timed iterations and read just after,
-   and one more iteration under the profiler: the ppo_v2_0 train step with
+   and one more iteration under the profiler (its launches printed): the
+   ppo_v2_0 train step with
    the 6->256->128 network in three variants (f32 autodiff,
    ``fused_update``, ``bf16_compute``); wrf_les_3d (3-D flight through the
    [4, 8, 8, 500, 500] bank of ``--synth-bank 3d``, the 7->256->128 network;
-   the trilinear kernel); the 64-field static bank of ``--synth-bank
-   static`` read between cells (the bilinear kernel);
+   one trilinear launch a sample); the 64-field static bank of
+   ``--synth-bank static`` read between cells (one bilinear launch a
+   sample);
 7. the ``train`` CLI for two iterations at the same width: ppo_v2_0 in f32
    and with ``--bf16``, and ``--preset wrf_les_3d --synth-bank 3d``.
 
@@ -88,6 +99,17 @@ GATHER_SHAPES = {"bilinear": ((1, 500, 500), (64, 500, 500)),
                  "trilinear_zyx": ((1, 8, 500, 500), (32, 8, 500, 500))}
 GATHER_ATOL_PER_MAX = 1e-6
 GRID_SAMPLE_ATOL_PER_MAX = 1e-4
+# Bank samples: (bank shape, 3-D flight) of each layout, frames of a
+# number of env steps that is not a power of two; the main paths' layouts
+# are the static bank of ``--synth-bank static`` and the bank of
+# ``--synth-bank 3d`` in 3-D flight.
+SAMPLE_LAYOUTS = {"static": ((64, 500, 500), False),
+                  "frames": ((8, 16, 500, 500), False),
+                  "volumes": ((4, 8, 8, 500, 500), True),
+                  "volumes_2d_flight": ((4, 8, 8, 500, 500), False),
+                  "one_frame": ((4, 1, 8, 500, 500), True)}
+SAMPLE_SPF = 100.0
+V10_FLAGS = dict(turbulence_signed_normal=True, tke_abs_times_two=True)
 
 
 def log(*parts):
@@ -406,12 +428,16 @@ def grid_sample_call(stack, pts):
     return call
 
 
-def time_gather_kernels(gather) -> dict:
+def time_gather_kernels(gather, plume) -> dict:
     """Each gather kernel's time at N = 4096 and 2^20 over the TPU kernel's
     own call (and per call over the bank stack), beside its plain version's,
     ``grid_sample``'s and the bound.  The bound counts each query's point,
     row and output once, and each cell the corners touch once
-    (``gather.moved_bytes``)."""
+    (``gather.moved_bytes``).  At 2^20 also ``torch.take`` of every corner
+    offset the kernel reads: the same scattered loads in one PyTorch call,
+    the yardstick of the rate the memory system gives them."""
+    import torch
+
     out = {}
     for name, (one, stack_shape) in GATHER_SHAPES.items():
         kernel, plain = _gather_fns(gather, name)
@@ -423,25 +449,247 @@ def time_gather_kernels(gather) -> dict:
             lib_err = float((lib() - kernel(*args)).abs().max())
             assert lib_err <= GRID_SAMPLE_ATOL_PER_MAX * float(
                 args[0].abs().max()), (name, n, lib_err)
-            ms = cuda_ms(lambda: kernel(*args), reps)
+            # two alternating blocks: kernel, grid_sample, grid_sample, kernel
+            ms_a = cuda_ms(lambda: kernel(*args), reps)
+            library_a = cuda_ms(lib, reps)
+            library_b = cuda_ms(lib, reps)
+            ms_b = cuda_ms(lambda: kernel(*args), reps)
+            ms, library_ms = (ms_a + ms_b) / 2, (library_a + library_b) / 2
             device_ms = kernel_device_ms(lambda: kernel(*args), kname)
             plain_ms = cuda_ms(lambda: plain(*args), max(reps // 10, 20))
-            library_ms = cuda_ms(lib, reps)
             library_device_ms = kernel_device_ms(lib, "grid_sampler")
             bound_ms = gather.moved_bytes(*args) / HBM_BYTES_PER_S * 1e3
             big = gather_inputs(stack_shape, n, seed=n + 5)
             stack_ms = cuda_ms(lambda: kernel(*big), reps)
+            if name == "trilinear_zyx" and n == MAIN_N:
+                out["split_ns"] = gather_split(gather, plume, *args, lib)
+            take = {}
+            if n == LARGE_N:
+                corners = gather._corner_cells(*args)
+                flat = args[0].reshape(-1)
+                take_ms = cuda_ms(lambda: torch.take(flat, corners), reps)
+                take = dict(take_ms=take_ms, loads=corners.numel())
+                log(f"scattered loads of {name} N={n}: {corners.numel()} "
+                    f"corner loads, torch.take of them {take_ms:.5f} ms "
+                    f"({corners.numel() / take_ms / 1e6:.1f} G loads/s), "
+                    f"the kernel on the device {device_ms} ms")
             out[name][n] = dict(
-                ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                **take, ms=ms, ms_blocks=[ms_a, ms_b],
+                library_ms_blocks=[library_a, library_b],
+                device_ms=device_ms, plain_ms=plain_ms,
                 library_ms=library_ms, library_device_ms=library_device_ms,
                 library_max_abs_err=lib_err, bound_ms=bound_ms,
                 bound_by="bytes", stack_ms=stack_ms)
-            log(f"time {name} {list(one)} N={n}: per call {ms:.5f} ms, on "
-                f"the device {device_ms} ms, plain {plain_ms:.5f} ms, "
-                f"grid_sample {library_ms:.5f} ms (device "
+            log(f"time {name} {list(one)} N={n}: per call {ms_a:.5f} / "
+                f"{ms_b:.5f} ms (blocks 1 and 4), on the device {device_ms} "
+                f"ms, plain {plain_ms:.5f} ms, grid_sample {library_a:.5f} / "
+                f"{library_b:.5f} ms (blocks 2 and 3; device "
                 f"{library_device_ms} ms, max_abs_err {lib_err:.3e}), bound "
                 f"{bound_ms:.6f} ms (bytes); per call over "
-                f"{list(stack_shape)} {stack_ms:.5f} ms")
+                f"{list(stack_shape)} {stack_ms:.5f} ms; kernel per call <= "
+                f"grid_sample's in both blocks: "
+                f"{ms_a <= library_a and ms_b <= library_b}")
+    return out
+
+
+def sample_bank_of(gridded, layout: str, z_extent: float, seed: int):
+    """A bank of ``layout`` on the card with values in [0, 100)."""
+    import torch
+
+    shape = SAMPLE_LAYOUTS[layout][0]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return gridded.FieldBank(
+        conc=100.0 * torch.rand(shape, device="cuda", generator=g),
+        source=torch.zeros(shape[0], 2, device="cuda"),
+        steps_per_frame=SAMPLE_SPF, z_extent=z_extent)
+
+
+def sample_queries(bank, pos_dim: int, n: int, seed: int):
+    """(idx, pos, t, seed bits) on the card: rows, positions from 10 beyond
+    each edge (heights from 5 beyond the levels) with exact cell edges,
+    steps over 10 frames' worth (past the last frame of every bank)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    k, h, w = bank.conc.shape[0], *bank.conc.shape[-2:]
+    idx = torch.randint(0, k, (n,), dtype=torch.int32, device="cuda",
+                        generator=g)
+    lo = torch.tensor([-10.0, -10.0, -5.0][:pos_dim], device="cuda")
+    hi = torch.tensor([h + 10.0, w + 10.0, bank.z_extent + 5.0][:pos_dim],
+                      device="cuda")
+    pos = lo + (hi - lo) * torch.rand(n, pos_dim, device="cuda", generator=g)
+    pos[4:64, :2] = torch.floor(pos[4:64, :2])
+    t = torch.randint(0, int(10 * SAMPLE_SPF), (n,), dtype=torch.int32,
+                      device="cuda", generator=g)
+    bits = torch.randint(-(2**31), 2**31, (n,), dtype=torch.int32,
+                         device="cuda", generator=g)
+    return idx, pos.contiguous(), t, bits
+
+
+def check_sample_kernels(get_preset, gridded, gather) -> dict:
+    """The bank sample kernels against ``sample_bank_conc_tke_plain`` at
+    every layout, N = 4096 and 2^20, both turbulence flag sets: within
+    RTOL/ATOL, two calls bit-equal, and, with the turbulence off, bit-equal
+    (the frame division, the level scale, the gathers and the lerps are the
+    plain version's to the bit).  Returns the worst absolute error of each
+    kernel."""
+    import torch
+
+    base = get_preset("wrf_les_3d").env
+    worst = {"bilinear": 0.0, "trilinear_zyx": 0.0}
+    for i, (layout, (_, env_3d)) in enumerate(SAMPLE_LAYOUTS.items()):
+        name = "bilinear" if layout == "static" else "trilinear_zyx"
+        bank = sample_bank_of(gridded, layout, base.domain_height, seed=i)
+        for n in (MAIN_N, LARGE_N):
+            for flags in ({}, V10_FLAGS):
+                cfg = dataclasses.replace(base, env_3d=env_3d, **flags)
+                args = sample_queries(bank, cfg.pos_dim, n, seed=n + i)
+                got = gather.sample_bank_conc_tke(bank, *args, cfg)
+                again = gather.sample_bank_conc_tke(bank, *args, cfg)
+                torch.cuda.synchronize()
+                want = gather.sample_bank_conc_tke_plain(bank, *args, cfg)
+                err = 0.0
+                for a, b, c in zip(got, again, want):
+                    assert torch.equal(a, b), (layout, n, "repeat")
+                    assert torch.isfinite(a).all(), (layout, n)
+                    torch.testing.assert_close(a, c, rtol=RTOL, atol=ATOL)
+                    err = max(err, float((a - c).abs().max()))
+                quiet = dataclasses.replace(cfg, turbulence_intensity=0.0)
+                q_got = gather.sample_bank_conc_tke(bank, *args, quiet)[0]
+                q_want = gather.sample_bank_conc_tke_plain(bank, *args,
+                                                           quiet)[0]
+                assert torch.equal(q_got, q_want), (layout, n, "quiet")
+                log(f"parity bank sample ({name}) {layout} "
+                    f"{list(bank.conc.shape)} N={n} "
+                    f"{'v1_0 flags' if flags else 'v1_1 flags'}: "
+                    f"max_abs_err {err:.3e}, repeat bit-equal, bit-equal "
+                    f"without turbulence")
+                worst[name] = max(worst[name], err)
+        del bank
+        torch.cuda.empty_cache()
+    return worst
+
+
+def host_split(label: str, pieces: dict, reps: int = 20000) -> dict:
+    """Host ns per call of each of ``pieces`` (name: function of no
+    arguments), by ``time.perf_counter_ns`` over ``reps`` calls after 100
+    warm-up calls; the card is synchronised around each piece."""
+    import torch
+
+    out = {}
+    for key, fn in {"loop": lambda: None, **pieces}.items():
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(reps):
+            fn()
+        out[key] = (time.perf_counter_ns() - t0) / reps
+        torch.cuda.synchronize()
+    log(f"host split of {label}, ns per call over {reps} calls: "
+        + ", ".join(f"{k} {v:.0f}" for k, v in out.items()))
+    return out
+
+
+def sample_split(gather, bank, args, cfg) -> dict:
+    """The pieces of one bank sample call (``BankSampler.__call__``): the
+    lookup of the bank's kept launch, the per-query checks, the one
+    allocation of conc and tke (beside two allocations), the stream read,
+    the six data_ptr reads, the entry point's call with its launch and
+    without (N = 0), and the whole wrapper."""
+    idx, pos, t, seed = args
+    sampler = bank.sampler(cfg)
+    n, index = idx.shape[0], sampler.index
+    conc, tke = pos.new_empty((2, n)).unbind()
+    ptrs = (idx.data_ptr(), pos.data_ptr(), t.data_ptr(), seed.data_ptr(),
+            conc.data_ptr(), tke.data_ptr())
+    stream = gather._raw_stream(index)
+    return host_split("the bank sample wrapper", {
+        "lookup": lambda: bank.sampler(cfg),
+        "checks": lambda: sampler.takes(idx, pos, t, seed),
+        "allocate": lambda: pos.new_empty((2, n)).unbind(),
+        "allocate_two": lambda: (pos.new_empty(n), pos.new_empty(n)),
+        "stream": lambda: gather._raw_stream(index),
+        "data_ptr": lambda: (idx.data_ptr(), pos.data_ptr(), t.data_ptr(),
+                             seed.data_ptr(), conc.data_ptr(),
+                             tke.data_ptr()),
+        "entry_no_launch": lambda: sampler.launch(sampler.address, *ptrs, 0,
+                                                  stream),
+        "entry_launch": lambda: sampler.launch(sampler.address, *ptrs, n,
+                                               stream),
+        "wrapper": lambda: gather.sample_bank_conc_tke(bank, *args, cfg),
+    })
+
+
+def gather_split(gather, plume, stack, rows, pts, lib) -> dict:
+    """The pieces of one trilinear gather call over a stack (the TPU
+    kernel's own call), beside ``grid_sample``'s whole call; and, as the
+    yardstick of the binding's own cost, a ctypes call of the plume
+    kernel's C entry point (13 arguments) with N = 0, which returns before
+    any launch, beside the gather's entry point with N = 0."""
+    index = stack.get_device()
+    n = pts.shape[0]
+    out = pts.new_empty(n)
+    fn = gather._gathers[4]
+    ptrs = (stack.data_ptr(), rows.data_ptr(), pts.data_ptr(), out.data_ptr())
+    stream = gather._raw_stream(index)
+    shape = stack.shape
+    plume_entry = plume._library()
+    return host_split("the trilinear gather wrapper", {
+        "checks": lambda: gather._takes(stack, rows, pts, 4, index, n),
+        "allocate": lambda: pts.new_empty(n),
+        "entry_no_launch": lambda: fn(*ptrs, 0, shape, stream),
+        "ctypes_no_launch": lambda: plume_entry(*ptrs, None, 0, 1, 1.0, 1.0,
+                                                1.0, 0, 0, stream),
+        "entry_launch": lambda: fn(*ptrs, n, shape, stream),
+        "wrapper": lambda: gather.trilinear_zyx(stack, rows, pts),
+        "grid_sample": lib,
+    })
+
+
+def time_sample_kernels(get_preset, gridded, gather) -> dict:
+    """Each sample kernel's per-call, device and plain time at N = 4096 and
+    2^20 over a main path's bank (bilinear: the static [64, 500, 500] bank;
+    trilinear: the [4, 8, 8, 500, 500] bank in 3-D flight), and the bound:
+    the larger of its bytes (``gather.sample_moved_bytes``) over the memory
+    rate and the plume kernel's operations a query over the f32 rate.  Also
+    the split of the wrapper's host cost at N = 4096 over the 3-D bank."""
+    import torch
+
+    base = get_preset("wrf_les_3d").env
+    out = {}
+    for name, layout, kname in (("bilinear", "static", "bilinear_kernel"),
+                                ("trilinear_zyx", "volumes",
+                                 "trilinear_zyx")):
+        env_3d = SAMPLE_LAYOUTS[layout][1]
+        cfg = dataclasses.replace(base, env_3d=env_3d)
+        bank = sample_bank_of(gridded, layout, base.domain_height, seed=21)
+        out[name] = {}
+        for n, reps in ((MAIN_N, 2000), (LARGE_N, 200)):
+            args = sample_queries(bank, cfg.pos_dim, n, seed=n + 21)
+
+            def call():
+                return gather.sample_bank_conc_tke(bank, *args, cfg)
+
+            ms = cuda_ms(call, reps)
+            device_ms = kernel_device_ms(call, kname)
+            plain_ms = cuda_ms(lambda: gather.sample_bank_conc_tke_plain(
+                bank, *args, cfg), max(reps // 10, 20))
+            bytes_s = gather.sample_moved_bytes(bank, args[0], args[1],
+                                                args[2], cfg) / HBM_BYTES_PER_S
+            ops_s = PLUME_OPS_PER_QUERY * n / F32_OPS_PER_S
+            bound_ms = max(bytes_s, ops_s) * 1e3
+            bound_by = "bytes" if bytes_s >= ops_s else "operations"
+            out[name][n] = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                                bound_ms=bound_ms, bound_by=bound_by)
+            log(f"time bank sample ({name}) {layout} "
+                f"{list(bank.conc.shape)} N={n}: per call {ms:.5f} ms, on "
+                f"the device {device_ms} ms, plain {plain_ms:.5f} ms, bound "
+                f"{bound_ms:.6f} ms ({bound_by})")
+            if name == "trilinear_zyx" and n == MAIN_N:
+                out["split_ns"] = sample_split(gather, bank, args, cfg)
+        del bank
+        torch.cuda.empty_cache()
     return out
 
 
@@ -474,7 +722,7 @@ def profile_iteration(step, loop):
     for e in top:
         log(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x "
             f"{e.key[:90]}")
-    return loop, device_ms / wall_ms
+    return loop, device_ms / wall_ms, count
 
 
 def to_device(obj, device):
@@ -514,9 +762,9 @@ def expected_counts(cfg, bank, iters: int) -> dict:
     """Launches of each kernel in ``iters`` train iterations by the port's
     design: per env step two field samples (the step and the branchless
     reset); an analytic sample is one plume launch, a sub-cell bank sample
-    one bilinear launch (static bank), one trilinear launch (time-varying
-    2-D bank) or two (3-D bank: frames t0 and t0+1); each minibatch step of
-    the fused update one fused and one reduction launch."""
+    one launch of the sample kernel: bilinear for a static bank, trilinear
+    for a time-varying or 3-D one; each minibatch step of the fused update
+    one fused and one reduction launch."""
     env, ppo = cfg.env, cfg.ppo
     n, t = cfg.rollout.num_envs, cfg.rollout.unroll_length
     samples = iters * 2 * t
@@ -524,10 +772,7 @@ def expected_counts(cfg, bank, iters: int) -> dict:
     if env.plume_model != "gridded":
         want["plume_sample"] = samples
     elif env.subcell_sampling:
-        if bank.conc.dim() == 3:
-            want["bilinear"] = samples
-        else:
-            want["trilinear_zyx"] = samples * (bank.conc.dim() - 3)
+        want["bilinear" if bank.conc.dim() == 3 else "trilinear_zyx"] = samples
     if ppo.fused_update:
         want["ppo_fused"] = want["ppo_reduce"] = (
             iters * ppo.epochs * (n * t // ppo.minibatch_size))
@@ -665,11 +910,12 @@ def run_main_path(ttrain, k, label, cfg, bank=None, iters=3, profile=True):
         f"{stats['curriculum/radius']:.2f}; launches over the {iters} timed "
         f"iterations {counts}, per iteration "
         f"{ {name: c // iters for name, c in counts.items()} }")
-    busy = None
+    busy = profiled = None
     if profile:
-        loop, busy = profile_iteration(step, loop)
+        loop, busy, profiled = profile_iteration(step, loop)
     return dict(counts=counts, sps=sps, whole_ms=wall / iters * 1e3,
-                busy=busy, max_memory_allocated=max_mem,
+                busy=busy, profiled_launches=profiled,
+                max_memory_allocated=max_mem,
                 **{key: v / iters for key, v in phases.items()})
 
 
@@ -744,7 +990,9 @@ def main() -> int:
     ppo_err = check_ppo_kernel(*ppo_args)
     ppo_time = time_ppo_kernel(*ppo_args)
     gather_err = check_gather_kernels(gather)
-    gather_time = time_gather_kernels(gather)
+    gather_time = time_gather_kernels(gather, plume)
+    sample_err = check_sample_kernels(get_preset, gridded, gather)
+    sample_time = time_sample_kernels(get_preset, gridded, gather)
 
     k = types.SimpleNamespace(plume=plume, fused_ops=fused_ops, gather=gather,
                               gridded=gridded)
@@ -802,6 +1050,12 @@ def main() -> int:
     static = run_main_path(ttrain, k, "static_subcell", st, bank, iters=2)
     del bank
     torch.cuda.empty_cache()
+    log("profiled launches per iteration: " + ", ".join(
+        f"{label} {run['profiled_launches']}" for label, run in (
+            ("ppo_v2_0 f32", runs["f32"][0]),
+            ("ppo_v2_0 fused_update", runs["fused_update"][0]),
+            ("ppo_v2_0 bf16_compute", runs["bf16_compute"][0]),
+            ("wrf_les_3d", wrf), ("static_subcell", static))))
 
     run_cli(cli_main, ActorCritic, "ppo_v2_0", MAIN_D, MAIN_A)
     run_cli(cli_main, ActorCritic, "ppo_v2_0", MAIN_D, MAIN_A, "--bf16")
@@ -844,6 +1098,7 @@ def main() -> int:
             ("bilinear", "tpu_plume/ops/pallas_gather.py:31", static),
             ("trilinear_zyx", "tpu_plume/ops/pallas_trilinear.py:41", wrf)):
         t4 = gather_time[name][MAIN_N]
+        s4 = sample_time[name][MAIN_N]
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -857,8 +1112,20 @@ def main() -> int:
             "bound_by": t4["bound_by"],
             "library_ms": t4["library_ms"],
             "device_ms": t4["device_ms"],
+            "ms_blocks": t4["ms_blocks"],
+            "library_ms_blocks": t4["library_ms_blocks"],
             "large_n": gather_time[name][LARGE_N],
+            "sample_ms": s4["ms"],
+            "sample_device_ms": s4["device_ms"],
+            "sample_plain_ms": s4["plain_ms"],
+            "sample_bound_ms": s4["bound_ms"],
+            "sample_bound_by": s4["bound_by"],
+            "sample_max_abs_err": sample_err[name],
+            "sample_large_n": sample_time[name][LARGE_N],
         })
+    log("host split (ns per call) of the bank sample wrapper: "
+        + json.dumps(sample_time["split_ns"]) + "; of the trilinear gather "
+        "wrapper: " + json.dumps(gather_time["split_ns"]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -14,13 +14,19 @@ kernel is held to its plain version with the tolerances of
 bit-equal grads.  The bilinear and trilinear gather kernels repeat their
 plain versions' operations in order with no contracted multiply-adds, so
 they are held to them within 1e-6 x max|field| (bit-equal in practice), at
-the TPU kernels' own call (a stack of one) and at a bank's stacks.
+the TPU kernels' own call (a stack of one) and at a bank's stacks.  The
+same kernels' bank sample (one launch per env-step sample) is held to
+``sample_bank_conc_tke_plain`` at the plume sample's tolerance, and to the
+bit where the turbulence is off, at every bank layout.
 """
+
+import dataclasses
 
 import pytest
 import torch
 
 from tpu_plume_torch.core import PPOConfig, get_preset
+from tpu_plume_torch.fields.gridded import FieldBank
 from tpu_plume_torch.models import ActorCritic
 from tpu_plume_torch.ops import gather, plume
 from tpu_plume_torch.ops import ppo as fused_ops
@@ -169,3 +175,80 @@ def test_gather_wrappers_raise_on_bad_cuda_inputs(card):
         gather.trilinear_zyx(stack, rows, pts)
     with pytest.raises(ValueError):
         gather.bilinear(stack[:, :1].contiguous(), rows, pts)
+    # 2-D points are read as float2: the entry point refuses them unaligned
+    odd = torch.empty(2 * 64 + 1, device=card)[1:].view(64, 2)
+    odd.copy_(pts)
+    with pytest.raises(ValueError, match="aligned"):
+        gather.bilinear(stack, rows, odd)
+    # the entry points check their own arguments before any launch
+    ext = gather._library()
+    with pytest.raises(TypeError):
+        ext.bilinear_gather(0, 0)
+    with pytest.raises(OverflowError):
+        ext.bilinear_gather(stack.data_ptr(), rows.data_ptr(), pts.data_ptr(),
+                            0, 2**31, stack.shape, 0)
+
+
+# bank sample layouts: (bank shape, 3-D flight)
+BANK_LAYOUTS = {"static": ((3, 20, 24), False),
+                "frames": ((3, 4, 20, 24), False),
+                "volumes": ((3, 4, 5, 20, 24), True),
+                "one_frame": ((3, 1, 5, 20, 24), True),
+                "volumes_2d_flight": ((3, 4, 5, 20, 24), False)}
+
+
+def _bank_sample_inputs(layout, n, seed, device, **env):
+    shape, env_3d = BANK_LAYOUTS[layout]
+    cfg = dataclasses.replace(get_preset("wrf_les_3d").env, grid_size=24,
+                              domain_height=30.0, env_3d=env_3d, **env)
+    g = torch.Generator(device=device).manual_seed(seed)
+    bank = FieldBank(conc=100.0 * torch.rand(shape, device=device, generator=g),
+                     source=torch.zeros(shape[0], 2, device=device),
+                     steps_per_frame=7.0, z_extent=30.0)
+    idx = torch.randint(0, shape[0], (n,), dtype=torch.int32, device=device,
+                        generator=g)
+    scale = torch.tensor([27.0, 27.0, 34.0][:cfg.pos_dim], device=device)
+    pos = torch.rand(n, cfg.pos_dim, device=device, generator=g) * scale - 2.0
+    t = torch.randint(0, 60, (n,), dtype=torch.int32, device=device,
+                      generator=g)
+    bits = torch.randint(-(2**31), 2**31, (n,), dtype=torch.int32,
+                         device=device, generator=g)
+    return bank, (idx, pos, t, bits), cfg
+
+
+@pytest.mark.parametrize("n", [1, 4096, 100_003])
+@pytest.mark.parametrize("layout", sorted(BANK_LAYOUTS))
+def test_bank_sample_kernel_matches_plain(card, layout, n):
+    bank, args, cfg = _bank_sample_inputs(layout, n, n + len(layout), card)
+    counter = gather.bilinear if layout == "static" else gather.trilinear_zyx
+    before = counter.launches
+    got = gather.sample_bank_conc_tke(bank, *args, cfg)
+    again = gather.sample_bank_conc_tke(bank, *args, cfg)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 2
+    want = gather.sample_bank_conc_tke_plain(bank, *args, cfg)
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-4)
+    # without turbulence the sample is the bank read, clipped: to the bit
+    quiet = dataclasses.replace(cfg, turbulence_intensity=0.0)
+    got = gather.sample_bank_conc_tke(bank, *args, quiet)[0]
+    assert torch.equal(got, gather.sample_bank_conc_tke_plain(
+        bank, *args, quiet)[0])
+
+
+def test_bank_sampler_raises_on_bad_cuda_inputs(card):
+    bank, (idx, pos, t, bits), cfg = _bank_sample_inputs("volumes", 64, 0,
+                                                          card)
+    sampler = bank.sampler(cfg)
+    assert bank.sampler(cfg) is sampler      # validated once, then kept
+    with pytest.raises(TypeError):
+        sampler(idx.long(), pos, t, bits)
+    with pytest.raises(ValueError):
+        sampler(idx, pos.cpu(), t, bits)
+    with pytest.raises(ValueError):
+        sampler(idx, pos[:, :2].contiguous(), t, bits)
+    with pytest.raises(ValueError):
+        sampler(idx, pos.t().contiguous().t(), t, bits)
+    with pytest.raises(TypeError):
+        FieldBank(conc=bank.conc.double(), source=bank.source).sampler(cfg)

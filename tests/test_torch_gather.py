@@ -10,7 +10,14 @@ arithmetic and libm-free floats).  The one-hot matmul formulations (JAX's
 the tolerance ``tests/test_fields_ops.py`` gives the Pallas kernels (rtol
 1e-4, atol 1e-5).  Points include exact grid points, the last cell,
 coordinates outside the grid on both sides and the top z level.
+
+The JAX module's single-field functions that no path of the port calls
+(``bank_cell_lookup``, ``_axis_weights``, ``bilinear_onehot``,
+``trilinear_xla``) are written here, in plain PyTorch, and held to JAX's.
 """
+
+import os
+import sysconfig
 
 import jax.numpy as jnp
 import numpy as np
@@ -44,6 +51,36 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
+def bank_cell_lookup(bank_conc, idx, ix, iy):
+    """Integer-cell lookup across a bank f32[K, H, W]."""
+    return bank_conc[idx, ix, iy]
+
+
+def _axis_weights(coord, size):
+    """[N, size] with (1-f) at the lower corner and f at the one above."""
+    c0, f = gather._axis(coord, size)
+    cols = torch.arange(size, dtype=torch.int32, device=coord.device)[None]
+    zero = torch.zeros((), dtype=f.dtype, device=f.device)
+    return torch.where(cols == c0[:, None], (1.0 - f)[:, None],
+                       torch.where(cols == c0[:, None] + 1, f[:, None], zero))
+
+
+def bilinear_onehot(field, pts):
+    """The TPU kernel's formulation, rowsum((Wx @ F) * Wy), in plain
+    PyTorch: the same function as ``bilinear_xla`` by two products."""
+    h, w = field.shape
+    wx = _axis_weights(pts[:, 0], h)
+    wy = _axis_weights(pts[:, 1], w)
+    return torch.sum((wx @ field) * wy, dim=-1)
+
+
+def trilinear_xla(volume, pts):
+    """Trilinear sample of ``volume`` [T, H, W] at float points ``pts``
+    [N, 3] = (t, x, y), clamped: the same function as ``trilinear_zyx_xla``
+    with the frame axis in place of z."""
+    return gather.trilinear_zyx_xla(volume, pts)
+
+
 @pytest.mark.parametrize("h,w", [(37, 53), (2, 2), (64, 96)])
 def test_bilinear_matches_jax_xla_onehot_and_pallas(h, w):
     rng = np.random.default_rng(h * w)
@@ -57,7 +94,7 @@ def test_bilinear_matches_jax_xla_onehot_and_pallas(h, w):
     np.testing.assert_allclose(got, np.asarray(bilinear_pallas(
         jnp.asarray(field), jnp.asarray(pts), interpret=True)), **ONEHOT)
     # the port's one-hot formulation is the same function
-    np.testing.assert_allclose(gather.bilinear_onehot(_t(field), _t(pts)).numpy(),
+    np.testing.assert_allclose(bilinear_onehot(_t(field), _t(pts)).numpy(),
                                got, **ONEHOT)
     # exact grid points read the cell
     np.testing.assert_array_equal(got[-8], field[0, 0])
@@ -84,7 +121,7 @@ def test_trilinear_xla_matches_jax():
     vol = rng.random((5, 16, 20), dtype=np.float32)
     pts = _edge_points((5, 16, 20), 200, rng)
     np.testing.assert_allclose(
-        gather.trilinear_xla(_t(vol), _t(pts)).numpy(),
+        trilinear_xla(_t(vol), _t(pts)).numpy(),
         np.asarray(jgather.trilinear_xla(jnp.asarray(vol), jnp.asarray(pts))),
         **EXACT)
 
@@ -95,7 +132,7 @@ def test_axis_weights_match_jax(size):
     coord = rng.uniform(-2.0, size + 2.0, 128).astype(np.float32)
     coord[:3] = [0.0, size - 1.0, size - 2.0]
     np.testing.assert_array_equal(
-        gather._axis_weights(_t(coord), size).numpy(),
+        _axis_weights(_t(coord), size).numpy(),
         np.asarray(jgather._axis_weights(jnp.asarray(coord), size)))
 
 
@@ -106,7 +143,7 @@ def test_bank_cell_lookup_matches_jax():
     ix = rng.integers(0, 30, 100).astype(np.int32)
     iy = rng.integers(0, 40, 100).astype(np.int32)
     np.testing.assert_array_equal(
-        gather.bank_cell_lookup(_t(bank), _t(idx), _t(ix), _t(iy)).numpy(),
+        bank_cell_lookup(_t(bank), _t(idx), _t(ix), _t(iy)).numpy(),
         np.asarray(jgather.bank_cell_lookup(*map(jnp.asarray,
                                                  (bank, idx, ix, iy)))))
 
@@ -225,5 +262,13 @@ def test_build_names_the_gather_source():
     assert build.source_path("gather").endswith("csrc/gather.cu")
     assert build.library_path("gather").startswith(build.BUILD_DIR)
     src = open(build.source_path("gather")).read()
-    for name in ("bilinear_gather", "trilinear_zyx_gather", "int64_t"):
+    for name in ("bilinear_gather", "trilinear_zyx_gather", "bank_sample",
+                 "int64_t", '#include "cell_hash.cuh"', "PyInit_gather",
+                 "METH_FASTCALL"):
         assert name in src
+    # gather.cu is a Python extension module: its build sees Python's headers
+    include = sysconfig.get_paths()["include"]
+    flags = build.nvcc_flags()
+    assert flags[:len(build.NVCC_FLAGS)] == build.NVCC_FLAGS
+    assert flags[flags.index("-I") + 1] == include
+    assert os.path.exists(os.path.join(include, "Python.h"))

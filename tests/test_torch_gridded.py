@@ -118,11 +118,13 @@ def test_frame_and_level_weights_match_jax(banks):
     jb, tb = banks["5d"]
     _, x, _, t, z = _queries(2, jb, edges=True)
     jt0, jft = jg._frame_weights(jb, jnp.asarray(t), jnp.asarray(x))
-    tt0, tft = tg._frame_weights(tb, torch.from_numpy(t), torch.from_numpy(x))
+    tt0, tft = gather.frame_weights(tb, torch.from_numpy(t),
+                                    torch.from_numpy(x))
     np.testing.assert_array_equal(tt0.numpy(), _np(jt0))
     np.testing.assert_array_equal(tft.numpy(), _np(jft))
     jz0, jfz = jg._level_weights(jb, jnp.asarray(z), jnp.asarray(x))
-    tz0, tfz = tg._level_weights(tb, torch.from_numpy(z), torch.from_numpy(x))
+    tz0, tfz = gather.level_weights(tb, torch.from_numpy(z),
+                                    torch.from_numpy(x))
     np.testing.assert_array_equal(tz0.numpy(), _np(jz0))
     np.testing.assert_allclose(tfz.numpy(), _np(jfz), rtol=1e-6, atol=1e-7)
 
@@ -189,7 +191,7 @@ def test_5d_points_are_two_trilinear_calls_at_consecutive_frames(banks):
     _, tb = banks["5d"]
     idx, x, y, t, z = (torch.from_numpy(a) for a in _queries(5, tb, True))
     k, nt, nz = tb.conc.shape[:3]
-    t0, ft = tg._frame_weights(tb, t, x)
+    t0, ft = gather.frame_weights(tb, t, x)
     pts = torch.stack([z * ((nz - 1) / tb.z_extent), x, y], -1)
     vols = tb.conc.reshape(k * nt, nz, G, G)
     a = gather.trilinear_zyx_plain(vols, idx * nt + t0, pts)

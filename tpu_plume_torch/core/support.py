@@ -15,6 +15,10 @@ _RNN = "ROADMAP.md Queue 1, slice 7 (recurrent policy)"
 _GUIDES = "ROADMAP.md Queue 1, slice 9 (guides)"
 _IMITATION = "ROADMAP.md Queue 1, slice 10 (imitation, GAIL and distilled PPO)"
 
+# The JAX package's bank gather formulations; the port samples one function
+# for all of them.
+GATHER_MODES = ("auto", "packed", "corner", "fused")
+
 
 def _unported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet: {item}")
@@ -29,6 +33,9 @@ def check_env(cfg: EnvConfig) -> None:
     if cfg.plume_model not in ("isotropic", "gridded"):
         _unported(f"plume_model={cfg.plume_model!r}", _ANALYTIC)
     check_sources(cfg)
+    if cfg.bank_gather_mode not in GATHER_MODES:
+        raise ValueError(f"bank_gather_mode must be one of {GATHER_MODES}, "
+                         f"got {cfg.bank_gather_mode!r}")
     if cfg.env_3d and cfg.plume_model != "gridded":
         # The analytic 3-D field needs the plume kernel's z term.
         _unported(f"env_3d with plume_model={cfg.plume_model!r}", _ANALYTIC)

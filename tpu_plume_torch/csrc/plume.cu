@@ -14,11 +14,11 @@
 // over N, no padding.  Fusing this stage into a whole-env-step kernel, or
 // capturing the env step in a CUDA graph, is later work.
 //
-// Numerics: the hash is native uint32_t with the JAX package's constants,
-// salts and order of operations, so its bits are equal.  Floats use the
-// accurate expf/logf/sqrtf/sinf/cosf (the argument of sin(0.05 x) reaches
-// 25 rad, where the fast intrinsics lose digits); build without
-// --use_fast_math and with -fmad=false so no multiply-add is contracted.
+// Numerics: the hash and the turbulence are those of cell_hash.cuh (shared
+// with the bank sample kernels of gather.cu): native uint32_t with the JAX
+// package's constants, salts and order of operations, so the hash bits are
+// equal, and the accurate libm floats; build without --use_fast_math and with
+// -fmad=false so no multiply-add is contracted.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false -shared
 //        -Xcompiler -fPIC -o libplume.so plume.cu
@@ -27,39 +27,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "cell_hash.cuh"
+
 namespace {
 
-constexpr uint32_t kM1 = 0x7FEB352Du;
-constexpr uint32_t kM2 = 0x846CA68Bu;
-constexpr uint32_t kC1 = 0x9E3779B9u;
-constexpr uint32_t kC2 = 0x85EBCA6Bu;
-constexpr uint32_t kC3 = 0xC2B2AE35u;
-// Salts of tpu_plume/fields/analytic.py: the normal uses 0 and 1.
-constexpr uint32_t kSaltNormal = 0u;
-constexpr uint32_t kSaltUniform = 2u;
-constexpr float kTwoPi = 6.283185307179586f;
-constexpr float kInv2Pow24 = 1.0f / 16777216.0f;
-
-__device__ __forceinline__ uint32_t avalanche(uint32_t h) {
-  h ^= h >> 16;
-  h *= kM1;
-  h ^= h >> 15;
-  h *= kM2;
-  h ^= h >> 16;
-  return h;
-}
-
-__device__ __forceinline__ uint32_t hash_cell(uint32_t seed, uint32_t ix,
-                                              uint32_t iy, uint32_t salt) {
-  uint32_t h = seed ^ (ix * kC1) ^ (iy * kC2);
-  h ^= salt * kC3;
-  h = avalanche(h);
-  return avalanche(h + seed);
-}
-
-__device__ __forceinline__ float bits_to_uniform(uint32_t bits) {
-  return static_cast<float>(bits >> 8) * kInv2Pow24;
-}
+using cell_hash::cell_of;
+using cell_hash::turbulence;
 
 __global__ void plume_sample_kernel(const float2* __restrict__ pos,
                                     const float2* __restrict__ source,
@@ -71,8 +44,8 @@ __global__ void plume_sample_kernel(const float2* __restrict__ pos,
   const int stride = gridDim.x * blockDim.x;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
     const float2 p = pos[i];
-    const int ix = min(max(static_cast<int>(floorf(p.x)), 0), grid - 1);
-    const int iy = min(max(static_cast<int>(floorf(p.y)), 0), grid - 1);
+    const int ix = cell_of(p.x, grid);
+    const int iy = cell_of(p.y, grid);
     const float fx = static_cast<float>(ix);
     const float fy = static_cast<float>(iy);
 
@@ -80,19 +53,8 @@ __global__ void plume_sample_kernel(const float2* __restrict__ pos,
     const float dx = fx - s.x;
     const float dy = fy - s.y;
     const float base = peak * expf(-(dx * dx + dy * dy) / two_sigma2);
-
-    const uint32_t sd = static_cast<uint32_t>(seed[i]);
-    const uint32_t ux = static_cast<uint32_t>(ix);
-    const uint32_t uy = static_cast<uint32_t>(iy);
-    float u1 = bits_to_uniform(hash_cell(sd, ux, uy, kSaltNormal));
-    const float u2 = bits_to_uniform(hash_cell(sd, ux, uy, kSaltNormal + 1u));
-    u1 = fmaxf(u1, 1e-7f);
-    const float r = sqrtf(-2.0f * logf(u1));
-    float normal = r * cosf(kTwoPi * u2);
-    if (!signed_normal) normal = fabsf(normal);
-    const float u = bits_to_uniform(hash_cell(sd, ux, uy, kSaltUniform));
-    const float wave = 0.3f * sinf(0.05f * fx) * cosf(0.07f * fy);
-    const float turb = ti * (normal + wave + 0.2f * u);
+    const float turb = turbulence(static_cast<uint32_t>(seed[i]), ix, iy, ti,
+                                  signed_normal);
 
     conc[i] = fminf(fmaxf(base + turb, 0.0f), peak);
     tke[i] = tke_abs_times_two ? fabsf(turb) * 2.0f : turb;

@@ -13,7 +13,9 @@ The turbulence is a pure function of ``(field seed, ix, iy)``, so a field is
 a source, one 32-bit seed and, for the gridded model, a bank row per
 episode.  The isotropic sample is the kernel of ``tpu_plume_torch.ops.plume``;
 the gridded sample reads the bank (``fields.gridded``) and adds the same
-turbulence, cell-hashed also when the bank is read between cells.
+turbulence, cell-hashed also when the bank is read between cells, where
+the whole sample is one launch of the sample kernel of
+``tpu_plume_torch.ops.gather``.
 """
 
 from __future__ import annotations
@@ -24,8 +26,8 @@ import torch
 
 from tpu_plume_torch.core.config import EnvConfig
 from tpu_plume_torch.core.support import check_env, check_sources
-from tpu_plume_torch.fields.gridded import sample_bank, sample_bank_points
-from tpu_plume_torch.ops import plume
+from tpu_plume_torch.fields.gridded import sample_bank
+from tpu_plume_torch.ops import gather, plume
 
 
 @dataclass
@@ -64,18 +66,18 @@ def sample_conc_tke(field: FieldState, pos: torch.Tensor, cfg: EnvConfig,
 
     Isotropic: the CUDA kernel on the card, its plain version on the CPU,
     at the grid cell.  Gridded: the bank row at env step ``t`` (and height
-    pos[:, 2] in 3-D flight), at the grid cell, or at the float position
-    with ``cfg.subcell_sampling`` (the gather kernels)."""
+    pos[:, 2] in 3-D flight), at the grid cell, or, with
+    ``cfg.subcell_sampling``, at the float position: one launch of the
+    sample kernel on the card, its plain version on the CPU."""
     if cfg.plume_model != "gridded":
         return plume.sample_plume(pos, field.source, field.seed, cfg)
     _need_bank(bank)
+    if cfg.subcell_sampling:
+        return gather.sample_bank_conc_tke(bank, field.idx, pos, t,
+                                           field.seed, cfg)
     ix, iy = plume.cell_of(pos[:, :2], cfg.grid_size)
     z = pos[:, 2] if cfg.env_3d else None
-    if cfg.subcell_sampling:
-        base = sample_bank_points(bank, field.idx, pos[:, 0], pos[:, 1], t, z,
-                                  gather_mode=cfg.bank_gather_mode)
-    else:
-        base = sample_bank(bank, field.idx, ix, iy, t, z)
+    base = sample_bank(bank, field.idx, ix, iy, t, z)
     turb = plume.turbulence(field.seed, ix, iy, cfg)
     conc = torch.clamp(base + turb, 0.0, cfg.conc_peak)
     tke = torch.abs(turb) * 2.0 if cfg.tke_abs_times_two else turb

@@ -14,11 +14,10 @@ Two reads:
     an XLA gather;
   - ``sample_bank_points``: sub-cell samples at float (x, y, z, t) points,
     through the bilinear and trilinear gather kernels of
-    ``tpu_plume_torch.ops.gather``.  A static bank [K, H, W] is one
-    bilinear launch at rows ``idx``; a time-varying bank [K, T, H, W] is
-    one trilinear launch with the frame axis as the kernel's z; a 3-D bank
-    [K, T, Z, H, W] is two trilinear launches over its [K*T, Z, H, W] view,
-    at frames t0 and t0+1, lerped by the frame weight.
+    ``tpu_plume_torch.ops.gather`` (``gather.bank_points``).  The env's
+    sub-cell sample does not come here: it is one launch of the sample
+    kernel (``gather.sample_bank_conc_tke``), whose launch a bank on the
+    card keeps (``FieldBank.sampler``).
 
 The JAX package's packed layout (``pack_time_levels``, ``maybe_pack``,
 ``conc_packed``) and its "packed" and "fused" formulations are not ported:
@@ -38,12 +37,11 @@ from dataclasses import dataclass
 import torch
 
 from tpu_plume_torch.core.config import EnvConfig
+from tpu_plume_torch.core.support import GATHER_MODES
 from tpu_plume_torch.ops import gather
 
-GATHER_MODES = ("auto", "packed", "corner", "fused")
 
-
-@dataclass
+@dataclass(frozen=True)
 class FieldBank:
     """A bank of K plume fields on one device.
 
@@ -53,55 +51,32 @@ class FieldBank:
                          ``steps_per_frame`` env steps a frame;
       [K, T, Z, H, W]    time-varying 3-D volumes whose z axis spans
                          ``z_extent`` grid units, linear between levels.
-    ``wind`` is None, f32[K, 2] or f32[K, T, 2] (per frame)."""
+    ``wind`` is None, f32[K, 2] or f32[K, T, 2] (per frame).  Frozen, so
+    that the launch a bank on the card keeps (``sampler``) stays true of
+    it."""
 
     conc: torch.Tensor
     source: torch.Tensor              # f32[K, 2] source position per field
     wind: torch.Tensor | None = None
     steps_per_frame: float = 1.0
     z_extent: float = 0.0
+    _sampler: gather.BankSampler | None = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     def to(self, device) -> "FieldBank":
         return dataclasses.replace(
             self, conc=self.conc.to(device), source=self.source.to(device),
             wind=None if self.wind is None else self.wind.to(device))
 
-
-def _frame_coord(bank: FieldBank, t, like: torch.Tensor) -> torch.Tensor:
-    """Env step ``t`` (None: 0) in frame-index units."""
-    return (torch.zeros_like(like, dtype=torch.float32) if t is None
-            else t.to(torch.float32)) / bank.steps_per_frame
-
-
-def _frame_weights(bank: FieldBank, t, like: torch.Tensor):
-    """(t0 i32, ft f32): lower frame and its weight at env step ``t``.  A
-    one-frame bank gets t0 = -1 and ft = 1, which reads frame 0 (negative
-    indices wrap), as in the JAX package."""
-    num_frames = bank.conc.shape[1]
-    tf = _frame_coord(bank, t, like)
-    t0 = torch.clamp(torch.floor(tf).to(torch.int32), 0, num_frames - 2)
-    ft = torch.clamp(tf - t0, 0.0, 1.0)
-    return t0, ft
-
-
-def _level_coord(bank: FieldBank, z, like: torch.Tensor) -> torch.Tensor:
-    """Height ``z`` (grid units in [0, z_extent]) in level-index units."""
-    num_levels = bank.conc.shape[2]
-    zeros = torch.zeros_like(like, dtype=torch.float32)
-    if num_levels == 1 or z is None:
-        return zeros
-    return z.to(torch.float32) * ((num_levels - 1) / max(bank.z_extent, 1e-9))
-
-
-def _level_weights(bank: FieldBank, z, like: torch.Tensor):
-    """(z0 i32, fz f32): lower level and its weight at height ``z``."""
-    num_levels = bank.conc.shape[2]
-    zf = _level_coord(bank, z, like)
-    if num_levels == 1:
-        return zf.to(torch.int32), zf
-    z0 = torch.clamp(torch.floor(zf).to(torch.int32), 0, num_levels - 2)
-    fz = torch.clamp(zf - z0, 0.0, 1.0)
-    return z0, fz
+    def sampler(self, cfg: EnvConfig) -> gather.BankSampler:
+        """The sample kernel's launch over this bank on the card for the
+        field scalars of ``cfg``: validated and cached at first use, kept
+        while ``cfg``'s scalars stay the same."""
+        s = self._sampler
+        if s is None or not s.serves(cfg):
+            s = gather.BankSampler(self, cfg)
+            object.__setattr__(self, "_sampler", s)
+        return s
 
 
 def sample_bank(bank: FieldBank, idx, ix, iy, t=None, z=None) -> torch.Tensor:
@@ -110,12 +85,12 @@ def sample_bank(bank: FieldBank, idx, ix, iy, t=None, z=None) -> torch.Tensor:
     conc = bank.conc
     if conc.dim() == 3:
         return conc[idx, ix, iy]
-    t0, ft = _frame_weights(bank, t, ix)
+    t0, ft = gather.frame_weights(bank, t, ix)
     if conc.dim() == 4:
         a = conc[idx, t0, ix, iy]
         b = conc[idx, t0 + 1, ix, iy]
         return (1.0 - ft) * a + ft * b
-    z0, fz = _level_weights(bank, z, ix)
+    z0, fz = gather.level_weights(bank, z, ix)
     z1 = torch.clamp(z0 + 1, max=conc.shape[2] - 1)
 
     def at(ti, zi):
@@ -131,30 +106,13 @@ def sample_bank_points(bank: FieldBank, idx: torch.Tensor, x: torch.Tensor,
                        gather_mode: str = "auto") -> torch.Tensor:
     """Sub-cell samples f32[N] of bank rows ``idx`` i32[N] at float points:
     bilinear in (x, y), linear in z (5-D banks) and in t (4-D and 5-D
-    banks), clamped to the grid.  Through the gather kernels on the card,
-    their plain versions on the CPU; every ``gather_mode`` samples this one
-    function."""
+    banks), clamped to the grid (``gather.bank_points``).  Through the
+    gather kernels on the card, their plain versions on the CPU; every
+    ``gather_mode`` samples this one function."""
     if gather_mode not in GATHER_MODES:
         raise ValueError(f"gather_mode must be one of {GATHER_MODES}, got "
                          f"{gather_mode!r}")
-    conc = bank.conc
-    x = x.to(torch.float32)
-    y = y.to(torch.float32)
-    if conc.dim() == 3:
-        return gather.bilinear(conc, idx, torch.stack([x, y], -1))
-    if conc.dim() == 4:
-        tf = _frame_coord(bank, t, x)
-        return gather.trilinear_zyx(conc, idx, torch.stack([tf, x, y], -1))
-    k, nt, nz, h, w = conc.shape
-    pts = torch.stack([_level_coord(bank, z, x), x, y], -1)
-    volumes = conc.view(k * nt, nz, h, w)
-    if nt == 1:      # one frame: no time interpolation (and no row idx - 1)
-        return gather.trilinear_zyx(volumes, idx, pts)
-    t0, ft = _frame_weights(bank, t, x)
-    row0 = idx * nt + t0
-    a = gather.trilinear_zyx(volumes, row0, pts)
-    b = gather.trilinear_zyx(volumes, row0 + 1, pts)
-    return (1.0 - ft) * a + ft * b
+    return gather.bank_points(bank, idx, x, y, t, z)
 
 
 def bank_wind(bank: FieldBank, idx: torch.Tensor, t=None) -> torch.Tensor:
@@ -166,7 +124,7 @@ def bank_wind(bank: FieldBank, idx: torch.Tensor, t=None) -> torch.Tensor:
     if bank.wind.dim() == 2:
         return bank.wind[idx]
     num_frames = bank.wind.shape[1]
-    tf = _frame_coord(bank, t, idx)
+    tf = gather.frame_coord(bank, t, idx)
     t0 = torch.clamp(torch.floor(tf).to(torch.int32), 0,
                      max(num_frames - 2, 0))
     ft = torch.clamp(tf - t0, 0.0, 1.0)

@@ -1,20 +1,27 @@
 """Builds the port's CUDA sources into shared libraries at first use.
 
-Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
-for ``sm_90a`` into ``tpu_plume_torch/_build/lib<name>-<hash>.so``, then
-loaded with ``ctypes``.  The hash covers the source and the flags, so an
-edited source is rebuilt and an unchanged one is reused.  Nothing here runs
-at import time: the CPU tests import every module, and there is no ``nvcc``
-where they run.
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
+``tpu_plume_torch/_build/lib<name>-<hash>.so``.  ``plume.cu`` and ``ppo.cu``
+have a plain C interface and are loaded with ``ctypes`` (``load``);
+``gather.cu`` is a Python extension module of METH_FASTCALL functions,
+imported by ``load_module``, because its calls are launch-bound and a
+ctypes call's argument conversion is most of their host cost.  The hash
+covers the source, every header of ``csrc/`` (``*.cuh``, which the sources
+include) and the flags (the Python headers' directory among them), so an
+edited source or header is rebuilt and an unchanged one is reused.
+Nothing here runs at import time: the CPU tests import every module, and
+there is no ``nvcc`` where they run.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib.util
 import os
 import shutil
 import subprocess
+import sysconfig
 import tempfile
 import threading
 
@@ -27,7 +34,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict = {}   # by name: a ctypes.CDLL, or an extension module
 
 
 def nvcc_path() -> str:
@@ -45,9 +52,18 @@ def source_path(name: str) -> str:
     return os.path.join(CSRC, f"{name}.cu")
 
 
+def nvcc_flags() -> tuple:
+    """``NVCC_FLAGS`` and the running Python's headers, which a source with
+    Python entry points (``gather.cu``) includes."""
+    return NVCC_FLAGS + ("-I", sysconfig.get_paths()["include"])
+
+
 def library_path(name: str) -> str:
-    with open(source_path(name), "rb") as fh:
-        digest = hashlib.sha1(fh.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1(" ".join(nvcc_flags()).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [source_path(name)] + [os.path.join(CSRC, h) for h in headers]:
+        with open(path, "rb") as fh:
+            digest.update(os.path.basename(path).encode() + b"\0" + fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
@@ -60,7 +76,7 @@ def build(name: str, verbose: bool = False) -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS]
+    cmd = [nvcc_path(), *nvcc_flags()]
     if verbose:
         cmd += ["-Xptxas", "-v"]
     cmd += ["-o", tmp, source_path(name)]
@@ -86,3 +102,17 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(build(name))
             _loaded[name] = lib
         return lib
+
+
+def load_module(name: str):
+    """``csrc/<name>.cu`` imported as a Python extension module (its
+    ``PyInit_<name>``), built on first use."""
+    with _lock:
+        mod = _loaded.get(name)
+        if mod is None:
+            spec = importlib.util.spec_from_file_location(
+                f"tpu_plume_torch._build.{name}", build(name))
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            _loaded[name] = mod
+        return mod

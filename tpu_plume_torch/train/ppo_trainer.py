@@ -31,6 +31,7 @@ from tpu_plume_torch.core.device import resolve_device
 from tpu_plume_torch.core.support import check_env, check_guide, check_ppo
 from tpu_plume_torch.models.actor_critic import ActorCritic
 from tpu_plume_torch.obsv.metrics import EpisodeCSVLogger, TrainLogger
+from tpu_plume_torch.ops import gather
 from tpu_plume_torch.rl.curriculum import (
     CurriculumState,
     curriculum_init,
@@ -148,6 +149,12 @@ def build_train_step(cfg: TrainConfig, bank=None, time_phases: bool = False):
     check_ppo(cfg.ppo)
     if cfg.env.plume_model == "gridded" and bank is None:
         raise ValueError('plume_model="gridded" requires a FieldBank')
+    if cfg.env.plume_model == "gridded" and cfg.env.subcell_sampling:
+        # The sample kernel's bank is validated here, once; on the card the
+        # bank keeps the launch that the env's samples reuse.
+        gather.check_bank(bank.conc)
+        if bank.conc.is_cuda:
+            bank.sampler(cfg.env)
     env_cfg, ppo_cfg, cur_cfg = cfg.env, cfg.ppo, cfg.curriculum
     T = cfg.rollout.unroll_length
     # bf16_update split: the update's loss runs a bf16 twin of the model
