@@ -25,9 +25,11 @@ outside a checkout of the repository.  Phases, each of which must pass:
    steps, N = 4096 and 2^20, both turbulence flag sets, within the plume
    tolerance, two calls bit-equal, and bit-equal with the turbulence off;
 4. each kernel's time, its plain version's and the least time the card
-   could take for the same bytes and operations; for the fused PPO kernel
-   also autodiff's forward and backward of ``ppo_loss`` on the same
-   minibatch; for the gathers also ``grid_sample`` on the same field or
+   could take for the same bytes and operations; for the fused PPO
+   gradients (three launches: the row kernel, the split-K dW2 kernel and
+   the reduction) the device time of each launch, their sum and its share
+   of the bound, and autodiff's forward and backward of ``ppo_loss`` on the
+   same minibatch; for the gathers also ``grid_sample`` on the same field or
    volume (checked to agree within 1e-4 x max|field|), in two alternating
    blocks (kernel, grid_sample, grid_sample, kernel); for the bank sample
    its time over the main paths' banks and the host cost of each piece of
@@ -334,18 +336,30 @@ def time_ppo_kernel(ActorCritic, PPOConfig, PPOBatch, fused_ops,
         plain_ms = cuda_ms(
             lambda: fused_ops.fused_ppo_grads_plain(model, batch, cfg), 5)
         autodiff_ms = cuda_ms(autodiff, 20)
-        device_ms = kernel_device_ms(kernel, "ppo_fused_kernel", reps=20)
-        reduce_ms = kernel_device_ms(kernel, "ppo_reduce_kernel", reps=20)
+        parts = {name: kernel_device_ms(kernel, f"ppo_{name}_kernel", reps=20)
+                 for name in ("row", "dw2", "reduce")}
+        device_ms = (sum(parts.values()) if None not in parts.values()
+                     else None)
         bound_ms, bound_by = ppo_bound(MAIN_MB, MAIN_D, *MAIN_HIDDEN, MAIN_A,
                                        bf16)
         key = "bf16" if bf16 else "f32"
         out[key] = dict(ms=ms, plain_ms=plain_ms, autodiff_ms=autodiff_ms,
-                        device_ms=device_ms, reduce_device_ms=reduce_ms,
+                        device_ms=device_ms,
+                        **{f"{name}_device_ms": v for name, v in
+                           parts.items()},
                         bound_ms=bound_ms, bound_by=bound_by)
+        share = (f"{bound_ms / device_ms:.3f}" if device_ms
+                 else "not measured")
+        smem, blocks, sms = fused_ops._plan(torch.cuda.current_device(),
+                                            MAIN_D, *MAIN_HIDDEN, MAIN_A)
+        out[key]["row_blocks_per_sm"] = blocks / sms
+        out[key]["bound_share"] = bound_ms / device_ms if device_ms else None
         log(f"time ppo_fused {key} B={MAIN_MB}: per call {ms:.4f} ms, on the "
-            f"device {device_ms} ms + reduction {reduce_ms} ms, plain "
+            f"device row {parts['row']} + dW2 {parts['dw2']} + reduction "
+            f"{parts['reduce']} = {device_ms} ms (bound share {share}), plain "
             f"{plain_ms:.4f} ms, autodiff fwd+bwd {autodiff_ms:.4f} ms, "
-            f"bound {bound_ms:.6f} ms ({bound_by})")
+            f"bound {bound_ms:.6f} ms ({bound_by}); row kernel {smem} B of "
+            f"shared memory, {blocks // sms} blocks per SM")
     return out
 
 
@@ -740,21 +754,23 @@ def to_device(obj, device):
     return obj
 
 
-KERNEL_NAMES = ("plume_sample", "ppo_fused", "ppo_reduce", "bilinear",
-                "trilinear_zyx")
+KERNEL_NAMES = ("plume_sample", "ppo_fused", "ppo_dw2", "ppo_reduce",
+                "bilinear", "trilinear_zyx")
 
 
 def zero_counts(k) -> None:
     """Set every kernel's launch count to 0 (``k`` holds the plume, ppo and
     gather ops modules)."""
     k.plume.launches = 0
-    k.fused_ops.launches = k.fused_ops.reduce_launches = 0
+    k.fused_ops.launches = k.fused_ops.dw2_launches = 0
+    k.fused_ops.reduce_launches = 0
     k.gather.bilinear.launches = k.gather.trilinear_zyx.launches = 0
 
 
 def read_counts(k) -> dict:
     return dict(zip(KERNEL_NAMES, (
-        k.plume.launches, k.fused_ops.launches, k.fused_ops.reduce_launches,
+        k.plume.launches, k.fused_ops.launches, k.fused_ops.dw2_launches,
+        k.fused_ops.reduce_launches,
         k.gather.bilinear.launches, k.gather.trilinear_zyx.launches)))
 
 
@@ -764,7 +780,7 @@ def expected_counts(cfg, bank, iters: int) -> dict:
     reset); an analytic sample is one plume launch, a sub-cell bank sample
     one launch of the sample kernel: bilinear for a static bank, trilinear
     for a time-varying or 3-D one; each minibatch step of the fused update
-    one fused and one reduction launch."""
+    one launch each of the row kernel, the dW2 kernel and the reduction."""
     env, ppo = cfg.env, cfg.ppo
     n, t = cfg.rollout.num_envs, cfg.rollout.unroll_length
     samples = iters * 2 * t
@@ -774,7 +790,7 @@ def expected_counts(cfg, bank, iters: int) -> dict:
     elif env.subcell_sampling:
         want["bilinear" if bank.conc.dim() == 3 else "trilinear_zyx"] = samples
     if ppo.fused_update:
-        want["ppo_fused"] = want["ppo_reduce"] = (
+        want["ppo_fused"] = want["ppo_dw2"] = want["ppo_reduce"] = (
             iters * ppo.epochs * (n * t // ppo.minibatch_size))
     return want
 
@@ -1089,6 +1105,10 @@ def main() -> int:
         "bound_by": ppo_t["bound_by"],
         "library_ms": None,
         "device_ms": ppo_t["device_ms"],
+        "kernels": ["ppo_row_kernel", "ppo_dw2_kernel", "ppo_reduce_kernel"],
+        "row_device_ms": ppo_t["row_device_ms"],
+        "dw2_launches": fused_launches["ppo_dw2"],
+        "dw2_device_ms": ppo_t["dw2_device_ms"],
         "reduce_launches": fused_launches["ppo_reduce"],
         "reduce_device_ms": ppo_t["reduce_device_ms"],
         "autodiff_ms": ppo_t["autodiff_ms"],

@@ -8,10 +8,11 @@ PyTorch is installed:
 
 The plume kernel is held to its plain PyTorch version with the tolerance
 the CPU tests give the plume sample (rtol 1e-5, atol 1e-4).  The fused PPO
-kernel is held to its plain version with the tolerances of
-``tests/test_fused_update.py`` (grads atol 2e-5 x max|grad|, metrics rtol
-2e-5, atol 2e-6), in f32 and under bf16 compute, and two calls give
-bit-equal grads.  The bilinear and trilinear gather kernels repeat their
+kernels (row kernel, split-K dW2 kernel, reduction) are held to their
+plain version with the tolerances of ``tests/test_fused_update.py`` (grads
+atol 2e-5 x max|grad|, metrics rtol 2e-5, atol 2e-6), in f32 and under bf16
+compute, two calls give bit-equal grads, and widths the kernels do not take
+raise.  The bilinear and trilinear gather kernels repeat their
 plain versions' operations in order with no contracted multiply-adds, so
 they are held to them within 1e-6 x max|field| (bit-equal in practice), at
 the TPU kernels' own call (a stack of one) and at a bank's stacks.  The
@@ -97,11 +98,13 @@ def test_fused_ppo_kernel_matches_plain(card, b, d, hidden, bf16):
         torch.Generator().manual_seed(b + d)).to(card)
     batch = _ppo_batch(b, d, d, card)
     cfg = PPOConfig(minibatch_size=b, bf16_compute=bf16)
-    before = fused_ops.launches
+    before = (fused_ops.launches, fused_ops.dw2_launches,
+              fused_ops.reduce_launches)
     grads, metrics = fused_ops.fused_ppo_grads(model, batch, cfg)
     again, _ = fused_ops.fused_ppo_grads(model, batch, cfg)
     torch.cuda.synchronize()
-    assert fused_ops.launches == before + 2
+    assert (fused_ops.launches, fused_ops.dw2_launches,
+            fused_ops.reduce_launches) == tuple(c + 2 for c in before)
     want, want_m = fused_ops.fused_ppo_grads_plain(model, batch, cfg)
     for name, g in grads.items():
         assert torch.equal(g, again[name]), name
@@ -124,6 +127,21 @@ def test_fused_ppo_wrapper_raises_on_bad_cuda_inputs(card):
         fused_ops.fused_ppo_grads(model, bad, cfg)
     with pytest.raises(ValueError):
         fused_ops.fused_ppo_grads(model.cpu(), batch, cfg)
+    bad = batch.map(lambda x: x[:496])        # 16-row multiple, not 32
+    with pytest.raises(ValueError):
+        fused_ops.fused_ppo_grads(model, bad, cfg)
+
+
+@pytest.mark.parametrize("hidden", [(64, 24), (512, 256), (100, 50)])
+def test_fused_ppo_plan_refuses_widths(card, hidden):
+    """Widths the kernels do not take (H1 or H2 not a multiple of 16, or
+    above 256) raise before any launch."""
+    model = ActorCritic(6, 5, hidden).to(card)
+    batch = _ppo_batch(512, 6, 0, card)
+    before = fused_ops.launches
+    with pytest.raises(RuntimeError, match="cannot take widths"):
+        fused_ops.fused_ppo_grads(model, batch, PPOConfig(minibatch_size=512))
+    assert fused_ops.launches == before
 
 
 def _gather_inputs(shape, n, seed, device):

@@ -10,6 +10,10 @@ the Pallas kernel only, at the same tolerances: both round the same four
 forward products' operands to bf16, while flax's bf16 autodiff rounds every
 activation and is a different function.  Both sides get the same numpy
 inputs and the same flax params (through ``actor_critic_from_flax``).
+The plain version's bf16 product (``_ordered_mm``) is held to a numpy loop
+that rounds each multiply-add step once, as the kernel's ``__fmaf_rn``
+does, and the wrapper's pure-Python plan (the dW2 kernel's row split, the
+workspace's segments) is checked at the main path's and the tests' widths.
 """
 
 import jax
@@ -173,3 +177,53 @@ def test_fused_update_matches_jax_autodiff_update():
     for k in METRICS:
         np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=2e-5,
                                    atol=2e-6, err_msg=k)
+
+
+def test_ordered_mm_rounds_each_step_once():
+    """``_ordered_mm`` is the kernel's ``__fmaf_rn`` loop: each step
+    ``s + a_k w_k`` taken exactly (in f64) and rounded once to f32, over k
+    in turn; checked against numpy on inputs that are not bf16-rounded,
+    where a multiply rounded before the add would differ."""
+    rng = np.random.default_rng(5)
+    a = rng.standard_normal((16, 40), dtype=np.float32)
+    w = rng.standard_normal((24, 40), dtype=np.float32)
+    want = np.zeros((16, 24), np.float32)
+    unfused = np.zeros((16, 24), np.float32)
+    for k in range(a.shape[1]):
+        step = np.float64(a[:, k, None]) * np.float64(w[None, :, k])
+        want = (np.float64(want) + step).astype(np.float32)
+        unfused = unfused + a[:, k, None] * w[None, :, k]
+    got = fused_ops._ordered_mm(torch.from_numpy(a), torch.from_numpy(w))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not np.array_equal(unfused, want)
+
+
+@pytest.mark.parametrize("n,d,hidden,sms", [
+    (65536, 6, (256, 128), 132), (65536, 12, (64, 32), 132),
+    (512, 6, (64, 32), 132), (512, 12, (256, 128), 132), (128, 6, (64, 32), 8),
+])
+def test_kernel_plan(n, d, hidden, sms):
+    """The dW2 kernel's split covers every row once in whole 16-row steps
+    with no empty split and about one block per SM; the workspace's
+    segments are 256-byte aligned and hold the row slabs, h1, dz2 and the
+    dW2 slabs."""
+    h1, h2 = hidden
+    splits, rows = fused_ops.dw2_split(n, h1, h2, sms)
+    assert rows % fused_ops.DW2_STEP_ROWS == 0
+    assert (splits - 1) * rows < n <= splits * rows
+    tiles = -(-h1 // fused_ops.DW2_TILE) * -(-h2 // fused_ops.DW2_TILE)
+    assert tiles * splits <= max(sms, tiles) + tiles
+    blocks = min(n // fused_ops.KERNEL_ROWS, 2 * sms)
+    ws = fused_ops.workspace(n, d, h1, h2, 5, blocks, splits)
+    model = ActorCritic(d, 5, hidden)
+    small = sum(p.numel() for name, p in model.named_parameters()
+                if name != "feature.3.weight") + 5
+    assert ws["slab"][1] == blocks * small
+    assert ws["h1"][1] == n * h1 and ws["dz2"][1] == n * h2
+    assert ws["slab2"][1] == splits * h1 * h2
+    ends = [0]
+    for name in ("slab", "h1", "dz2", "slab2"):
+        off, size = ws[name]
+        assert off % 64 == 0 and off >= ends[-1]
+        ends.append(off + size)
+    assert ws["total"][1] >= ends[-1]

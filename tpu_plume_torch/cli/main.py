@@ -4,9 +4,14 @@
     python -m tpu_plume_torch.cli train --preset wrf_les_3d --synth-bank 3d
 
 Runs on the card; ``--cpu`` runs on the CPU.  The flags are the JAX CLI's
-(``python -m tpu_plume.cli train``) for the paths the port runs; a flag of
-a path it does not run yet is not accepted (``--bank file.nc`` among them:
-banks are synthesized from ``--bank-seed``).
+(``python -m tpu_plume.cli train``), with its types, defaults and override
+rules, for the paths the port runs: the env's reward shaping
+(``--depth-coef``, ``--depth-power``, ``--terminal-gate``,
+``--inplume-bonus``), the curriculum floor (``--min-radius``) and the trunk
+widths (``--hidden``) among them, so JAX's recipe ``--min-radius 50
+--terminal-gate 40`` runs here too.  A flag of a path the port does not run
+yet is not accepted (``--bank file.nc`` among them: banks are synthesized
+from ``--bank-seed``).
 """
 
 from __future__ import annotations
@@ -23,10 +28,22 @@ def apply_overrides(cfg, args):
     env = cfg.env
     if args.plume_model:
         env = dataclasses.replace(env, plume_model=args.plume_model)
+    if args.depth_coef is not None:
+        env = dataclasses.replace(env, terminal_depth_coef=args.depth_coef)
+    if args.depth_power is not None:
+        env = dataclasses.replace(env, terminal_depth_power=args.depth_power)
+    if args.terminal_gate is not None:
+        env = dataclasses.replace(env, terminal_gate_radius=args.terminal_gate)
     if args.obs_memory:
         env = dataclasses.replace(env, obs_memory=True)
     if args.reward:
         env = dataclasses.replace(env, reward_variant=args.reward)
+    if args.inplume_bonus:
+        env = dataclasses.replace(env, inplume_bonus=args.inplume_bonus)
+    curriculum = cfg.curriculum
+    if args.min_radius is not None:
+        curriculum = dataclasses.replace(curriculum,
+                                         min_radius=args.min_radius)
     rollout = cfg.rollout
     if args.envs:
         rollout = dataclasses.replace(rollout, num_envs=args.envs)
@@ -47,7 +64,11 @@ def apply_overrides(cfg, args):
         ppo = dataclasses.replace(ppo, bf16_update=True)
     if args.f32_heads:
         ppo = dataclasses.replace(ppo, f32_heads=True)
-    cfg = cfg.replace(env=env, rollout=rollout, ppo=ppo)
+    if args.hidden:
+        ppo = dataclasses.replace(
+            ppo, hidden_sizes=tuple(int(h) for h in args.hidden.split(",")))
+    cfg = cfg.replace(env=env, curriculum=curriculum, rollout=rollout,
+                      ppo=ppo)
     if args.episodes:
         cfg = cfg.replace(total_episodes=args.episodes)
     if args.seed is not None:
@@ -145,6 +166,30 @@ def build_parser():
     sp.add_argument("--bank-levels", type=int, help="z levels Z (3d)")
     sp.add_argument("--bank-spf", type=float, help="env steps per frame")
     sp.add_argument("--bank-seed", type=int, default=0)
+    sp.add_argument("--depth-coef", type=float,
+                    help="terminal goal-ball crossing-depth bonus coef "
+                         "(EnvConfig.terminal_depth_coef; default 0 = "
+                         "reference parity)")
+    sp.add_argument("--depth-power", type=float,
+                    help="exponent on the normalized crossing depth "
+                         "(EnvConfig.terminal_depth_power; >1 pays grazes "
+                         "~nothing, keeping a smooth gradient)")
+    sp.add_argument("--terminal-gate", type=float,
+                    help="success-gated terminal bonus: pay the whole "
+                         "terminal bonus only when the crossing lands within "
+                         "this distance of the source "
+                         "(EnvConfig.terminal_gate_radius; 40 = the "
+                         "reference eval metric; default 0 = off)")
+    sp.add_argument("--inplume-bonus", type=float,
+                    help="per-step bonus while conc/peak >= 0.06 "
+                         "(EnvConfig.inplume_bonus); default 0 = reference "
+                         "parity")
+    sp.add_argument("--min-radius", type=float,
+                    help="curriculum radius floor (set 50 to train at the "
+                         "fixed reference-protocol radius)")
+    sp.add_argument("--hidden",
+                    help='trunk widths, e.g. "512,256" (default 256,128 — '
+                         "the reference architecture)")
     sp.add_argument("--shuffle-mode", choices=["roll", "permutation", "affine"],
                     help="PPO minibatch shuffle: circular rotation (default), "
                          "full random permutation, or an affine bijection")

@@ -13,10 +13,13 @@ the torch layout (Dense weights [out, in]); ``metrics`` holds the loss
 metrics of ``ppo_loss`` as 0-d tensors.
 
 On a CUDA tensor it launches the hand-written kernels of
-``tpu_plume_torch/csrc/ppo.cu`` (the partial-sum kernel, then the reduction
-over blocks) or raises; on a CPU tensor it runs ``fused_ppo_grads_plain``,
-the kernel's own formulas in plain PyTorch (not autograd), which is also the
-yardstick the kernel is held against on the card.
+``tpu_plume_torch/csrc/ppo.cu`` or raises: the row kernel (forward, loss
+gradients and backward of 32-row tiles, with every gradient but dW2 summed
+per block, h1 and dz2 written to a workspace), the split-K dW2 kernel over
+that workspace, and the ordered reduction over blocks.  On a CPU tensor it
+runs ``fused_ppo_grads_plain``, the kernels' own formulas in plain PyTorch
+(not autograd), which is also the yardstick the kernels are held against on
+the card.
 
 The kernel's choices are kept as the Pallas kernel makes them: LayerNorm
 variance as E[z^2] - E[z]^2 with eps 1e-6; subgradients ``s1 <= s2`` for
@@ -27,14 +30,15 @@ fused path drops the update's bf16 twin) the four forward products round
 their operands to bf16 (round to nearest even) and accumulate in f32, while
 every backward contraction takes f32 operands.
 
-The plain version sums the bf16 forward in the kernel's order (see
-``fused_ppo_grads_plain``), so the two agree at the f32 tolerance in both
-modes.  The kernel reads the actions as i64, the port's dtype (the Pallas
+The plain version sums the bf16 products that feed a bf16 rounding in the
+kernel's order (see ``fused_ppo_grads_plain``), so the two agree at the f32
+tolerance in both modes.  The kernel reads the actions as i64, the port's dtype (the Pallas
 kernel takes i32), and the model's own parameters, so flax params reach it
 through ``tpu_plume_torch.convert`` like every other path; there is no
-second converter.  ``launches`` counts launches of the partial-sum kernel and
-``reduce_launches`` those of the reduction, so a run can show that its
-minibatch steps went through the kernel.
+second converter.  ``launches`` counts launches of the row kernel,
+``dw2_launches`` those of the dW2 kernel and ``reduce_launches`` those of the
+reduction, so a run can show that its minibatch steps went through the
+kernels.
 """
 
 from __future__ import annotations
@@ -56,10 +60,17 @@ PARAM_NAMES = (
 )
 METRIC_NAMES = ("loss/total", "loss/policy", "loss/value", "loss/entropy",
                 "loss/approx_kl", "loss/clip_frac")
-# Rows of one tile of the CUDA kernel (kRows in csrc/ppo.cu).
-KERNEL_ROWS = 16
+# Rows of one tile of the row kernel (kRows in csrc/ppo.cu).
+KERNEL_ROWS = 32
+# The dW2 kernel's output tile edge and rows staged per step (kTile,
+# kStepRows in csrc/ppo.cu).
+DW2_TILE = 128
+DW2_STEP_ROWS = 16
+# Workspace segments start on 256-byte boundaries (16-byte loads).
+_ALIGN = 64
 
 launches = 0
+dw2_launches = 0
 reduce_launches = 0
 
 
@@ -105,11 +116,16 @@ def _metrics(sums: torch.Tensor, n: int, cfg: PPOConfig) -> dict:
 
 
 def _ordered_mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """a[R, K] @ w[N, K]^T, each output summed over k in turn from 0, with
-    no fused multiply-add: the kernel's order."""
-    s = torch.zeros(a.shape[0], w.shape[0], dtype=a.dtype, device=a.device)
+    """a[R, K] @ w[N, K]^T in f32, each output summed over k in turn from 0
+    with one rounding per step, as the kernel's ``__fmaf_rn`` does: a step
+    is ``s + a_k w_k`` in f64, rounded to f32.  The product of two f32
+    values is exact in f64, so this is the fused multiply-add's single
+    rounding, up to a rare double rounding of the f64 sum."""
+    s = torch.zeros(a.shape[0], w.shape[0], dtype=torch.float32,
+                    device=a.device)
+    a, w = a.double(), w.double()
     for k in range(a.shape[1]):
-        s = s + a[:, k, None] * w[:, k]
+        s = (s.double() + a[:, k, None] * w[:, k]).float()
     return s
 
 
@@ -135,10 +151,12 @@ def fused_ppo_grads_plain(model: torch.nn.Module, batch, cfg: PPOConfig):
     """The kernel's function in plain PyTorch: its hand-derived forward and
     backward formulas, with the same roundings.
 
-    Under bf16 compute the forward products and the LayerNorm stats are
-    also summed in the kernel's order: the activations are rounded to bf16
-    before the next product, which turns a difference of one f32 ulp from
-    another summation order into one of a bf16 ulp now and then."""
+    Under bf16 compute z1, z2 and the LayerNorm stats are also summed in
+    the kernel's order, one rounding per multiply-add: the activations are
+    rounded to bf16 before the next product, which turns a difference of
+    one f32 ulp from another summation order into one of a bf16 ulp now
+    and then.  The heads, which no bf16 rounding follows, are summed in
+    another order than the kernel's and agree at the f32 tolerance."""
     (w1, b1, g1, be1, w2, b2, g2, be2, wp, bp, wv, bv) = _params(model)
     x = batch.obs
     n = x.shape[0]
@@ -263,6 +281,34 @@ def _check(batch, params):
         raise ValueError("the fused kernel takes no per-sample weights")
 
 
+def dw2_split(n: int, h1: int, h2: int, sms: int) -> tuple[int, int]:
+    """(splits, rows per split) of the dW2 kernel for ``n`` rows: about one
+    block per SM over the 128 x 128 output tiles of [h2, h1], each split a
+    whole number of 16-row steps and none of them empty."""
+    tiles = -(-h2 // DW2_TILE) * -(-h1 // DW2_TILE)
+    want = max(1, min(n // DW2_STEP_ROWS, -(-sms // tiles)))
+    rows = -(-(-(-n // want)) // DW2_STEP_ROWS) * DW2_STEP_ROWS
+    return -(-n // rows), rows
+
+
+def workspace(n: int, d: int, h1: int, h2: int, a: int, blocks: int,
+              splits: int) -> dict:
+    """(offset, floats) of each segment of the kernels' one f32 workspace:
+    the row kernel's ``blocks`` slabs (every gradient but dW2, then the 5
+    metric sums), h1 [n, h1], dz2 [n, h2] and the ``splits`` dW2 slabs
+    [h2, h1].  The output is a tensor of its own, so that the gradients,
+    views of it, do not hold the workspace."""
+    small = h1 * d + 3 * h1 + 3 * h2 + (a + 1) * h2 + a + 1 + 5
+    sizes = {"slab": blocks * small, "h1": n * h1, "dz2": n * h2,
+             "slab2": splits * h2 * h1}
+    out, offset = {}, 0
+    for name, size in sizes.items():
+        out[name] = (offset, size)
+        offset += -(-size // _ALIGN) * _ALIGN
+    out["total"] = (0, offset)
+    return out
+
+
 _entries = None   # the loaded C entry points, set at first launch
 _plans: dict = {}
 
@@ -274,40 +320,49 @@ def _library():
 
         lib = build.load("ppo")
         plan = lib.ppo_fused_plan
-        plan.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
+        plan.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 3
         plan.restype = ctypes.c_int
-        fused = lib.ppo_fused_partials
-        fused.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 8
-                          + [ctypes.c_float] * 7 + [ctypes.c_void_p])
-        fused.restype = ctypes.c_int
+        rows = lib.ppo_fused_rows
+        rows.argtypes = ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 8
+                         + [ctypes.c_float] * 7 + [ctypes.c_void_p])
+        rows.restype = ctypes.c_int
+        dw2 = lib.ppo_fused_dw2
+        dw2.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        dw2.restype = ctypes.c_int
         reduce = lib.ppo_fused_reduce
-        reduce.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
-                           + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+        reduce.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                           + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
+                           + [ctypes.c_void_p])
         reduce.restype = ctypes.c_int
-        _entries = (plan, fused, reduce)
+        _entries = (plan, rows, dw2, reduce)
     return _entries
 
 
-def _plan(device: int, d: int, h1: int, h2: int, a: int) -> tuple[int, int]:
-    """(dynamic shared memory bytes, blocks the card holds at once) of the
-    partial-sum kernel for these widths, cached per device and widths."""
+def _plan(device: int, d: int, h1: int, h2: int, a: int
+          ) -> tuple[int, int, int]:
+    """(dynamic shared memory bytes, blocks the card holds at once, SMs) of
+    the row kernel for these widths, cached per device and widths."""
     key = (device, d, h1, h2, a)
     if key not in _plans:
-        smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+        smem, blocks, sms = (ctypes.c_int(0) for _ in range(3))
         err = _library()[0](d, h1, h2, a, ctypes.byref(smem),
-                            ctypes.byref(blocks))
+                            ctypes.byref(blocks), ctypes.byref(sms))
         if err != 0:
             raise RuntimeError(
                 f"ppo_fused cannot take widths D={d}, H1={h1}, H2={h2}, "
-                f"A={a}: {smem.value} bytes of shared memory, cudaError {err}")
-        _plans[key] = (smem.value, blocks.value)
+                f"A={a} (H1 and H2 must be multiples of 16 up to 256, A at "
+                f"most 7): "
+                f"{smem.value} bytes of shared memory, cudaError {err}")
+        _plans[key] = (smem.value, blocks.value, sms.value)
     return _plans[key]
 
 
 def fused_ppo_grads_cuda(model: torch.nn.Module, batch, cfg: PPOConfig):
     """Launches the CUDA kernels on the current stream of the current
     device, which must hold the batch and the model."""
-    global launches, reduce_launches
+    global launches, dw2_launches, reduce_launches
     obs = batch.obs
     if obs.device.type != "cuda":
         raise ValueError(f"fused_ppo_grads_cuda needs CUDA tensors, got "
@@ -319,32 +374,42 @@ def fused_ppo_grads_cuda(model: torch.nn.Module, batch, cfg: PPOConfig):
     _check(batch, params)
     n, d = obs.shape
     h1, h2, a = params[0].shape[0], params[4].shape[0], params[8].shape[0]
-    smem, capacity = _plan(obs.device.index, d, h1, h2, a)
+    smem, capacity, sms = _plan(obs.device.index, d, h1, h2, a)
     blocks = min(n // KERNEL_ROWS, capacity)
+    splits, rows_per_split = dw2_split(n, h1, h2, sms)
+    ws = workspace(n, d, h1, h2, a, blocks, splits)
+    buf = torch.empty(ws["total"][1], dtype=torch.float32, device=obs.device)
+    ptr = {name: buf.data_ptr() + 4 * off for name, (off, _) in ws.items()}
     sizes = [t.numel() for t in params]
-    per_block = sum(sizes) + 5
-    slab = torch.empty(blocks * per_block, dtype=torch.float32,
-                       device=obs.device)
-    out = torch.empty(sum(sizes) + len(METRIC_NAMES), dtype=torch.float32,
+    ngrad = sum(sizes)
+    out = torch.empty(ngrad + len(METRIC_NAMES), dtype=torch.float32,
                       device=obs.device)
-    plan, fused, reduce = _library()
+    plan, rows, dw2, reduce = _library()
     inv_n = 1.0 / n
     eps = float(cfg.clip_epsilon)
     stream = torch.cuda.current_stream().cuda_stream
-    err = fused(
+    err = rows(
         obs.data_ptr(), batch.actions.data_ptr(),
         batch.old_log_probs.data_ptr(), batch.advantages.data_ptr(),
         batch.returns.data_ptr(), batch.old_values.data_ptr(),
-        *(t.data_ptr() for t in params), slab.data_ptr(),
+        *(t.data_ptr() for t in params), ptr["slab"], ptr["h1"], ptr["dz2"],
         blocks, smem, n, d, h1, h2, a, int(bool(cfg.bf16_compute)),
         inv_n, 1.0 - eps, 1.0 + eps, eps,
         cfg.value_loss_coef * inv_n, float(cfg.value_loss_coef),
         cfg.entropy_beta * inv_n, stream)
     if err != 0:
-        raise RuntimeError(f"ppo_fused launch failed: cudaError {err}")
+        raise RuntimeError(f"ppo_fused row kernel launch failed: cudaError "
+                           f"{err}")
     launches += 1
-    err = reduce(slab.data_ptr(), out.data_ptr(), blocks, per_block,
-                 sum(sizes), inv_n, float(cfg.entropy_beta), stream)
+    err = dw2(ptr["dz2"], ptr["h1"], ptr["slab2"], n, h1, h2, splits,
+              rows_per_split, stream)
+    if err != 0:
+        raise RuntimeError(f"ppo_fused dW2 kernel launch failed: cudaError "
+                           f"{err}")
+    dw2_launches += 1
+    err = reduce(ptr["slab"], blocks, ws["slab"][1] // blocks, ptr["slab2"],
+                 splits, out.data_ptr(), sum(sizes[:4]), sizes[4], ngrad, inv_n,
+                 float(cfg.entropy_beta), stream)
     if err != 0:
         raise RuntimeError(f"ppo_fused reduction launch failed: cudaError "
                            f"{err}")

@@ -347,7 +347,9 @@ def train_ppo(
     ``max_iterations`` iterations).  ``device`` defaults to ``cuda`` and
     raises without a card; pass ``"cpu"`` to run on the CPU.
     ``sync_every`` is the number of iterations whose episode records are
-    drained to the CSV in one batch (default 8).  ``guide`` (a training
+    drained to the CSV in one batch (default 8); their episodes count
+    toward ``cfg.total_episodes`` when the batch is drained, so training
+    runs to the end of the window that reaches it, as JAX's does.  ``guide`` (a training
     guide) is not ported yet and raises.  ``bank`` is the ``FieldBank`` of
     ``plume_model="gridded"``; it is moved to ``device``."""
     device = resolve_device(device)
@@ -376,7 +378,12 @@ def train_ppo(
             TrainLogger(out_dir)))
 
         def consume():
-            for it, stats, rows, eps, succ in pending:
+            # Episodes count when their window is drained, as in JAX's
+            # train_ppo: the loop test sees drained windows only, and an
+            # iteration is logged on LOG_EVERY or once the drained count
+            # reaches the target.
+            nonlocal episodes, successes
+            for it, stats, rows in pending:
                 scalars = {k: float(v) for k, v in stats.items()}
                 # NaN tripwire: the whole-iteration loss is the canary.
                 if not np.isfinite(scalars["loss/total"]):
@@ -384,19 +391,21 @@ def train_ppo(
                                        f"{scalars}")
                 if csv_logger is not None:
                     csv_logger.log_records(rows)
-                if it % LOG_EVERY == 0 or it == iteration:
+                episodes += stats["rollout/episodes"]
+                successes += stats["rollout/successes"]
+                if it % LOG_EVERY == 0 or episodes >= cfg.total_episodes:
                     dt = time.perf_counter() - t_steady
                     sps = (it - it_at_steady) * per_iter_steps / max(dt, 1e-9)
                     scalars.update({
                         "throughput/env_steps_per_sec": sps,
-                        "progress/episodes": eps,
-                        "progress/successes": succ,
+                        "progress/episodes": episodes,
+                        "progress/successes": successes,
                     })
                     train_logger.log(it, scalars)
                     if verbose:
                         print(
-                            f"iter {it:5d} | eps {eps:6d} | "
-                            f"succ {succ / max(eps, 1):5.1%} | "
+                            f"iter {it:5d} | eps {episodes:6d} | "
+                            f"succ {successes / max(episodes, 1):5.1%} | "
                             f"radius {scalars['curriculum/radius']:5.1f} | "
                             f"reward/step "
                             f"{scalars['rollout/mean_reward']:7.3f} | "
@@ -411,15 +420,13 @@ def train_ppo(
             loop, stats, traj = train_step(loop)
             iteration += 1
             env_steps += per_iter_steps
-            episodes += stats["rollout/episodes"]
-            successes += stats["rollout/successes"]
             if t_steady is None:
                 # Steady-state throughput excludes the first iteration,
                 # which builds the kernels and warms the allocator.
                 t_steady = time.perf_counter()
                 it_at_steady = iteration
             rows = _done_rows(traj) if csv_logger is not None else None
-            pending.append((iteration, stats, rows, episodes, successes))
+            pending.append((iteration, stats, rows))
             if len(pending) >= sync_every:
                 consume()
         consume()
