@@ -10,8 +10,12 @@ outside a checkout of the repository.  Phases, each of which must pass:
    ``tpu_plume_torch/csrc``, one ``nvcc`` per source, all started together;
 3. each kernel against its plain PyTorch version on the same inputs, with
    the tolerance the CPU tests use: the plume sample at the main path's
-   shape and a large one; the fused PPO gradients in f32 and bf16 compute,
-   at obs widths 6 and 12, hidden widths (256, 128) and (64, 32) and
+   shape and a large one; the env-step kernel (one analytic env step of
+   every env a launch) against ``env_step_plain``, teacher-forced over 24
+   steps (each from the plain path's state) of the v1_1 (Gumbel and
+   greedy), v1_0, delta and obs_memory cases at N = 4096 and 4133, with
+   integers, bools and positions bit-equal; the fused PPO gradients in
+   f32 and bf16 compute, at obs widths 6 and 12, hidden widths (256, 128) and (64, 32) and
    minibatches of 65536 and 512 rows, with two calls giving bit-equal
    gradients, and in f32 also against autodiff of ``ppo_loss``; the
    bilinear and trilinear gathers at the TPU kernels' own call (one
@@ -25,7 +29,9 @@ outside a checkout of the repository.  Phases, each of which must pass:
    steps, N = 4096 and 2^20, both turbulence flag sets, within the plume
    tolerance, two calls bit-equal, and bit-equal with the turbulence off;
 4. each kernel's time, its plain version's and the least time the card
-   could take for the same bytes and operations; for the fused PPO
+   could take for the same bytes and operations (the plume sample and the
+   env step with the host cost of each piece of their wrappers); for the
+   fused PPO
    gradients (three launches: the row kernel, the split-K dW2 kernel and
    the reduction) the device time of each launch, their sum and its share
    of the bound, and autodiff's forward and backward of ``ppo_loss`` on the
@@ -40,10 +46,13 @@ outside a checkout of the repository.  Phases, each of which must pass:
    over a 64-cell [2, 3, 4, 64, 64] bank; a static [3, 64, 64] bank read
    between cells;
 6. the main paths at full width, 4096 envs x 128 steps, minibatch 65536,
-   5 epochs, each with one warm-up and timed iterations, the kernel launch
-   counts set to 0 just before the timed iterations and read just after,
-   and one more iteration under the profiler (its launches printed): the
-   ppo_v2_0 train step with
+   5 epochs, each driven as ``train_ppo`` drives it, with the kernel launch
+   counts set to 0 just before ``init_loop`` and read just after the last
+   iteration (``init_loop``, one warm-up and the timed iterations, each
+   stretch's launches checked), then one rollout chunk and one iteration
+   under the profiler (the chunk's launches per env step and the
+   iteration's launches printed): the ppo_v2_0 train step (one env-step
+   launch per env step) with
    the 6->256->128 network in three variants (f32 autodiff,
    ``fused_update``, ``bf16_compute``); wrf_les_3d (3-D flight through the
    [4, 8, 8, 500, 500] bank of ``--synth-bank 3d``, the 7->256->128 network;
@@ -112,6 +121,26 @@ SAMPLE_LAYOUTS = {"static": ((64, 500, 500), False),
                   "one_frame": ((4, 1, 8, 500, 500), True)}
 SAMPLE_SPF = 100.0
 V10_FLAGS = dict(turbulence_signed_normal=True, tke_abs_times_two=True)
+# The env-step kernel: the env cases of tests/test_torch_env.py (the v1_1,
+# v1_0 with elastic walls, and delta rewards with its in-plume, depth and
+# gate terms, and obs_memory), teacher-forced over ENV_STEPS steps, at the
+# main path's N and at an N that is not a multiple of the kernel's block.
+ENV_CASES = {
+    "v1_1": ("ppo_v2_0", {}),
+    "v1_0": ("ppo_v1_0", {"max_steps": 7}),
+    "delta": ("ppo_v2_0", {"reward_variant": "delta", "inplume_bonus": 0.5,
+                           "terminal_depth_coef": 30.0,
+                           "terminal_depth_power": 2.0,
+                           "terminal_gate_radius": 200.0}),
+    "obs_memory": ("ppo_v1_1", {"obs_memory": True, "max_steps": 9}),
+}
+ENV_STEPS = 24
+ENV_ODD_N = MAIN_N + 37
+# Operations of one env step beside its plume samples, counting each
+# transcendental as one: the action sample (about 4 a logit, an exp each
+# and a log), the move and its clip (about 20), the visit, reward terms,
+# terminal bonus and obs (about 50).
+ENV_STEP_OPS = 90
 
 
 def log(*parts):
@@ -194,7 +223,251 @@ def check_plume_kernel(get_preset, plume) -> dict:
         log(f"time plume_sample N={n}: per call {ms:.5f} ms, on the device "
             f"{device_ms} ms, plain {plain_ms:.5f} ms, bound {bound_ms:.6f} "
             f"ms ({bound_by})")
+        if n == MAIN_N:
+            timing["split_ns"] = plume_split(plume, args, cfg)
     return {"max_abs_err": worst, "timing": timing}
+
+
+def plume_split(plume, args, cfg) -> dict:
+    """The pieces of one plume sample call (``sample_plume_cuda``): its
+    one-expression check, the one allocation of conc and tke, the stream
+    read, the entry point's call with its launch and without (N = 0), and
+    the whole wrapper."""
+    import torch
+
+    pos, source, seed = args
+    n, index = pos.shape[0], pos.get_device()
+    conc, tke = pos.new_empty((2, n)).unbind()
+    ptrs = (pos.data_ptr(), source.data_ptr(), seed.data_ptr(),
+            conc.data_ptr(), tke.data_ptr())
+    scalars = (cfg.grid_size, cfg.conc_peak, 2.0 * cfg.plume_sigma**2,
+               cfg.turbulence_intensity, int(cfg.turbulence_signed_normal),
+               int(cfg.tke_abs_times_two))
+    ext, stream = plume._library(), plume._raw_stream(index)
+    return host_split("the plume sample wrapper", {
+        "checks": lambda: (pos.dtype is torch.float32 and pos.shape == (n, 2)
+                           and source.shape == (n, 2) and seed.shape == (n,)
+                           and pos.is_contiguous() and source.is_contiguous()
+                           and seed.is_contiguous()),
+        "allocate": lambda: pos.new_empty((2, n)).unbind(),
+        "stream": lambda: plume._raw_stream(index),
+        "entry_no_launch": lambda: ext.plume_sample(*ptrs, 0, *scalars,
+                                                    stream),
+        "entry_launch": lambda: ext.plume_sample(*ptrs, n, *scalars, stream),
+        "wrapper": lambda: plume.sample_plume_cuda(*args, cfg),
+    })
+
+
+def env_start(rollout, cfg, n: int, seed: int, wide: bool = True):
+    """Fresh episodes in ``n`` envs on the card and the generator that drew
+    them; with ``wide``, curriculum radii of 40-300, so that envs reach the
+    source and reset within a few steps."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    carry = rollout.init_rollout(cfg, n, g)
+    state = carry.env_state
+    if wide:
+        state = state.replace(radius=40.0 + 260.0 * torch.rand(
+            n, device="cuda", generator=g))
+    return state, carry.accum, g
+
+
+def policy_outputs(cfg, n: int, g):
+    """Logits f32[N, A] and values f32[N] as a policy's forward gives
+    them."""
+    import torch
+
+    return (2.0 * torch.randn(n, cfg.num_actions, device="cuda", generator=g),
+            torch.randn(n, device="cuda", generator=g))
+
+
+def compare_env_step(plume, cfg, got, want, state, accum) -> tuple:
+    """Asserts one kernel step ``got`` = (traj, obs rows, state, totals)
+    equal to the plain step ``want`` in every integer and bool (actions,
+    dones, successes, steps, t, visit grids, prev_action, seeds, cells of
+    the step's and the next position) and within RTOL/ATOL in every float.
+    Returns (envs whose position differs in any bit, in the step's row or
+    the next state; the worst absolute float error)."""
+    import torch
+
+    traj, obs, k_state, k_acc = got
+    w_traj, w_obs = want
+    cell = lambda pos: torch.stack(plume.cell_of(pos, cfg.grid_size), -1)
+    equal = {
+        "action": (traj.action, w_traj.action),
+        "done": (traj.done, w_traj.done),
+        "success": (traj.episode.success, w_traj.episode.success),
+        "steps": (traj.episode.steps, w_traj.episode.steps),
+        "t": (k_state.t, state.t), "visited": (k_state.visited, state.visited),
+        "prev_action": (k_state.prev_action, state.prev_action),
+        "seed": (k_state.field.seed, state.field.seed),
+        "step cells": (cell(traj.pos), cell(w_traj.pos)),
+        "cells": (cell(k_state.pos), cell(state.pos)),
+        "value": (traj.value, w_traj.value),
+    }
+    for name, (a, b) in equal.items():
+        assert torch.equal(a, b), (name, int((a != b).sum()))
+    close = {"obs": (obs[1], w_obs[1]), "pos": (k_state.pos, state.pos),
+             "source": (k_state.field.source, state.field.source)}
+    for name in ("log_prob", "reward", "pos", "conc"):
+        close["step " + name] = (getattr(traj, name), getattr(w_traj, name))
+    for name in plume.ACCUM_FIELDS + ("final_conc", "source_x", "source_y",
+                                      "radius", "distance"):
+        close["record " + name] = (getattr(traj.episode, name),
+                                   getattr(w_traj.episode, name))
+    for name in ("conc", "tke", "prev_conc"):
+        close[name] = (getattr(k_state, name), getattr(state, name))
+    for name in plume.ACCUM_FIELDS:
+        close["accum " + name] = (getattr(k_acc, name), getattr(accum, name))
+    err = 0.0
+    for name, (a, b) in close.items():
+        assert torch.isfinite(a).all(), name
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL, msg=name)
+        err = max(err, float((a - b).abs().max()))
+    moved = ((traj.pos != w_traj.pos).any(-1)
+             | (k_state.pos != state.pos).any(-1))
+    return int(moved.sum()), err
+
+
+def check_env_step_kernel(get_preset, plume, rollout) -> float:
+    """The env-step kernel against ``env_step_plain`` on the card over
+    ENV_STEPS steps of each env case, Gumbel-sampled (and, for v1_1,
+    greedy), at N = 4096 and ENV_ODD_N, teacher-forced: each step starts
+    both from the plain path's state, the kernel from a copy of it, with the
+    same logits, values and draws.  Integers and bools equal, no position
+    differing in any bit, floats within RTOL/ATOL; some envs finish and
+    reset in every case.  Returns the worst absolute float error."""
+    import torch
+
+    worst = 0.0
+    for case, (preset, kw) in ENV_CASES.items():
+        cfg = dataclasses.replace(get_preset(preset).env, **kw)
+        for n in (MAIN_N, ENV_ODD_N):
+            for greedy in ((False, True) if case == "v1_1" else (False,)):
+                state, accum, g = env_start(rollout, cfg, n,
+                                            seed=n + len(case))
+                moved = dones = 0
+                err = 0.0
+                for _ in range(ENV_STEPS):
+                    logits, value = policy_outputs(cfg, n, g)
+                    draws = rollout.draw_chunk(g, cfg, 1, n, greedy)
+                    traj, obs = rollout.empty_trajectory(1, n, cfg, "cuda")
+                    k_state = rollout.own_copy(state)
+                    k_acc = rollout.own_copy(accum)
+                    plume.EnvStepper(k_state, k_acc, draws, traj, obs, cfg)(
+                        0, logits, value)
+                    want = rollout.empty_trajectory(1, n, cfg, "cuda")
+                    state, _, accum = rollout.env_step_plain(
+                        logits, value, draws, 0, state, accum, *want, cfg)
+                    torch.cuda.synchronize()
+                    m, e = compare_env_step(plume, cfg,
+                                            (traj, obs, k_state, k_acc), want,
+                                            state, accum)
+                    moved += m
+                    err = max(err, e)
+                    dones += int(traj.done.sum())
+                log(f"parity env_step {case} N={n} "
+                    f"{'greedy' if greedy else 'Gumbel'}: {ENV_STEPS} steps "
+                    f"teacher-forced, {dones} envs finished; actions, dones, "
+                    f"t, visit grids, prev_action, seeds and cells equal; "
+                    f"pos mismatches {moved}; max_abs_err {err:.3e}")
+                assert moved == 0, (case, n, "pos mismatches", moved)
+                assert dones > 0, (case, n, "no env finished")
+                worst = max(worst, err)
+    return worst
+
+
+def time_env_step_kernel(get_preset, plume, rollout) -> dict:
+    """The env-step kernel's per-call and device time at N = 4096 and 2^20
+    on ppo_v2_0 from fresh episodes at the initial radius, beside
+    ``env_step_plain``'s and the bound: the larger of ``env_step_bytes``
+    (with the finished envs of the timed step) over the memory rate and the
+    plume samples' and ENV_STEP_OPS operations over the f32 rate.  The
+    stepper steps its copy of the state in place at every call.  Also the
+    split of the wrapper's host cost at N = 4096."""
+    import torch
+
+    cfg = get_preset("ppo_v2_0").env
+    out = {}
+    for n, reps in ((MAIN_N, 2000), (LARGE_N, 100)):
+        state, accum, g = env_start(rollout, cfg, n, seed=5, wide=False)
+        logits, value = policy_outputs(cfg, n, g)
+        draws = rollout.draw_chunk(g, cfg, 1, n)
+        traj, obs = rollout.empty_trajectory(1, n, cfg, "cuda")
+        stepper = plume.EnvStepper(rollout.own_copy(state),
+                                   rollout.own_copy(accum), draws, traj, obs,
+                                   cfg)
+
+        def call():
+            stepper(0, logits, value)
+
+        call()
+        torch.cuda.synchronize()
+        dones = int(traj.done.sum())
+        ms = cuda_ms(call, reps)
+        device_ms = kernel_device_ms(call, "env_step_kernel")
+        want = rollout.empty_trajectory(1, n, cfg, "cuda")
+        plain_ms = cuda_ms(lambda: rollout.env_step_plain(
+            logits, value, draws, 0, state, accum, *want, cfg),
+            max(reps // 20, 20))
+        moved = plume.env_step_bytes(cfg, n, dones, greedy=False)
+        bytes_s = moved / HBM_BYTES_PER_S
+        ops_s = ((n * (PLUME_OPS_PER_QUERY + ENV_STEP_OPS)
+                  + dones * PLUME_OPS_PER_QUERY) / F32_OPS_PER_S)
+        bound_ms = max(bytes_s, ops_s) * 1e3
+        bound_by = "bytes" if bytes_s >= ops_s else "operations"
+        out[n] = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                      bound_ms=bound_ms, bound_by=bound_by, bytes=moved,
+                      dones=dones)
+        log(f"time env_step ppo_v2_0 N={n}: per call {ms:.5f} ms, on the "
+            f"device {device_ms} ms, plain {plain_ms:.5f} ms, bound "
+            f"{bound_ms:.6f} ms ({bound_by}; {moved} B, {dones} envs "
+            f"finished)")
+        if n == MAIN_N:
+            stream = plume._raw_stream(stepper.index)
+            args = (stepper.address, 0, logits.data_ptr(), value.data_ptr())
+            out["split_ns"] = host_split("the env-step wrapper", {
+                "checks": lambda: stepper.takes(logits, value),
+                "stream": lambda: plume._raw_stream(stepper.index),
+                "data_ptr": lambda: (logits.data_ptr(), value.data_ptr()),
+                "entry_launch": lambda: stepper.launch(*args, stream),
+                "wrapper": call,
+            }, reps=5000)
+    return out
+
+
+def profile_rollout(rollout_chunk, loop, cfg, bank=None) -> dict:
+    """Device launches per env step, device ms and wall ms of one rollout
+    chunk of the main path (``loop``'s carry is not modified), from
+    torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    length = cfg.rollout.unroll_length
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rollout_chunk(loop.model, loop.rollout, cfg.env, length, bank=bank)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = device_kernels(prof)
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    count = sum(e.count for e in kernels)
+    return dict(launches_per_step=count / length, launches=count,
+                device_ms=device_ms, wall_ms=wall_ms)
+
+
+def device_kernels(prof):
+    """The profiler's device events, without user annotations such as the
+    optimizer's step range, which span kernels already counted."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.count
+            and not getattr(e, "is_user_annotation", False)
+            and "#" not in e.key]
 
 
 def kernel_device_ms(fn, kernel_name: str, reps: int = 100):
@@ -442,7 +715,7 @@ def grid_sample_call(stack, pts):
     return call
 
 
-def time_gather_kernels(gather, plume) -> dict:
+def time_gather_kernels(gather) -> dict:
     """Each gather kernel's time at N = 4096 and 2^20 over the TPU kernel's
     own call (and per call over the bank stack), beside its plain version's,
     ``grid_sample``'s and the bound.  The bound counts each query's point,
@@ -476,7 +749,7 @@ def time_gather_kernels(gather, plume) -> dict:
             big = gather_inputs(stack_shape, n, seed=n + 5)
             stack_ms = cuda_ms(lambda: kernel(*big), reps)
             if name == "trilinear_zyx" and n == MAIN_N:
-                out["split_ns"] = gather_split(gather, plume, *args, lib)
+                out["split_ns"] = gather_split(gather, *args, lib)
             take = {}
             if n == LARGE_N:
                 corners = gather._corner_cells(*args)
@@ -635,12 +908,9 @@ def sample_split(gather, bank, args, cfg) -> dict:
     })
 
 
-def gather_split(gather, plume, stack, rows, pts, lib) -> dict:
+def gather_split(gather, stack, rows, pts, lib) -> dict:
     """The pieces of one trilinear gather call over a stack (the TPU
-    kernel's own call), beside ``grid_sample``'s whole call; and, as the
-    yardstick of the binding's own cost, a ctypes call of the plume
-    kernel's C entry point (13 arguments) with N = 0, which returns before
-    any launch, beside the gather's entry point with N = 0."""
+    kernel's own call), beside ``grid_sample``'s whole call."""
     index = stack.get_device()
     n = pts.shape[0]
     out = pts.new_empty(n)
@@ -648,13 +918,10 @@ def gather_split(gather, plume, stack, rows, pts, lib) -> dict:
     ptrs = (stack.data_ptr(), rows.data_ptr(), pts.data_ptr(), out.data_ptr())
     stream = gather._raw_stream(index)
     shape = stack.shape
-    plume_entry = plume._library()
     return host_split("the trilinear gather wrapper", {
         "checks": lambda: gather._takes(stack, rows, pts, 4, index, n),
         "allocate": lambda: pts.new_empty(n),
         "entry_no_launch": lambda: fn(*ptrs, 0, shape, stream),
-        "ctypes_no_launch": lambda: plume_entry(*ptrs, None, 0, 1, 1.0, 1.0,
-                                                1.0, 0, 0, stream),
         "entry_launch": lambda: fn(*ptrs, n, shape, stream),
         "wrapper": lambda: gather.trilinear_zyx(stack, rows, pts),
         "grid_sample": lib,
@@ -711,7 +978,6 @@ def profile_iteration(step, loop):
     """Device kernel time, kernel count and busy share of one main-path
     iteration, from torch.profiler."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -721,12 +987,7 @@ def profile_iteration(step, loop):
         loop, _, _ = step(loop)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # Device events only, without user annotations such as the optimizer's
-    # step range, which span kernels already counted.
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.count
-               and not getattr(e, "is_user_annotation", False)
-               and "#" not in e.key]
+    kernels = device_kernels(prof)
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     count = sum(e.count for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
@@ -754,14 +1015,14 @@ def to_device(obj, device):
     return obj
 
 
-KERNEL_NAMES = ("plume_sample", "ppo_fused", "ppo_dw2", "ppo_reduce",
-                "bilinear", "trilinear_zyx")
+KERNEL_NAMES = ("plume_sample", "env_step", "ppo_fused", "ppo_dw2",
+                "ppo_reduce", "bilinear", "trilinear_zyx")
 
 
 def zero_counts(k) -> None:
     """Set every kernel's launch count to 0 (``k`` holds the plume, ppo and
     gather ops modules)."""
-    k.plume.launches = 0
+    k.plume.launches = k.plume.env_step_launches = 0
     k.fused_ops.launches = k.fused_ops.dw2_launches = 0
     k.fused_ops.reduce_launches = 0
     k.gather.bilinear.launches = k.gather.trilinear_zyx.launches = 0
@@ -769,26 +1030,51 @@ def zero_counts(k) -> None:
 
 def read_counts(k) -> dict:
     return dict(zip(KERNEL_NAMES, (
-        k.plume.launches, k.fused_ops.launches, k.fused_ops.dw2_launches,
-        k.fused_ops.reduce_launches,
+        k.plume.launches, k.plume.env_step_launches, k.fused_ops.launches,
+        k.fused_ops.dw2_launches, k.fused_ops.reduce_launches,
         k.gather.bilinear.launches, k.gather.trilinear_zyx.launches)))
+
+
+def count_diff(after: dict, before: dict) -> dict:
+    return {name: after[name] - before[name] for name in KERNEL_NAMES}
+
+
+def _field_sample(env, bank):
+    """The kernel that one field sample of ``env`` launches (None: no
+    kernel, a gridded read at the cell)."""
+    if env.plume_model != "gridded":
+        return "plume_sample"
+    if env.subcell_sampling:
+        return "bilinear" if bank.conc.dim() == 3 else "trilinear_zyx"
+    return None
+
+
+def expected_init_counts(cfg, bank) -> dict:
+    """Launches of ``init_loop``: one field sample of the fresh episodes."""
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    kernel = _field_sample(cfg.env, bank)
+    if kernel is not None:
+        want[kernel] = 1
+    return want
 
 
 def expected_counts(cfg, bank, iters: int) -> dict:
     """Launches of each kernel in ``iters`` train iterations by the port's
-    design: per env step two field samples (the step and the branchless
-    reset); an analytic sample is one plume launch, a sub-cell bank sample
-    one launch of the sample kernel: bilinear for a static bank, trilinear
-    for a time-varying or 3-D one; each minibatch step of the fused update
-    one launch each of the row kernel, the dW2 kernel and the reduction."""
+    design: on the analytic plume one env-step launch per env step (action
+    sample, move, sample, reward, auto-reset and trajectory rows), and no
+    plume sample; over a bank two field samples per env step (the step and
+    the branchless reset), a sub-cell sample one launch of the sample
+    kernel (bilinear for a static bank, trilinear for a time-varying or 3-D
+    one); each minibatch step of the fused update one launch each of the
+    row kernel, the dW2 kernel and the reduction."""
     env, ppo = cfg.env, cfg.ppo
     n, t = cfg.rollout.num_envs, cfg.rollout.unroll_length
-    samples = iters * 2 * t
     want = dict.fromkeys(KERNEL_NAMES, 0)
-    if env.plume_model != "gridded":
-        want["plume_sample"] = samples
-    elif env.subcell_sampling:
-        want["bilinear" if bank.conc.dim() == 3 else "trilinear_zyx"] = samples
+    kernel = _field_sample(env, bank)
+    if kernel == "plume_sample":
+        want["env_step"] = iters * t
+    elif kernel is not None:
+        want[kernel] = iters * 2 * t
     if ppo.fused_update:
         want["ppo_fused"] = want["ppo_dw2"] = want["ppo_reduce"] = (
             iters * ppo.epochs * (n * t // ppo.minibatch_size))
@@ -876,16 +1162,23 @@ def check_small_iteration_against_cpu(get_preset, RolloutConfig, ttrain,
         f"{float(cstats['loss/total']):.6f}")
 
 
-def run_main_path(ttrain, k, label, cfg, bank=None, iters=3, profile=True):
-    """The full-width train step of ``cfg`` (over ``bank``, on the card):
-    warm-up, then ``iters`` timed iterations with every launch count set
-    to 0 just before them and read just after, then, with ``profile``, one
-    profiled iteration.  Returns the counts, env-steps/s, phase ms, busy
-    share and peak device memory."""
+def run_main_path(ttrain, rollout_chunk, k, label, cfg, bank=None, iters=3,
+                  profile=True):
+    """The full-width train step of ``cfg`` (over ``bank``, on the card),
+    driven as ``train_ppo`` drives it, with every launch count set to 0
+    just before ``init_loop`` and read just after the last iteration:
+    ``init_loop``, a warm-up iteration, then ``iters`` timed iterations,
+    each stretch's launches checked against the design's; then, with
+    ``profile``, one profiled rollout chunk and one profiled iteration.
+    Returns the counts (the whole run's and the timed iterations'),
+    env-steps/s, phase ms, busy share and peak device memory."""
     import torch
 
     n, t = cfg.rollout.num_envs, cfg.rollout.unroll_length
+    zero_counts(k)
     loop = ttrain.init_loop(cfg, "cuda", bank)
+    torch.cuda.synchronize()
+    after_init = read_counts(k)
     step = ttrain.build_train_step(cfg, bank, time_phases=True)
     t0 = time.perf_counter()
     loop, stats, _ = step(loop)
@@ -895,7 +1188,7 @@ def run_main_path(ttrain, k, label, cfg, bank=None, iters=3, profile=True):
 
     phases = {"rollout": 0.0, "gae": 0.0, "update": 0.0}
     torch.cuda.reset_peak_memory_stats()
-    zero_counts(k)
+    before = read_counts(k)
     t0 = time.perf_counter()
     for _ in range(iters):
         loop, stats, traj = step(loop)
@@ -908,9 +1201,14 @@ def run_main_path(ttrain, k, label, cfg, bank=None, iters=3, profile=True):
         assert torch.isfinite(traj.obs).all() and torch.isfinite(traj.reward).all()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = read_counts(k)
-    want = expected_counts(cfg, bank, iters)
-    assert counts == want, (label, counts, want)
+    total = read_counts(k)
+    counts = count_diff(total, before)
+    checks = ((after_init, expected_init_counts(cfg, bank), "init_loop"),
+              (count_diff(before, after_init), expected_counts(cfg, bank, 1),
+               "warm-up"),
+              (counts, expected_counts(cfg, bank, iters), "timed"))
+    for got, want, stretch in checks:
+        assert got == want, (label, stretch, got, want)
     max_mem = torch.cuda.max_memory_allocated()
     sps = iters * n * t / wall
     log(f"main path {label}: {cfg.name} {n} envs x {t} steps, minibatch "
@@ -923,14 +1221,21 @@ def run_main_path(ttrain, k, label, cfg, bank=None, iters=3, profile=True):
     log(f"main path {label} last iteration: loss/total "
         f"{float(stats['loss/total']):.5f}, episodes "
         f"{stats['rollout/episodes']}, radius "
-        f"{stats['curriculum/radius']:.2f}; launches over the {iters} timed "
-        f"iterations {counts}, per iteration "
+        f"{stats['curriculum/radius']:.2f}; launches of init_loop "
+        f"{ {name: c for name, c in after_init.items() if c} }, over the "
+        f"whole run {total}, per timed iteration "
         f"{ {name: c // iters for name, c in counts.items()} }")
-    busy = profiled = None
+    busy = profiled = roll = None
     if profile:
+        roll = profile_rollout(rollout_chunk, loop, cfg, bank)
+        log(f"profile of one main-path rollout chunk (profiler on): "
+            f"{roll['launches']} device launches, "
+            f"{roll['launches_per_step']:.2f} per env step, device "
+            f"{roll['device_ms']:.2f} ms of {roll['wall_ms']:.2f} ms wall")
         loop, busy, profiled = profile_iteration(step, loop)
-    return dict(counts=counts, sps=sps, whole_ms=wall / iters * 1e3,
-                busy=busy, profiled_launches=profiled,
+    return dict(counts=counts, total_counts=total, sps=sps,
+                whole_ms=wall / iters * 1e3, busy=busy,
+                profiled_launches=profiled, rollout_profile=roll,
                 max_memory_allocated=max_mem,
                 **{key: v / iters for key, v in phases.items()})
 
@@ -987,6 +1292,7 @@ def main() -> int:
     from tpu_plume_torch.ops import build, gather, plume
     from tpu_plume_torch.ops import ppo as fused_ops
     from tpu_plume_torch.rl.ppo import PPOBatch, ppo_loss
+    from tpu_plume_torch.rollout import rollout
     from tpu_plume_torch.rollout.rollout import draw_chunk
     from tpu_plume_torch.train import ppo_trainer as ttrain
 
@@ -1002,11 +1308,13 @@ def main() -> int:
     build_kernels(build, ("plume", "ppo", "gather"))
 
     plume_report = check_plume_kernel(get_preset, plume)
+    env_err = check_env_step_kernel(get_preset, plume, rollout)
+    env_time = time_env_step_kernel(get_preset, plume, rollout)
     ppo_args = (ActorCritic, PPOConfig, PPOBatch, fused_ops, ppo_loss)
     ppo_err = check_ppo_kernel(*ppo_args)
     ppo_time = time_ppo_kernel(*ppo_args)
     gather_err = check_gather_kernels(gather)
-    gather_time = time_gather_kernels(gather, plume)
+    gather_time = time_gather_kernels(gather)
     sample_err = check_sample_kernels(get_preset, gridded, gather)
     sample_time = time_sample_kernels(get_preset, gridded, gather)
 
@@ -1035,8 +1343,8 @@ def main() -> int:
     for i, name in enumerate(list(variants) + list(reversed(variants))):
         cfg = v20.replace(ppo=dataclasses.replace(
             v20.ppo, minibatch_size=MAIN_MB, **variants[name]))
-        runs[name].append(run_main_path(ttrain, k, name, cfg,
-                                        profile=i < 3))
+        runs[name].append(run_main_path(ttrain, rollout.rollout_chunk, k,
+                                        name, cfg, profile=i < 3))
         torch.cuda.empty_cache()
     for name, blocks in runs.items():
         log(f"main path summary {name} (blocks in run order): env-steps/s "
@@ -1044,8 +1352,8 @@ def main() -> int:
             + "; ".join(", ".join(f"{key} {b[key]:.2f}" for key in
                                   ("rollout", "gae", "update", "whole_ms"))
                         for b in blocks))
-    launches = runs["f32"][0]["counts"]
-    fused_launches = runs["fused_update"][0]["counts"]
+    launches = runs["f32"][0]["total_counts"]
+    fused_launches = runs["fused_update"][0]["total_counts"]
 
     # wrf_les_3d at full width: the bank of --synth-bank 3d, no cuts.
     w3 = get_preset("wrf_les_3d")
@@ -1053,7 +1361,8 @@ def main() -> int:
     bank = gridded.synthesize_3d_bank(
         torch.Generator(device="cuda").manual_seed(0), w3.env)
     log(f"wrf_les_3d bank {list(bank.conc.shape)}, {bank.conc.numel() * 4} B")
-    wrf = run_main_path(ttrain, k, "wrf_les_3d", w3, bank)
+    wrf = run_main_path(ttrain, rollout.rollout_chunk, k, "wrf_les_3d", w3,
+                        bank)
     del bank
     torch.cuda.empty_cache()
     # A static bank read between cells: the bilinear kernel's path.
@@ -1063,21 +1372,26 @@ def main() -> int:
                                 subcell_sampling=True))
     bank = gridded.synthesize_bank(
         torch.Generator(device="cuda").manual_seed(0), st.env, num_fields=64)
-    static = run_main_path(ttrain, k, "static_subcell", st, bank, iters=2)
+    static = run_main_path(ttrain, rollout.rollout_chunk, k,
+                           "static_subcell", st, bank, iters=2)
     del bank
     torch.cuda.empty_cache()
+    profiled = (("ppo_v2_0 f32", runs["f32"][0]),
+                ("ppo_v2_0 fused_update", runs["fused_update"][0]),
+                ("ppo_v2_0 bf16_compute", runs["bf16_compute"][0]),
+                ("wrf_les_3d", wrf), ("static_subcell", static))
     log("profiled launches per iteration: " + ", ".join(
-        f"{label} {run['profiled_launches']}" for label, run in (
-            ("ppo_v2_0 f32", runs["f32"][0]),
-            ("ppo_v2_0 fused_update", runs["fused_update"][0]),
-            ("ppo_v2_0 bf16_compute", runs["bf16_compute"][0]),
-            ("wrf_les_3d", wrf), ("static_subcell", static))))
+        f"{label} {run['profiled_launches']}" for label, run in profiled))
+    log("profiled rollout launches per env step: " + ", ".join(
+        f"{label} {run['rollout_profile']['launches_per_step']:.2f}"
+        for label, run in profiled))
 
     run_cli(cli_main, ActorCritic, "ppo_v2_0", MAIN_D, MAIN_A)
     run_cli(cli_main, ActorCritic, "ppo_v2_0", MAIN_D, MAIN_A, "--bf16")
     run_cli(cli_main, ActorCritic, "wrf_les_3d", 7, 7, "--synth-bank", "3d")
 
     main_t = plume_report["timing"][MAIN_N]
+    env_t = env_time[MAIN_N]
     ppo_t = ppo_time["f32"]
     kernels = [{
         "name": "plume_sample",
@@ -1092,12 +1406,31 @@ def main() -> int:
         "bound_by": main_t["bound_by"],
         "library_ms": None,
         "device_ms": main_t["device_ms"],
+        "split_ns": plume_report["timing"]["split_ns"],
+    }, {
+        "name": "env_step",
+        "route": "cuda",
+        "source": "tpu_plume_torch/csrc/plume.cu",
+        "replaces": "tpu_plume/ops/pallas_plume.py:29",
+        "launches": launches["env_step"],
+        "launches_timed": runs["f32"][0]["counts"]["env_step"],
+        "max_abs_err": env_err,
+        "ms": env_t["ms"],
+        "plain_ms": env_t["plain_ms"],
+        "bound_ms": env_t["bound_ms"],
+        "bound_by": env_t["bound_by"],
+        "library_ms": None,
+        "device_ms": env_t["device_ms"],
+        "bytes": env_t["bytes"],
+        "large_n": env_time[LARGE_N],
+        "split_ns": env_time["split_ns"],
     }, {
         "name": "ppo_fused",
         "route": "cuda",
         "source": "tpu_plume_torch/csrc/ppo.cu",
         "replaces": "tpu_plume/ops/pallas_ppo.py:60",
         "launches": fused_launches["ppo_fused"],
+        "launches_timed": runs["fused_update"][0]["counts"]["ppo_fused"],
         "max_abs_err": ppo_err,
         "ms": ppo_t["ms"],
         "plain_ms": ppo_t["plain_ms"],
@@ -1124,7 +1457,8 @@ def main() -> int:
             "route": "cuda",
             "source": "tpu_plume_torch/csrc/gather.cu",
             "replaces": replaces,
-            "launches": run["counts"][name],
+            "launches": run["total_counts"][name],
+            "launches_timed": run["counts"][name],
             "max_abs_err": gather_err[name],
             "ms": t4["ms"],
             "plain_ms": t4["plain_ms"],

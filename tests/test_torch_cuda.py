@@ -18,7 +18,11 @@ they are held to them within 1e-6 x max|field| (bit-equal in practice), at
 the TPU kernels' own call (a stack of one) and at a bank's stacks.  The
 same kernels' bank sample (one launch per env-step sample) is held to
 ``sample_bank_conc_tke_plain`` at the plume sample's tolerance, and to the
-bit where the turbulence is off, at every bank layout.
+bit where the turbulence is off, at every bank layout.  The env-step
+kernel is held to ``env_step_plain`` teacher-forced (each step from the
+plain path's state): integers, bools and positions equal, floats at the env
+tolerance (rtol 1e-5, atol 1e-4); a rollout on the card launches it once a
+step and leaves the carry it was given as it was.
 """
 
 import dataclasses
@@ -32,6 +36,7 @@ from tpu_plume_torch.models import ActorCritic
 from tpu_plume_torch.ops import gather, plume
 from tpu_plume_torch.ops import ppo as fused_ops
 from tpu_plume_torch.rl.ppo import PPOBatch
+from tpu_plume_torch.rollout import rollout
 
 pytestmark = pytest.mark.cuda
 
@@ -270,3 +275,112 @@ def test_bank_sampler_raises_on_bad_cuda_inputs(card):
         sampler(idx, pos.t().contiguous().t(), t, bits)
     with pytest.raises(TypeError):
         FieldBank(conc=bank.conc.double(), source=bank.source).sampler(cfg)
+
+
+# The env cases of tests/test_torch_env.py: the v1_1, v1_0 (elastic walls)
+# and delta (in-plume, depth and gate terms) rewards and obs_memory.
+ENV_CASES = {
+    "v1_1": ("ppo_v2_0", {}),
+    "v1_0": ("ppo_v1_0", {"max_steps": 7}),
+    "delta": ("ppo_v2_0", {"reward_variant": "delta", "inplume_bonus": 0.5,
+                           "terminal_depth_coef": 30.0,
+                           "terminal_depth_power": 2.0,
+                           "terminal_gate_radius": 200.0}),
+    "obs_memory": ("ppo_v1_1", {"obs_memory": True, "max_steps": 9}),
+}
+
+
+def _env_cfg(case):
+    preset, kw = ENV_CASES[case]
+    return dataclasses.replace(get_preset(preset).env, **kw)
+
+
+def _env_start(cfg, n, seed, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    carry = rollout.init_rollout(cfg, n, g)
+    state = carry.env_state.replace(
+        radius=40.0 + 260.0 * torch.rand(n, device=device, generator=g))
+    return state, carry.accum, g
+
+
+@pytest.mark.parametrize("greedy", [False, True], ids=["gumbel", "greedy"])
+@pytest.mark.parametrize("n", [4096, 4133])
+@pytest.mark.parametrize("case", sorted(ENV_CASES))
+def test_env_step_kernel_matches_plain(card, case, n, greedy):
+    """Teacher-forced: each step starts the kernel from a copy of the plain
+    path's state, with the same logits, values and draws; integers, bools
+    and positions equal, floats within the env tolerance."""
+    cfg = _env_cfg(case)
+    state, accum, g = _env_start(cfg, n, n + len(case), card)
+    dones = 0
+    for _ in range(8):
+        logits = 2.0 * torch.randn(n, cfg.num_actions, device=card,
+                                   generator=g)
+        value = torch.randn(n, device=card, generator=g)
+        draws = rollout.draw_chunk(g, cfg, 1, n, greedy)
+        traj, obs = rollout.empty_trajectory(1, n, cfg, card)
+        k_state, k_acc = rollout.own_copy(state), rollout.own_copy(accum)
+        before = plume.env_step_launches
+        plume.EnvStepper(k_state, k_acc, draws, traj, obs, cfg)(0, logits,
+                                                                value)
+        assert plume.env_step_launches == before + 1
+        w_traj, w_obs = rollout.empty_trajectory(1, n, cfg, card)
+        state, _, accum = rollout.env_step_plain(
+            logits, value, draws, 0, state, accum, w_traj, w_obs, cfg)
+        torch.cuda.synchronize()
+        for a, b in ((traj.action, w_traj.action), (traj.done, w_traj.done),
+                     (traj.episode.steps, w_traj.episode.steps),
+                     (traj.episode.success, w_traj.episode.success),
+                     (traj.pos, w_traj.pos), (k_state.pos, state.pos),
+                     (k_state.t, state.t), (k_state.visited, state.visited),
+                     (k_state.prev_action, state.prev_action),
+                     (k_state.field.seed, state.field.seed)):
+            assert torch.equal(a, b)
+        for a, b in ((obs[1], w_obs[1]), (traj.reward, w_traj.reward),
+                     (traj.log_prob, w_traj.log_prob),
+                     (traj.episode.total_reward, w_traj.episode.total_reward),
+                     (traj.episode.distance, w_traj.episode.distance),
+                     (k_state.conc, state.conc), (k_state.tke, state.tke),
+                     (k_state.field.source, state.field.source),
+                     (k_acc.total_reward, accum.total_reward)):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)
+        dones += int(traj.done.sum())
+    assert dones > 0
+
+
+def test_rollout_on_the_card_is_one_env_step_launch_a_step(card):
+    cfg = _env_cfg("v1_1")
+    g = torch.Generator(device=card).manual_seed(0)
+    carry = rollout.init_rollout(cfg, 256, g)
+    kept = rollout.own_copy(carry.env_state)
+    model = ActorCritic(cfg.obs_dim, cfg.num_actions, (64, 32)).to(card)
+    before = (plume.launches, plume.env_step_launches)
+    rollout.rollout_chunk(model, carry, cfg, 16)
+    torch.cuda.synchronize()
+    assert (plume.launches, plume.env_step_launches) == (before[0],
+                                                         before[1] + 16)
+    # the carry passed in is not modified
+    assert torch.equal(carry.env_state.pos, kept.pos)
+    assert torch.equal(carry.env_state.visited, kept.visited)
+
+
+def test_env_stepper_raises_on_bad_cuda_inputs(card):
+    cfg = _env_cfg("v1_1")
+    n = 64
+    state, accum, g = _env_start(cfg, n, 0, card)
+    draws = rollout.draw_chunk(g, cfg, 1, n)
+    traj, obs = rollout.empty_trajectory(1, n, cfg, card)
+    stepper = plume.EnvStepper(state, accum, draws, traj, obs, cfg)
+    logits = torch.zeros(n, cfg.num_actions, device=card)
+    value = torch.zeros(n, device=card)
+    with pytest.raises(TypeError):
+        stepper(0, logits.double(), value)
+    with pytest.raises(ValueError):
+        stepper(0, logits[:, :4].contiguous(), value)
+    with pytest.raises(ValueError):
+        stepper(0, logits, value.cpu())
+    with pytest.raises(IndexError):
+        stepper(1, logits, value)
+    with pytest.raises(TypeError):
+        plume.EnvStepper(state.replace(t=state.t.long()), accum, draws, traj,
+                         obs, cfg)

@@ -1,10 +1,10 @@
 """Builds the port's CUDA sources into shared libraries at first use.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
-``tpu_plume_torch/_build/lib<name>-<hash>.so``.  ``plume.cu`` and ``ppo.cu``
-have a plain C interface and are loaded with ``ctypes`` (``load``);
-``gather.cu`` is a Python extension module of METH_FASTCALL functions,
-imported by ``load_module``, because its calls are launch-bound and a
+``tpu_plume_torch/_build/lib<name>-<hash>.so``.  ``ppo.cu`` has a plain C
+interface and is loaded with ``ctypes`` (``load``); ``plume.cu`` and
+``gather.cu`` are Python extension modules of METH_FASTCALL functions,
+imported by ``load_module``, because their calls are launch-bound and a
 ctypes call's argument conversion is most of their host cost.  The hash
 covers the source, every header of ``csrc/`` (``*.cuh``, which the sources
 include) and the flags (the Python headers' directory among them), so an
@@ -54,7 +54,7 @@ def source_path(name: str) -> str:
 
 def nvcc_flags() -> tuple:
     """``NVCC_FLAGS`` and the running Python's headers, which a source with
-    Python entry points (``gather.cu``) includes."""
+    Python entry points (``plume.cu``, ``gather.cu``) includes."""
     return NVCC_FLAGS + ("-I", sysconfig.get_paths()["include"])
 
 

@@ -45,6 +45,7 @@ import ctypes
 import torch
 
 from tpu_plume_torch.ops import plume
+from tpu_plume_torch.ops.plume import _expect
 
 _F32, _I32 = torch.float32, torch.int32
 
@@ -266,20 +267,6 @@ def sample_moved_bytes(bank, idx: torch.Tensor, pos: torch.Tensor, t,
 
 
 # --- the kernels' wrappers --------------------------------------------------
-
-
-def _expect(name: str, x: torch.Tensor, dtype, shape, index: int) -> None:
-    """Raise unless ``x`` is a contiguous ``dtype`` tensor of ``shape`` on
-    device ``index`` (-1: the CPU)."""
-    if x.get_device() != index:
-        raise ValueError(f"{name} is on {x.device}, expected device {index}")
-    if x.dtype is not dtype:
-        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
-    if x.shape != shape:
-        raise ValueError(f"{name} must have shape {shape}, got "
-                         f"{tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def _check(stack, rows, pts, ndim: int):

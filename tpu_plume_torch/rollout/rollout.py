@@ -2,13 +2,17 @@
 ``tpu_plume/rollout/rollout.py``, feedforward policy, analytic plume or a
 gridded ``FieldBank`` passed as ``bank``).
 
-Per step: one policy forward over all envs, a Gumbel-max action sample,
-``step_noise`` and the auto-reset of finished envs.  The chunk's randomness
-(turbulence normals, Gumbel noise, reset uniforms and seeds) is drawn up
-front in one ``ChunkDraws``; a caller may pass its own draws instead, which
-is how the tests feed both packages the same numbers.  Per-episode totals
-are carried per env and emitted as masked ``EpisodeRecord`` rows at done
-steps for the host drain.
+Per step: one policy forward over all envs, then the env step
+(``env_step_plain``): a Gumbel-max action sample, ``step_noise``, the
+episode totals and records, and the auto-reset of finished envs.  On the
+card over the analytic plume the env step is one launch of the env-step
+kernel (``tpu_plume_torch.ops.plume.EnvStepper``), whose plain version
+``env_step_plain`` is.  The chunk's randomness (turbulence normals, Gumbel
+noise, reset uniforms and seeds) is drawn up front in one ``ChunkDraws``; a
+caller may pass its own draws instead, which is how the tests feed both
+packages the same numbers.  Each step writes its row of [T, N] buffers
+(``empty_trajectory``).  Per-episode totals are carried per env and
+emitted as masked ``EpisodeRecord`` rows at done steps for the host drain.
 """
 
 from __future__ import annotations
@@ -19,12 +23,14 @@ from dataclasses import dataclass
 import torch
 
 from tpu_plume_torch.core.config import EnvConfig
+from tpu_plume_torch.core.support import check_env
 from tpu_plume_torch.env.methane import (
     EnvState,
     auto_reset_from_draws,
     reset_from_draws,
     step_noise,
 )
+from tpu_plume_torch.ops import plume
 
 
 @dataclass
@@ -142,12 +148,112 @@ def init_rollout(cfg: EnvConfig, num_envs: int, generator: torch.Generator,
                         generator=generator)
 
 
-def _stack(items):
-    first = items[0]
-    if dataclasses.is_dataclass(first):
-        return type(first)(**{f.name: _stack([getattr(x, f.name) for x in items])
-                              for f in dataclasses.fields(first)})
-    return torch.stack(items)
+def empty_trajectory(length: int, num_envs: int, cfg: EnvConfig, device):
+    """The buffers of a chunk of ``length`` steps over ``num_envs`` envs:
+    ``(traj, obs_rows)``, ``traj`` a ``RolloutStep`` of [T, N, ...] tensors
+    and ``obs_rows`` f32[T + 1, N, obs_dim], whose row ``t`` is the obs the
+    policy acts on at step ``t`` and whose last row is the chunk's final
+    obs.  ``traj.obs`` is ``obs_rows[:T]``; the record's ``done`` is
+    ``traj.done`` and its ``final_x`` / ``final_y`` are views of
+    ``traj.pos``, since they hold the same values."""
+    t, n = length, num_envs
+
+    def f32(*shape):
+        return torch.empty((t, n) + shape, dtype=torch.float32, device=device)
+
+    obs_rows = torch.empty(t + 1, n, cfg.obs_dim, dtype=torch.float32,
+                           device=device)
+    done = torch.empty(t, n, dtype=torch.bool, device=device)
+    pos = f32(cfg.pos_dim)
+    episode = EpisodeRecord(
+        done=done,
+        success=torch.empty(t, n, dtype=torch.bool, device=device),
+        total_reward=f32(),
+        steps=torch.empty(t, n, dtype=torch.int32, device=device),
+        conc_reward=f32(), explore_reward=f32(), move_penalty=f32(),
+        tke_penalty=f32(), boundary_penalty=f32(), final_conc=f32(),
+        final_x=pos[..., 0], final_y=pos[..., 1], source_x=f32(),
+        source_y=f32(), radius=f32(), distance=f32())
+    traj = RolloutStep(
+        obs=obs_rows[:t],
+        action=torch.empty(t, n, dtype=torch.int64, device=device),
+        log_prob=f32(), value=f32(), reward=f32(), done=done, pos=pos,
+        conc=f32(), episode=episode)
+    return traj, obs_rows
+
+
+def _totals(obj) -> list:
+    """The six episode totals of an ``EpisodeAccum`` or ``EpisodeRecord``,
+    in ``EpisodeAccum``'s order."""
+    return [getattr(obj, f.name) for f in dataclasses.fields(EpisodeAccum)]
+
+
+def _write_rows(rows) -> None:
+    """Copy each ``x`` of ``rows``, a list of ``(row of a buffer, x)``, into
+    its row: one multi-tensor copy per dtype of the contiguous ``x`` (on
+    the card, one launch each), one copy each for the strided ones."""
+    groups: dict = {}
+    for row, x in rows:
+        dst, src = groups.setdefault((x.dtype, x.is_contiguous()), ([], []))
+        dst.append(row)
+        src.append(x)
+    for dst, src in groups.values():
+        torch._foreach_copy_(dst, src)
+
+
+def env_step_plain(logits: torch.Tensor, value: torch.Tensor,
+                   draws: ChunkDraws, t: int, state: EnvState,
+                   accum: EpisodeAccum, traj: RolloutStep,
+                   obs_rows: torch.Tensor, cfg: EnvConfig, bank=None):
+    """Step ``t`` of a chunk after the policy's forward, for every env: the
+    env-step kernel's function (``tpu_plume_torch.ops.plume.EnvStepper``)
+    in plain PyTorch, and the rollout's step on the CPU and over a bank.
+
+    Samples the actions from ``logits`` f32[N, A] (Gumbel-max with the row
+    ``draws.gumbel[t]``, argmax where ``draws.gumbel`` is None), steps the
+    envs with the turbulence normals ``draws.turb_noise[t]``, adds the
+    episode totals, records row ``t`` of ``traj`` (``value`` f32[N] too),
+    clears the totals of the envs that finished and swaps fresh episodes
+    from ``draws.u_src[t]`` and ``draws.bits[t]`` into them.  Writes the
+    next obs into ``obs_rows[t + 1]`` and returns ``(state', obs',
+    accum')``; ``state`` and ``accum`` are not modified."""
+    if draws.gumbel is None:
+        action = torch.argmax(logits, dim=-1)
+    else:
+        action = torch.argmax(logits + draws.gumbel[t], dim=-1)
+    log_prob = torch.log_softmax(logits, dim=-1).gather(
+        -1, action[:, None]).squeeze(-1)
+
+    state, trans = step_noise(state, action, draws.turb_noise[t], cfg, bank)
+    info = trans.info
+    terms = (trans.reward, info.concentration_reward, info.explore_reward,
+             info.move_penalty, info.tke_penalty, info.boundary_penalty)
+    acc = EpisodeAccum(*torch._foreach_add(_totals(accum), terms))
+    # Reference: final conc recorded only on success.
+    success = info.reached
+    ep = traj.episode
+    rows = [
+        (traj.action, action), (traj.log_prob, log_prob),
+        (traj.value, value), (traj.reward, trans.reward),
+        (traj.done, trans.done), (traj.pos, state.pos),
+        (traj.conc, info.conc_raw), (ep.success, success),
+        (ep.steps, state.t),
+        (ep.final_conc, torch.where(success, info.conc_raw,
+                                    torch.zeros_like(info.conc_raw))),
+        (ep.source_x, state.field.source[:, 0]),
+        (ep.source_y, state.field.source[:, 1]), (ep.radius, state.radius),
+        (ep.distance, info.distance),
+    ] + list(zip(_totals(ep), _totals(acc)))
+    rows = [(buf[t], x) for buf, x in rows]
+
+    # Clear the totals of envs that finished, then auto-reset them.
+    keep = 1.0 - trans.done.to(torch.float32)
+    acc = EpisodeAccum(*torch._foreach_mul(_totals(acc), [keep] * 6))
+    state, obs = auto_reset_from_draws(state, trans.obs, trans.done,
+                                       draws.u_src[t], draws.bits[t], cfg,
+                                       bank)
+    _write_rows(rows + [(obs_rows[t + 1], obs)])
+    return state, obs_rows[t + 1], acc
 
 
 @torch.no_grad()
@@ -159,68 +265,51 @@ def rollout_chunk(model: torch.nn.Module, carry: RolloutCarry, cfg: EnvConfig,
     Returns ``(carry', traj: RolloutStep[T, N, ...], bootstrap_value f32[N])``
     where ``bootstrap_value`` is V(obs_T) for GAE.  ``greedy`` takes argmax
     actions.  ``draws`` replaces the chunk's randomness, which is otherwise
-    drawn from ``carry.generator``."""
+    drawn from ``carry.generator``.
+
+    Each step is one policy forward, then, on the card with the analytic
+    plume, one launch of the env-step kernel (``ops.plume.EnvStepper``),
+    which updates a copy of the carry's state made once per chunk; on the
+    CPU, and over a bank on either device, ``env_step_plain``.  The carry
+    passed in is not modified."""
     num_envs = carry.obs.shape[0]
     if draws is None:
         draws = draw_chunk(carry.generator, cfg, length, num_envs, greedy)
-    env_state, obs, acc = carry.env_state, carry.obs, carry.accum
-    steps = []
-    for t in range(length):
-        logits, value = model(obs)
-        if greedy:
-            action = torch.argmax(logits, dim=-1)
-        else:
-            action = torch.argmax(logits + draws.gumbel[t], dim=-1)
-        log_prob = torch.log_softmax(logits, dim=-1).gather(
-            -1, action[:, None]).squeeze(-1)
+    elif greedy:
+        draws = dataclasses.replace(draws, gumbel=None)
+    traj, obs_rows = empty_trajectory(length, num_envs, cfg,
+                                      carry.obs.device)
+    obs_rows[0] = carry.obs
+    inputs = obs_rows.unbind(0)
+    if carry.obs.is_cuda and cfg.plume_model != "gridded":
+        check_env(cfg)
+        env_state, acc = own_copy(carry.env_state), own_copy(carry.accum)
+        stepper = plume.EnvStepper(env_state, acc, draws, traj, obs_rows,
+                                   cfg)
+        for t in range(length):
+            stepper(t, *model(inputs[t]))
+    else:
+        env_state, acc = carry.env_state, carry.accum
+        for t in range(length):
+            logits, value = model(inputs[t])
+            env_state, _, acc = env_step_plain(
+                logits, value, draws, t, env_state, acc, traj, obs_rows, cfg,
+                bank)
 
-        env_state, trans = step_noise(env_state, action, draws.turb_noise[t],
-                                      cfg, bank)
-        info = trans.info
-        acc = EpisodeAccum(
-            total_reward=acc.total_reward + trans.reward,
-            conc_reward=acc.conc_reward + info.concentration_reward,
-            explore_reward=acc.explore_reward + info.explore_reward,
-            move_penalty=acc.move_penalty + info.move_penalty,
-            tke_penalty=acc.tke_penalty + info.tke_penalty,
-            boundary_penalty=acc.boundary_penalty + info.boundary_penalty,
-        )
-        # Reference: final conc recorded only on success.
-        success = info.reached
-        record = EpisodeRecord(
-            done=trans.done,
-            success=success,
-            total_reward=acc.total_reward,
-            steps=env_state.t,
-            conc_reward=acc.conc_reward,
-            explore_reward=acc.explore_reward,
-            move_penalty=acc.move_penalty,
-            tke_penalty=acc.tke_penalty,
-            boundary_penalty=acc.boundary_penalty,
-            final_conc=torch.where(success, info.conc_raw,
-                                   torch.zeros_like(info.conc_raw)),
-            final_x=env_state.pos[:, 0],
-            final_y=env_state.pos[:, 1],
-            source_x=env_state.field.source[:, 0],
-            source_y=env_state.field.source[:, 1],
-            radius=env_state.radius,
-            distance=info.distance,
-        )
-        steps.append(RolloutStep(
-            obs=obs, action=action, log_prob=log_prob, value=value,
-            reward=trans.reward, done=trans.done, pos=env_state.pos,
-            conc=info.conc_raw, episode=record,
-        ))
-
-        # Clear the totals of envs that finished, then auto-reset them.
-        keep = 1.0 - trans.done.to(torch.float32)
-        acc = EpisodeAccum(*(getattr(acc, f.name) * keep
-                             for f in dataclasses.fields(acc)))
-        env_state, obs = auto_reset_from_draws(
-            env_state, trans.obs, trans.done, draws.u_src[t], draws.bits[t],
-            cfg, bank)
-
+    obs = inputs[length]
     _, bootstrap_value = model(obs)
     carry = RolloutCarry(env_state=env_state, obs=obs, accum=acc,
                          generator=carry.generator)
-    return carry, _stack(steps), bootstrap_value
+    return carry, traj, bootstrap_value
+
+
+def own_copy(obj):
+    """A contiguous copy of every tensor of a (nested) dataclass, for the
+    env-step kernel to update in place; None stays None."""
+    if obj is None:
+        return None
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: own_copy(getattr(obj, f.name))
+            for f in dataclasses.fields(obj)})
+    return obj.clone(memory_format=torch.contiguous_format)
