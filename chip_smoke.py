@@ -10,11 +10,16 @@ outside a checkout of the repository.  Phases, each of which must pass:
    ``tpu_plume_torch/csrc``, one ``nvcc`` per source, all started together;
 3. each kernel against its plain PyTorch version on the same inputs, with
    the tolerance the CPU tests use: the plume sample at the main path's
-   shape and a large one; the env-step kernel (one analytic env step of
-   every env a launch) against ``env_step_plain``, teacher-forced over 24
-   steps (each from the plain path's state) of the v1_1 (Gumbel and
-   greedy), v1_0, delta and obs_memory cases at N = 4096 and 4133, with
-   integers, bools and positions bit-equal; the fused PPO gradients in
+   shape and a large one, and the fresh-episode sample of the anisotropic,
+   3-D and three-source fields; the env-step kernel (one analytic env step
+   of every env a launch) against ``env_step_plain``, teacher-forced over
+   24 steps (each from the plain path's state) of the v1_1 (Gumbel and
+   greedy), v1_0, delta and obs_memory cases and of the analytic modes of
+   the wrf_les slice (wrf_les's anisotropic plume, with and without wind
+   advection, three isotropic sources, 3-D flight over the isotropic and
+   the anisotropic plume, and the anisotropic plume of three sources in
+   3-D flight with the delta reward) at N = 4096 and 4133, with integers,
+   bools and positions bit-equal; the fused PPO gradients in
    f32 and bf16 compute, at obs widths 6 and 12, hidden widths (256, 128) and (64, 32) and
    minibatches of 65536 and 512 rows, with two calls giving bit-equal
    gradients, and in f32 also against autodiff of ``ppo_loss``; the
@@ -30,7 +35,9 @@ outside a checkout of the repository.  Phases, each of which must pass:
    tolerance, two calls bit-equal, and bit-equal with the turbulence off;
 4. each kernel's time, its plain version's and the least time the card
    could take for the same bytes and operations (the plume sample and the
-   env step with the host cost of each piece of their wrappers); for the
+   env step with the host cost of each piece of their wrappers; the env
+   step on ppo_v2_0's isotropic plume and on wrf_les's anisotropic one);
+   for the
    fused PPO
    gradients (three launches: the row kernel, the split-K dW2 kernel and
    the reduction) the device time of each launch, their sum and its share
@@ -42,9 +49,9 @@ outside a checkout of the repository.  Phases, each of which must pass:
    its wrapper;
 5. one train iteration at a small size on the card against the same
    iteration on the CPU (the CPU path is the one the tests hold to the JAX
-   package): f32, ``fused_update``, ``bf16_compute``, and both; wrf_les_3d
-   over a 64-cell [2, 3, 4, 64, 64] bank; a static [3, 64, 64] bank read
-   between cells;
+   package): f32, ``fused_update``, ``bf16_compute``, and both; wrf_les;
+   wrf_les_3d over a 64-cell [2, 3, 4, 64, 64] bank; a static [3, 64, 64]
+   bank read between cells;
 6. the main paths at full width, 4096 envs x 128 steps, minibatch 65536,
    5 epochs, each driven as ``train_ppo`` drives it, with the kernel launch
    counts set to 0 just before ``init_loop`` and read just after the last
@@ -54,13 +61,16 @@ outside a checkout of the repository.  Phases, each of which must pass:
    iteration's launches printed): the ppo_v2_0 train step (one env-step
    launch per env step) with
    the 6->256->128 network in three variants (f32 autodiff,
-   ``fused_update``, ``bf16_compute``); wrf_les_3d (3-D flight through the
+   ``fused_update``, ``bf16_compute``); wrf_les (the anisotropic plume in
+   a per-episode wind, one env-step launch per env step, the 6->256->128
+   network); wrf_les_3d (3-D flight through the
    [4, 8, 8, 500, 500] bank of ``--synth-bank 3d``, the 7->256->128 network;
    one trilinear launch a sample); the 64-field static bank of
    ``--synth-bank static`` read between cells (one bilinear launch a
    sample);
 7. the ``train`` CLI for two iterations at the same width: ppo_v2_0 in f32
-   and with ``--bf16``, and ``--preset wrf_les_3d --synth-bank 3d``.
+   and with ``--bf16``, ``--preset wrf_les``, and ``--preset wrf_les_3d
+   --synth-bank 3d``.
 
 Then it prints the ``kernels`` JSON line, the card's name and power limit,
 and, last, the result line ``{"ok": true, "device": {...}}``.
@@ -70,6 +80,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import ctypes
 import dataclasses
 import io
 import json
@@ -133,7 +144,19 @@ ENV_CASES = {
                            "terminal_depth_power": 2.0,
                            "terminal_gate_radius": 200.0}),
     "obs_memory": ("ppo_v1_1", {"obs_memory": True, "max_steps": 9}),
+    "wrf_les": ("wrf_les", {}),
+    "aniso_advect": ("wrf_les", {"wind_advect_coef": 0.5, "max_steps": 8}),
+    "iso_s3": ("ppo_v2_0", {"num_sources": 3}),
+    "aniso_3d": ("wrf_les_3d", {"plume_model": "anisotropic",
+                                "wind_speed_range": (1.0, 4.0)}),
+    "iso_3d": ("wrf_les_3d", {"plume_model": "isotropic", "max_steps": 10}),
+    "aniso_3d_s3_delta": ("wrf_les_3d", {
+        "plume_model": "anisotropic", "wind_speed_range": (1.0, 4.0),
+        "num_sources": 3, "reward_variant": "delta", "obs_memory": True}),
 }
+# The fresh-episode samples of the analytic modes beside ppo_v2_0's and
+# ppo_v1_0's isotropic plume.
+SAMPLE_MODES = ("wrf_les", "aniso_3d", "iso_s3", "aniso_3d_s3_delta")
 ENV_STEPS = 24
 ENV_ODD_N = MAIN_N + 37
 # Operations of one env step beside its plume samples, counting each
@@ -141,6 +164,11 @@ ENV_ODD_N = MAIN_N + 37
 # and a log), the move and its clip (about 20), the visit, reward terms,
 # terminal bonus and obs (about 50).
 ENV_STEP_OPS = 90
+# Operations the anisotropic base adds to a plume query's, a source: the
+# unit wind (about 8), the downwind and crosswind distances (about 8), the
+# crosswind spread with its pow (4), the centerline (3), two exponentials
+# with their arguments (8), and the blob's max and select (4).
+ANISO_OPS_PER_SOURCE = 35
 
 
 def log(*parts):
@@ -230,32 +258,69 @@ def check_plume_kernel(get_preset, plume) -> dict:
 
 def plume_split(plume, args, cfg) -> dict:
     """The pieces of one plume sample call (``sample_plume_cuda``): its
-    one-expression check, the one allocation of conc and tke, the stream
-    read, the entry point's call with its launch and without (N = 0), and
-    the whole wrapper."""
+    one-expression check, the check and build of the config's field
+    scalars, the one allocation of conc and tke, the stream read, the entry
+    point's call with its launch and without (N = 0), and the whole
+    wrapper."""
     import torch
 
     pos, source, seed = args
     n, index = pos.shape[0], pos.get_device()
     conc, tke = pos.new_empty((2, n)).unbind()
-    ptrs = (pos.data_ptr(), source.data_ptr(), seed.data_ptr(),
-            conc.data_ptr(), tke.data_ptr())
-    scalars = (cfg.grid_size, cfg.conc_peak, 2.0 * cfg.plume_sigma**2,
-               cfg.turbulence_intensity, int(cfg.turbulence_signed_normal),
-               int(cfg.tke_abs_times_two))
     ext, stream = plume._library(), plume._raw_stream(index)
+    field = plume.plume_field(cfg)
+    ptrs = (ctypes.addressof(field), pos.data_ptr(), source.data_ptr(),
+            seed.data_ptr(), None, conc.data_ptr(), tke.data_ptr())
     return host_split("the plume sample wrapper", {
         "checks": lambda: (pos.dtype is torch.float32 and pos.shape == (n, 2)
                            and source.shape == (n, 2) and seed.shape == (n,)
                            and pos.is_contiguous() and source.is_contiguous()
                            and seed.is_contiguous()),
+        "field": lambda: (plume.check_field(cfg), plume.plume_field(cfg)),
         "allocate": lambda: pos.new_empty((2, n)).unbind(),
         "stream": lambda: plume._raw_stream(index),
-        "entry_no_launch": lambda: ext.plume_sample(*ptrs, 0, *scalars,
-                                                    stream),
-        "entry_launch": lambda: ext.plume_sample(*ptrs, n, *scalars, stream),
+        "entry_no_launch": lambda: ext.plume_sample(*ptrs, 0, stream),
+        "entry_launch": lambda: ext.plume_sample(*ptrs, n, stream),
         "wrapper": lambda: plume.sample_plume_cuda(*args, cfg),
     })
+
+
+def env_cfg(get_preset, case: str):
+    preset, kw = ENV_CASES[case]
+    return dataclasses.replace(get_preset(preset).env, **kw)
+
+
+def check_plume_modes(get_preset, plume, rollout) -> float:
+    """The sample kernel against its plain version on the fresh fields of
+    each of SAMPLE_MODES (their sources, seeds and winds from the rollout's
+    draws), at positions over the grid and heights over the domain, N =
+    4096 and 2^20.  Returns the worst absolute error."""
+    import torch
+
+    worst = 0.0
+    for case in SAMPLE_MODES:
+        cfg = env_cfg(get_preset, case)
+        for n in (MAIN_N, LARGE_N):
+            g = torch.Generator(device="cuda").manual_seed(n + len(case))
+            field = rollout.init_rollout(cfg, n, g).env_state.field
+            scale = torch.tensor([520.0, 520.0, cfg.domain_height + 10.0][
+                :cfg.pos_dim], device="cuda")
+            pos = (torch.rand(n, cfg.pos_dim, device="cuda", generator=g)
+                   * scale - 5.0)
+            args = (pos, field.source, field.seed, cfg, field.wind)
+            conc, tke = plume.sample_plume_cuda(*args)
+            torch.cuda.synchronize()
+            want_c, want_t = plume.sample_plume_plain(*args)
+            err = max(float((conc - want_c).abs().max()),
+                      float((tke - want_t).abs().max()))
+            log(f"parity plume_sample {case} ({cfg.plume_model}, "
+                f"{cfg.num_sources} sources, pos_dim {cfg.pos_dim}) N={n}: "
+                f"max_abs_err {err:.3e}")
+            torch.testing.assert_close(conc, want_c, rtol=RTOL, atol=ATOL)
+            torch.testing.assert_close(tke, want_t, rtol=RTOL, atol=ATOL)
+            assert torch.isfinite(conc).all() and torch.isfinite(tke).all()
+            worst = max(worst, err)
+    return worst
 
 
 def env_start(rollout, cfg, n: int, seed: int, wide: bool = True):
@@ -288,7 +353,8 @@ def compare_env_step(plume, cfg, got, want, state, accum) -> tuple:
     dones, successes, steps, t, visit grids, prev_action, seeds, cells of
     the step's and the next position) and within RTOL/ATOL in every float.
     Returns (envs whose position differs in any bit, in the step's row or
-    the next state; the worst absolute float error)."""
+    the next state; the worst absolute float error; envs whose wind, made
+    by the kernel at a reset, differs in any bit)."""
     import torch
 
     traj, obs, k_state, k_acc = got
@@ -320,6 +386,12 @@ def compare_env_step(plume, cfg, got, want, state, accum) -> tuple:
         close[name] = (getattr(k_state, name), getattr(state, name))
     for name in plume.ACCUM_FIELDS:
         close["accum " + name] = (getattr(k_acc, name), getattr(accum, name))
+    assert (k_state.field.wind is None) == (state.field.wind is None)
+    wind_bits = 0
+    if state.field.wind is not None:
+        close["wind"] = (k_state.field.wind, state.field.wind)
+        wind_bits = int((k_state.field.wind != state.field.wind).any(-1)
+                        .sum())
     err = 0.0
     for name, (a, b) in close.items():
         assert torch.isfinite(a).all(), name
@@ -327,27 +399,30 @@ def compare_env_step(plume, cfg, got, want, state, accum) -> tuple:
         err = max(err, float((a - b).abs().max()))
     moved = ((traj.pos != w_traj.pos).any(-1)
              | (k_state.pos != state.pos).any(-1))
-    return int(moved.sum()), err
+    return int(moved.sum()), err, wind_bits
 
 
 def check_env_step_kernel(get_preset, plume, rollout) -> float:
     """The env-step kernel against ``env_step_plain`` on the card over
-    ENV_STEPS steps of each env case, Gumbel-sampled (and, for v1_1,
-    greedy), at N = 4096 and ENV_ODD_N, teacher-forced: each step starts
-    both from the plain path's state, the kernel from a copy of it, with the
-    same logits, values and draws.  Integers and bools equal, no position
-    differing in any bit, floats within RTOL/ATOL; some envs finish and
-    reset in every case.  Returns the worst absolute float error."""
+    ENV_STEPS steps of each env case, Gumbel-sampled (and, for v1_1 and
+    wrf_les, greedy), at N = 4096 and ENV_ODD_N, teacher-forced: each step
+    starts both from the plain path's state, the kernel from a copy of it,
+    with the same logits, values and draws.  Integers and bools equal, no
+    position differing in any bit, floats within RTOL/ATOL; some envs
+    finish and reset in every case.  The winds the kernel draws at resets
+    are held within RTOL/ATOL and the count of those differing in any bit
+    printed.  Returns the worst absolute float error."""
     import torch
 
     worst = 0.0
-    for case, (preset, kw) in ENV_CASES.items():
-        cfg = dataclasses.replace(get_preset(preset).env, **kw)
+    for case in ENV_CASES:
+        cfg = env_cfg(get_preset, case)
         for n in (MAIN_N, ENV_ODD_N):
-            for greedy in ((False, True) if case == "v1_1" else (False,)):
+            both = case in ("v1_1", "wrf_les")
+            for greedy in ((False, True) if both else (False,)):
                 state, accum, g = env_start(rollout, cfg, n,
                                             seed=n + len(case))
-                moved = dones = 0
+                moved = dones = winds = 0
                 err = 0.0
                 for _ in range(ENV_STEPS):
                     logits, value = policy_outputs(cfg, n, g)
@@ -361,79 +436,90 @@ def check_env_step_kernel(get_preset, plume, rollout) -> float:
                     state, _, accum = rollout.env_step_plain(
                         logits, value, draws, 0, state, accum, *want, cfg)
                     torch.cuda.synchronize()
-                    m, e = compare_env_step(plume, cfg,
-                                            (traj, obs, k_state, k_acc), want,
-                                            state, accum)
+                    m, e, w = compare_env_step(plume, cfg,
+                                               (traj, obs, k_state, k_acc),
+                                               want, state, accum)
                     moved += m
+                    winds += w
                     err = max(err, e)
                     dones += int(traj.done.sum())
                 log(f"parity env_step {case} N={n} "
                     f"{'greedy' if greedy else 'Gumbel'}: {ENV_STEPS} steps "
                     f"teacher-forced, {dones} envs finished; actions, dones, "
                     f"t, visit grids, prev_action, seeds and cells equal; "
-                    f"pos mismatches {moved}; max_abs_err {err:.3e}")
+                    f"pos mismatches {moved}; winds not bit-equal {winds}; "
+                    f"max_abs_err {err:.3e}")
                 assert moved == 0, (case, n, "pos mismatches", moved)
                 assert dones > 0, (case, n, "no env finished")
                 worst = max(worst, err)
     return worst
 
 
-def time_env_step_kernel(get_preset, plume, rollout) -> dict:
+def time_env_step_kernel(get_preset, plume, rollout,
+                         presets=("ppo_v2_0", "wrf_les")) -> dict:
     """The env-step kernel's per-call and device time at N = 4096 and 2^20
-    on ppo_v2_0 from fresh episodes at the initial radius, beside
+    on ppo_v2_0 (the isotropic plume) and wrf_les (the anisotropic plume in
+    a wind) from fresh episodes at the initial radius, beside
     ``env_step_plain``'s and the bound: the larger of ``env_step_bytes``
     (with the finished envs of the timed step) over the memory rate and the
     plume samples' and ENV_STEP_OPS operations over the f32 rate.  The
     stepper steps its copy of the state in place at every call.  Also the
-    split of the wrapper's host cost at N = 4096."""
+    split of the wrapper's host cost at N = 4096 on ppo_v2_0.  Returns
+    {preset: {N: times}} of ``presets``, with the split under ppo_v2_0's
+    "split_ns"."""
     import torch
 
-    cfg = get_preset("ppo_v2_0").env
     out = {}
-    for n, reps in ((MAIN_N, 2000), (LARGE_N, 100)):
-        state, accum, g = env_start(rollout, cfg, n, seed=5, wide=False)
-        logits, value = policy_outputs(cfg, n, g)
-        draws = rollout.draw_chunk(g, cfg, 1, n)
-        traj, obs = rollout.empty_trajectory(1, n, cfg, "cuda")
-        stepper = plume.EnvStepper(rollout.own_copy(state),
-                                   rollout.own_copy(accum), draws, traj, obs,
-                                   cfg)
+    for preset in presets:
+        cfg = get_preset(preset).env
+        sample_ops = PLUME_OPS_PER_QUERY + (
+            ANISO_OPS_PER_SOURCE if cfg.plume_model == "anisotropic" else 0)
+        out[preset] = {}
+        for n, reps in ((MAIN_N, 2000), (LARGE_N, 100)):
+            state, accum, g = env_start(rollout, cfg, n, seed=5, wide=False)
+            logits, value = policy_outputs(cfg, n, g)
+            draws = rollout.draw_chunk(g, cfg, 1, n)
+            traj, obs = rollout.empty_trajectory(1, n, cfg, "cuda")
+            stepper = plume.EnvStepper(rollout.own_copy(state),
+                                       rollout.own_copy(accum), draws, traj,
+                                       obs, cfg)
 
-        def call():
-            stepper(0, logits, value)
+            def call():
+                stepper(0, logits, value)
 
-        call()
-        torch.cuda.synchronize()
-        dones = int(traj.done.sum())
-        ms = cuda_ms(call, reps)
-        device_ms = kernel_device_ms(call, "env_step_kernel")
-        want = rollout.empty_trajectory(1, n, cfg, "cuda")
-        plain_ms = cuda_ms(lambda: rollout.env_step_plain(
-            logits, value, draws, 0, state, accum, *want, cfg),
-            max(reps // 20, 20))
-        moved = plume.env_step_bytes(cfg, n, dones, greedy=False)
-        bytes_s = moved / HBM_BYTES_PER_S
-        ops_s = ((n * (PLUME_OPS_PER_QUERY + ENV_STEP_OPS)
-                  + dones * PLUME_OPS_PER_QUERY) / F32_OPS_PER_S)
-        bound_ms = max(bytes_s, ops_s) * 1e3
-        bound_by = "bytes" if bytes_s >= ops_s else "operations"
-        out[n] = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
-                      bound_ms=bound_ms, bound_by=bound_by, bytes=moved,
-                      dones=dones)
-        log(f"time env_step ppo_v2_0 N={n}: per call {ms:.5f} ms, on the "
-            f"device {device_ms} ms, plain {plain_ms:.5f} ms, bound "
-            f"{bound_ms:.6f} ms ({bound_by}; {moved} B, {dones} envs "
-            f"finished)")
-        if n == MAIN_N:
-            stream = plume._raw_stream(stepper.index)
-            args = (stepper.address, 0, logits.data_ptr(), value.data_ptr())
-            out["split_ns"] = host_split("the env-step wrapper", {
-                "checks": lambda: stepper.takes(logits, value),
-                "stream": lambda: plume._raw_stream(stepper.index),
-                "data_ptr": lambda: (logits.data_ptr(), value.data_ptr()),
-                "entry_launch": lambda: stepper.launch(*args, stream),
-                "wrapper": call,
-            }, reps=5000)
+            call()
+            torch.cuda.synchronize()
+            dones = int(traj.done.sum())
+            ms = cuda_ms(call, reps)
+            device_ms = kernel_device_ms(call, "env_step_kernel")
+            want = rollout.empty_trajectory(1, n, cfg, "cuda")
+            plain_ms = cuda_ms(lambda: rollout.env_step_plain(
+                logits, value, draws, 0, state, accum, *want, cfg),
+                max(reps // 20, 20))
+            moved = plume.env_step_bytes(cfg, n, dones, greedy=False)
+            bytes_s = moved / HBM_BYTES_PER_S
+            ops_s = ((n * (sample_ops + ENV_STEP_OPS) + dones * sample_ops)
+                     / F32_OPS_PER_S)
+            bound_ms = max(bytes_s, ops_s) * 1e3
+            bound_by = "bytes" if bytes_s >= ops_s else "operations"
+            out[preset][n] = dict(ms=ms, device_ms=device_ms,
+                                  plain_ms=plain_ms, bound_ms=bound_ms,
+                                  bound_by=bound_by, bytes=moved, dones=dones)
+            log(f"time env_step {preset} N={n}: per call {ms:.5f} ms, on "
+                f"the device {device_ms} ms, plain {plain_ms:.5f} ms, bound "
+                f"{bound_ms:.6f} ms ({bound_by}; {moved} B, {dones} envs "
+                f"finished)")
+            if n == MAIN_N and preset == "ppo_v2_0":
+                stream = plume._raw_stream(stepper.index)
+                args = (stepper.address, 0, logits.data_ptr(),
+                        value.data_ptr())
+                out[preset]["split_ns"] = host_split("the env-step wrapper", {
+                    "checks": lambda: stepper.takes(logits, value),
+                    "stream": lambda: plume._raw_stream(stepper.index),
+                    "data_ptr": lambda: (logits.data_ptr(), value.data_ptr()),
+                    "entry_launch": lambda: stepper.launch(*args, stream),
+                    "wrapper": call,
+                }, reps=5000)
     return out
 
 
@@ -1308,6 +1394,7 @@ def main() -> int:
     build_kernels(build, ("plume", "ppo", "gather"))
 
     plume_report = check_plume_kernel(get_preset, plume)
+    modes_err = check_plume_modes(get_preset, plume, rollout)
     env_err = check_env_step_kernel(get_preset, plume, rollout)
     env_time = time_env_step_kernel(get_preset, plume, rollout)
     ppo_args = (ActorCritic, PPOConfig, PPOBatch, fused_ops, ppo_loss)
@@ -1327,6 +1414,7 @@ def main() -> int:
     check_small_iteration_against_cpu(*small, bf16_compute=True)
     check_small_iteration_against_cpu(*small, fused_update=True,
                                       bf16_compute=True, minibatch_size=128)
+    check_small_iteration_against_cpu(*small, preset="wrf_les")
     check_small_iteration_against_cpu(*small, preset="wrf_les_3d",
                                       bank_kind="3d")
     check_small_iteration_against_cpu(
@@ -1355,6 +1443,13 @@ def main() -> int:
     launches = runs["f32"][0]["total_counts"]
     fused_launches = runs["fused_update"][0]["total_counts"]
 
+    # wrf_les at full width: the anisotropic plume in a per-episode wind,
+    # one env-step launch per env step, no cuts.
+    wl = get_preset("wrf_les")
+    wl = wl.replace(ppo=dataclasses.replace(wl.ppo, minibatch_size=MAIN_MB))
+    aniso = run_main_path(ttrain, rollout.rollout_chunk, k, "wrf_les", wl)
+    torch.cuda.empty_cache()
+
     # wrf_les_3d at full width: the bank of --synth-bank 3d, no cuts.
     w3 = get_preset("wrf_les_3d")
     w3 = w3.replace(ppo=dataclasses.replace(w3.ppo, minibatch_size=MAIN_MB))
@@ -1379,7 +1474,8 @@ def main() -> int:
     profiled = (("ppo_v2_0 f32", runs["f32"][0]),
                 ("ppo_v2_0 fused_update", runs["fused_update"][0]),
                 ("ppo_v2_0 bf16_compute", runs["bf16_compute"][0]),
-                ("wrf_les_3d", wrf), ("static_subcell", static))
+                ("wrf_les", aniso), ("wrf_les_3d", wrf),
+                ("static_subcell", static))
     log("profiled launches per iteration: " + ", ".join(
         f"{label} {run['profiled_launches']}" for label, run in profiled))
     log("profiled rollout launches per env step: " + ", ".join(
@@ -1388,10 +1484,12 @@ def main() -> int:
 
     run_cli(cli_main, ActorCritic, "ppo_v2_0", MAIN_D, MAIN_A)
     run_cli(cli_main, ActorCritic, "ppo_v2_0", MAIN_D, MAIN_A, "--bf16")
+    run_cli(cli_main, ActorCritic, "wrf_les", 6, 5)
     run_cli(cli_main, ActorCritic, "wrf_les_3d", 7, 7, "--synth-bank", "3d")
 
     main_t = plume_report["timing"][MAIN_N]
-    env_t = env_time[MAIN_N]
+    env_t = env_time["ppo_v2_0"][MAIN_N]
+    aniso_t = env_time["wrf_les"]
     ppo_t = ppo_time["f32"]
     kernels = [{
         "name": "plume_sample",
@@ -1399,7 +1497,7 @@ def main() -> int:
         "source": "tpu_plume_torch/csrc/plume.cu",
         "replaces": "tpu_plume/ops/pallas_plume.py:29",
         "launches": launches["plume_sample"],
-        "max_abs_err": plume_report["max_abs_err"],
+        "max_abs_err": max(plume_report["max_abs_err"], modes_err),
         "ms": main_t["ms"],
         "plain_ms": main_t["plain_ms"],
         "bound_ms": main_t["bound_ms"],
@@ -1422,8 +1520,14 @@ def main() -> int:
         "library_ms": None,
         "device_ms": env_t["device_ms"],
         "bytes": env_t["bytes"],
-        "large_n": env_time[LARGE_N],
-        "split_ns": env_time["split_ns"],
+        "large_n": env_time["ppo_v2_0"][LARGE_N],
+        "split_ns": env_time["ppo_v2_0"]["split_ns"],
+        "wrf_les": {
+            "launches": aniso["total_counts"]["env_step"],
+            "launches_timed": aniso["counts"]["env_step"],
+            "rollout_launches_per_step":
+                aniso["rollout_profile"]["launches_per_step"],
+            **aniso_t[MAIN_N], "large_n": aniso_t[LARGE_N]},
     }, {
         "name": "ppo_fused",
         "route": "cuda",

@@ -1,6 +1,7 @@
 """The port's ppo_v2_0 train step against another tree's, on one GPU.
 
-    python3 scripts/torch_rollout_ab.py --other DIR [--blocks 4] [--json PATH]
+    python3 scripts/torch_rollout_ab.py --other DIR [--blocks 4]
+        [--variants f32,fused_update,bf16_compute] [--json PATH]
 
 ``DIR`` is a checkout of another commit (for example the parent, unpacked
 with ``git archive`` into a directory that ``.gitignore`` lists).  The
@@ -9,10 +10,12 @@ script runs the two trees in alternating blocks (other, this, this, other,
 ``tpu_plume_torch``, builds its kernels (one ``nvcc`` per source, all
 started together) and runs the full-width ppo_v2_0 train step (4096 envs x
 128 steps, minibatch 65536, 5 epochs) in its three variants (f32,
-``fused_update``, ``bf16_compute``): per variant one warm-up iteration,
-two timed iterations (env-steps/s, ms per phase), one profiled rollout
-chunk (device launches per env step, device and wall ms) and one profiled
-iteration (launches, device busy share), with ``chip_smoke.py``'s helpers.
+``fused_update``, ``bf16_compute``, or those ``--variants`` names): per
+variant one warm-up iteration, two timed iterations (env-steps/s, ms per
+phase), one profiled rollout chunk (device launches per env step, device
+and wall ms) and one profiled iteration (launches, device busy share),
+with ``chip_smoke.py``'s helpers; then the env-step kernel alone on
+ppo_v2_0 at N = 4096 and 2^20 (per call, device and plain ms, bound).
 Prints the card's name and power limit, one line per block and variant,
 and one JSON line, also written to the file ``--json`` names.  Needs a
 CUDA card and ``nvcc``; imports no JAX.
@@ -47,14 +50,16 @@ def this_chip_smoke():
     return mod
 
 
-def worker(tree: str) -> dict:
-    """One block: ``tree``'s train step in each variant."""
+def worker(tree: str, variants) -> dict:
+    """One block: ``tree``'s train step in each of ``variants``, then its
+    env-step kernel alone."""
     sys.path.insert(0, tree)
     import torch
 
     chip_smoke = this_chip_smoke()
     from tpu_plume_torch.core.config import get_preset
-    from tpu_plume_torch.ops import build
+    from tpu_plume_torch.ops import build, plume
+    from tpu_plume_torch.rollout import rollout
     from tpu_plume_torch.rollout.rollout import rollout_chunk
     from tpu_plume_torch.train import ppo_trainer as ttrain
 
@@ -66,7 +71,8 @@ def worker(tree: str) -> dict:
         list(pool.map(build.build, names))
     out = {"tree": tree, "build_s": time.perf_counter() - t0}
     v20 = get_preset("ppo_v2_0")
-    for name, flags in VARIANTS.items():
+    for name in variants:
+        flags = VARIANTS[name]
         cfg = v20.replace(ppo=dataclasses.replace(
             v20.ppo, minibatch_size=MINIBATCH, **flags))
         n, t = cfg.rollout.num_envs, cfg.rollout.unroll_length
@@ -90,6 +96,8 @@ def worker(tree: str) -> dict:
                          **phases)
         del loop, step
         torch.cuda.empty_cache()
+    out["env_step"] = chip_smoke.time_env_step_kernel(
+        get_preset, plume, rollout, presets=("ppo_v2_0",))["ppo_v2_0"]
     return out
 
 
@@ -97,11 +105,17 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", help="a checkout of the other tree")
     ap.add_argument("--blocks", type=int, default=4)
+    ap.add_argument("--variants", default=",".join(VARIANTS),
+                    help="comma-separated train-step variants to run")
     ap.add_argument("--json", help="also write the report here")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    variants = args.variants.split(",")
+    for name in variants:
+        if name not in VARIANTS:
+            ap.error(f"unknown variant {name!r}; one of {list(VARIANTS)}")
     if args.worker:
-        print(json.dumps(worker(args.worker)), flush=True)
+        print(json.dumps(worker(args.worker, variants)), flush=True)
         return 0
 
     import torch
@@ -119,14 +133,21 @@ def main() -> int:
     for i, label in enumerate(order):
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--worker",
-             trees[label]], capture_output=True, text=True)
+             trees[label], "--variants", args.variants],
+            capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
             raise RuntimeError(f"block {i} ({label}) failed")
         res = json.loads(proc.stdout.strip().splitlines()[-1])
         res["label"] = label
         blocks.append(res)
-        for name in VARIANTS:
+        for n, e in res["env_step"].items():
+            if n != "split_ns":
+                print(f"block {i} {label} env_step ppo_v2_0 N={n}: per call "
+                      f"{e['ms']:.5f} ms, device {e['device_ms']} ms, plain "
+                      f"{e['plain_ms']:.5f} ms, bound {e['bound_ms']:.6f} ms",
+                      flush=True)
+        for name in variants:
             r = res[name]
             roll = r["rollout_profile"]
             print(f"block {i} {label} {name}: {r['sps']:.1f} env-steps/s, "

@@ -211,8 +211,8 @@ def test_one_sample_is_one_call(layout, counted):
     n = 16
     g = torch.Generator().manual_seed(0)
     bits = torch.randint(-(2**31), 2**31, (n,), dtype=torch.int32, generator=g)
-    state, obs = tenv.reset_from_draws(torch.rand(n, 2, generator=g), bits,
-                                       tcfg, bank=tbank)
+    state, obs = tenv.reset_from_draws(torch.rand(n, 2, generator=g), None,
+                                       bits, tcfg, bank=tbank)
     assert counted == {"sample": 1, "bilinear": 0, "trilinear_zyx": 0}
     action = torch.randint(0, tcfg.num_actions, (n,), generator=g)
     state, trans = tenv.step_noise(state, action,
@@ -220,8 +220,8 @@ def test_one_sample_is_one_call(layout, counted):
                                    tcfg, tbank)
     assert counted["sample"] == 2
     tenv.auto_reset_from_draws(state, trans.obs, trans.done,
-                               torch.rand(n, 2, generator=g), bits, tcfg,
-                               tbank)
+                               torch.rand(n, 2, generator=g), None, bits,
+                               tcfg, tbank)
     assert counted == {"sample": 3, "bilinear": 0, "trilinear_zyx": 0}
 
 

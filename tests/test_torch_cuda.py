@@ -21,8 +21,11 @@ same kernels' bank sample (one launch per env-step sample) is held to
 bit where the turbulence is off, at every bank layout.  The env-step
 kernel is held to ``env_step_plain`` teacher-forced (each step from the
 plain path's state): integers, bools and positions equal, floats at the env
-tolerance (rtol 1e-5, atol 1e-4); a rollout on the card launches it once a
-step and leaves the carry it was given as it was.
+tolerance (rtol 1e-5, atol 1e-4), at every analytic mode (isotropic and
+anisotropic, one or three sources, 2-D and 3-D flight, with and without
+wind advection); a rollout on the card launches it once a step and leaves
+the carry it was given as it was.  The plume kernel is held to its plain
+version at the same modes.
 """
 
 import dataclasses
@@ -287,7 +290,19 @@ ENV_CASES = {
                            "terminal_depth_power": 2.0,
                            "terminal_gate_radius": 200.0}),
     "obs_memory": ("ppo_v1_1", {"obs_memory": True, "max_steps": 9}),
+    "wrf_les": ("wrf_les", {}),
+    "aniso_advect": ("wrf_les", {"wind_advect_coef": 0.5, "max_steps": 8}),
+    "iso_s3": ("ppo_v2_0", {"num_sources": 3}),
+    "aniso_3d": ("wrf_les_3d", {"plume_model": "anisotropic",
+                                "wind_speed_range": (1.0, 4.0)}),
+    "iso_3d": ("wrf_les_3d", {"plume_model": "isotropic", "max_steps": 10}),
+    "aniso_3d_s3_delta": ("wrf_les_3d", {
+        "plume_model": "anisotropic", "wind_speed_range": (1.0, 4.0),
+        "num_sources": 3, "reward_variant": "delta", "obs_memory": True}),
 }
+# The analytic plumes beside ppo_v2_0's isotropic one.
+ANALYTIC_CASES = ("wrf_les", "aniso_advect", "iso_s3", "aniso_3d", "iso_3d",
+                  "aniso_3d_s3_delta")
 
 
 def _env_cfg(case):
@@ -336,6 +351,10 @@ def test_env_step_kernel_matches_plain(card, case, n, greedy):
                      (k_state.prev_action, state.prev_action),
                      (k_state.field.seed, state.field.seed)):
             assert torch.equal(a, b)
+        assert (k_state.field.wind is None) == (state.field.wind is None)
+        if state.field.wind is not None:
+            torch.testing.assert_close(k_state.field.wind, state.field.wind,
+                                       rtol=1e-5, atol=1e-6)
         for a, b in ((obs[1], w_obs[1]), (traj.reward, w_traj.reward),
                      (traj.log_prob, w_traj.log_prob),
                      (traj.episode.total_reward, w_traj.episode.total_reward),
@@ -384,3 +403,49 @@ def test_env_stepper_raises_on_bad_cuda_inputs(card):
     with pytest.raises(TypeError):
         plume.EnvStepper(state.replace(t=state.t.long()), accum, draws, traj,
                          obs, cfg)
+
+
+@pytest.mark.parametrize("n", [1, 4096, 100_003])
+@pytest.mark.parametrize("case", ANALYTIC_CASES)
+def test_plume_kernel_matches_plain_on_the_analytic_modes(card, case, n):
+    """The fresh-episode sample of every analytic mode: positions over the
+    grid (and heights over the domain), fields from the rollout's draws."""
+    cfg = _env_cfg(case)
+    g = torch.Generator(device=card).manual_seed(n + len(case))
+    state = rollout.init_rollout(cfg, n, g).env_state
+    scale = torch.tensor([520.0, 520.0, cfg.domain_height + 10.0][
+        :cfg.pos_dim], device=card)
+    pos = torch.rand(n, cfg.pos_dim, device=card, generator=g) * scale - 5.0
+    field = state.field
+    before = plume.launches
+    conc, tke = plume.sample_plume(pos, field.source, field.seed, cfg,
+                                   field.wind)
+    torch.cuda.synchronize()
+    assert plume.launches == before + 1
+    want_c, want_t = plume.sample_plume_plain(pos, field.source, field.seed,
+                                              cfg, field.wind)
+    torch.testing.assert_close(conc, want_c, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(tke, want_t, rtol=1e-5, atol=1e-4)
+
+
+def test_analytic_wrappers_raise_on_bad_cuda_inputs(card):
+    cfg = _env_cfg("aniso_3d")
+    n = 64
+    state, accum, g = _env_start(cfg, n, 0, card)
+    field = state.field
+    with pytest.raises(ValueError, match="wind"):
+        plume.sample_plume(state.pos, field.source, field.seed, cfg)
+    with pytest.raises(ValueError, match="shape"):
+        plume.sample_plume(state.pos[:, :2].contiguous(), field.source,
+                           field.seed, cfg, field.wind)
+    too_many = dataclasses.replace(cfg, num_sources=plume.MAX_SOURCES + 1)
+    with pytest.raises(ValueError, match="sources"):
+        plume.sample_plume(state.pos, field.source, field.seed, too_many,
+                           field.wind)
+    draws = rollout.draw_chunk(g, cfg, 1, n)
+    traj, obs = rollout.empty_trajectory(1, n, cfg, card)
+    with pytest.raises(ValueError, match="u_wind"):
+        plume.EnvStepper(state, accum, dataclasses.replace(draws, u_wind=None),
+                         traj, obs, cfg)
+    with pytest.raises(ValueError, match="sources"):
+        plume.EnvStepper(state, accum, draws, traj, obs, too_many)

@@ -100,7 +100,8 @@ def test_env_steps_match_jax(case):
     js, jobs = _j_fresh(jnp.asarray(u0), jnp.asarray(b0), jcfg,
                         jnp.asarray(radius), jnp.asarray(bonus))
     ts, tobs = tenv.reset_from_draws(
-        torch.from_numpy(u0), torch.from_numpy(b0.view(np.int32)), tcfg)
+        torch.from_numpy(u0), None, torch.from_numpy(b0.view(np.int32)),
+        tcfg)
     ts = ts.replace(radius=torch.from_numpy(radius))
     tobs = tenv.observe(ts, tcfg)
     _compare(js, jobs, ts, tobs)
@@ -139,7 +140,7 @@ def test_env_steps_match_jax(case):
         js, jobs = jreset(js, jtr.obs, jtr.done, jnp.asarray(u),
                           jnp.asarray(bits))
         ts, tobs = tenv.auto_reset_from_draws(
-            ts, ttr.obs, ttr.done, torch.from_numpy(u),
+            ts, ttr.obs, ttr.done, torch.from_numpy(u), None,
             torch.from_numpy(bits.view(np.int32)), tcfg)
         _compare(js, jobs, ts, tobs)
     # the run reached sources and, where max_steps is short, timed out
@@ -151,8 +152,8 @@ def test_select_keeps_unfinished_envs():
     _, tcfg = _cfgs("ppo_v2_0")
     u = torch.rand(4, 2, generator=torch.Generator().manual_seed(0))
     bits = torch.arange(4, dtype=torch.int32)
-    s, _ = tenv.reset_from_draws(u, bits, tcfg)
-    s2, _ = tenv.reset_from_draws(1 - u, bits + 7, tcfg)
+    s, _ = tenv.reset_from_draws(u, None, bits, tcfg)
+    s2, _ = tenv.reset_from_draws(1 - u, None, bits + 7, tcfg)
     done = torch.tensor([True, False, True, False])
     out = tenv.select(done, s2, s)
     assert torch.equal(out.field.seed, torch.tensor([7, 1, 9, 3],

@@ -145,8 +145,8 @@ def test_gridded_env_steps_match_jax(case):
     js, jobs = _j_fresh(jnp.asarray(u0), jnp.asarray(b0), jcfg, jbank,
                         jnp.asarray(radius), jnp.asarray(bonus))
     ts, tobs = tenv.reset_from_draws(
-        torch.from_numpy(u0), torch.from_numpy(b0.view(np.int32)), tcfg,
-        bank=tbank)
+        torch.from_numpy(u0), None, torch.from_numpy(b0.view(np.int32)),
+        tcfg, bank=tbank)
     ts = ts.replace(radius=torch.from_numpy(radius))
     tobs = tenv.observe(ts, tcfg)
     assert tobs.shape == (N, jcfg.obs_dim)
@@ -186,7 +186,7 @@ def test_gridded_env_steps_match_jax(case):
         js, jobs = jreset(js, jtr.obs, jtr.done, jnp.asarray(u),
                           jnp.asarray(bits))
         ts, tobs = tenv.auto_reset_from_draws(
-            ts, ttr.obs, ttr.done, torch.from_numpy(u),
+            ts, ttr.obs, ttr.done, torch.from_numpy(u), None,
             torch.from_numpy(bits.view(np.int32)), tcfg, tbank)
         _compare(js, jobs, ts, tobs)
     # the run saw sources reached and episodes timed out
@@ -197,7 +197,8 @@ def _one_env3d(**kw):
     jcfg, tcfg = _cfgs(env_3d=True, subcell_sampling=True, **kw)
     bank = _to_port(_bank("3d", jcfg))
     u = torch.rand(2, 2, generator=torch.Generator().manual_seed(0))
-    state, obs = tenv.reset_from_draws(u, torch.arange(2, dtype=torch.int32),
+    state, obs = tenv.reset_from_draws(u, None,
+                                       torch.arange(2, dtype=torch.int32),
                                        tcfg, bank=bank)
     return tcfg, bank, state, obs
 

@@ -3,12 +3,16 @@ version) against the JAX package's rollout step on the CPU, and the
 ``EnvStepper`` wrapper's refusals.
 
 For the four env cases of ``tests/test_torch_env.py`` (the v1_1, v1_0 and
-delta rewards and ``obs_memory``), a chunk of steps runs from the same
-fresh episodes with the same logits, values and draws, made from a seed
-with numpy, through ``env_step_plain`` and through JAX's Gumbel-max
-sample, ``step_noise``, ``auto_reset_from_draws`` and the accumulators and
-episode records of ``tpu_plume/rollout/rollout.py:209-290``.  The radii of
-40-300 and short episodes make envs finish and reset within the chunk.
+delta rewards and ``obs_memory``) and the analytic plumes of ``wrf_les``
+(the anisotropic model in a per-episode wind, with and without wind
+advection), three isotropic sources, and 3-D flight over the isotropic and
+anisotropic plumes (the latter also with three sources and the delta
+reward), a chunk of steps runs from the same fresh episodes with the same
+logits, values and draws, made from a seed with numpy, through
+``env_step_plain`` and through JAX's Gumbel-max sample, ``step_noise``,
+``auto_reset_from_draws`` and the accumulators and episode records of
+``tpu_plume/rollout/rollout.py:209-290``.  The radii of 40-300 and short
+episodes make envs finish and reset within the chunk.
 Integers and bools are compared with equality, floats at the env
 tolerance of PERF.md (rtol 1e-5, atol 1e-4).  A CPU rollout never reaches
 the kernel's wrapper and leaves the carry it was given as it was.
@@ -37,6 +41,18 @@ torch.set_num_threads(1)
 
 N, STEPS = 24, 12
 RTOL, ATOL = 1e-5, 1e-4
+# The anisotropic base's crosswind term r^2 - downwind^2 cancels near the
+# plume's axis, where XLA's CPU evaluation (which contracts multiply-adds)
+# and PyTorch's round apart by up to about 1e-4 of the value
+# (tests/test_torch_aniso.py); its floats get this tolerance.
+ANISO_RTOL, ANISO_ATOL = 1e-4, 1e-3
+
+
+def tolerance(cfg):
+    """(rtol, atol) of the env floats of ``cfg``."""
+    if cfg.plume_model == "anisotropic":
+        return dict(rtol=ANISO_RTOL, atol=ANISO_ATOL)
+    return dict(rtol=RTOL, atol=ATOL)
 CASES = {
     "v1_1": ("ppo_v2_0", {}),
     "v1_0": ("ppo_v1_0", {"max_steps": 7}),
@@ -45,7 +61,19 @@ CASES = {
                            "terminal_depth_power": 2.0,
                            "terminal_gate_radius": 200.0}),
     "obs_memory": ("ppo_v1_1", {"obs_memory": True, "max_steps": 9}),
+    "wrf_les": ("wrf_les", {}),
+    "aniso_advect": ("wrf_les", {"wind_advect_coef": 0.5, "max_steps": 8}),
+    "iso_s3": ("ppo_v2_0", {"num_sources": 3}),
+    "aniso_3d": ("wrf_les_3d", {"plume_model": "anisotropic",
+                                "wind_speed_range": (1.0, 4.0)}),
+    "iso_3d": ("wrf_les_3d", {"plume_model": "isotropic", "max_steps": 10}),
+    "aniso_3d_s3_delta": ("wrf_les_3d", {
+        "plume_model": "anisotropic", "wind_speed_range": (1.0, 4.0),
+        "num_sources": 3, "reward_variant": "delta", "obs_memory": True}),
 }
+# The cases of this slice's analytic plumes.
+ANALYTIC_CASES = ("wrf_les", "aniso_advect", "iso_s3", "aniso_3d", "iso_3d",
+                  "aniso_3d_s3_delta")
 # EpisodeRecord's fields beside the six totals, as both packages fill them.
 RECORD_FLOATS = ("final_conc", "final_x", "final_y", "source_x", "source_y",
                  "radius", "distance")
@@ -73,39 +101,42 @@ def _inputs(cfg, seed, greedy=False):
         logits=(2.0 * rng.standard_normal((STEPS, N, a))).astype(np.float32),
         value=rng.standard_normal((STEPS, N)).astype(np.float32),
         gumbel=None if greedy else gumbel.astype(np.float32),
-        turb=rng.standard_normal((STEPS, N, 2), dtype=np.float32),
+        turb=rng.standard_normal((STEPS, N, cfg.pos_dim), dtype=np.float32),
         u_src=u[1:],
         bits=rng.integers(0, 2**32, (STEPS, N), dtype=np.uint64)
-        .astype(np.uint32))
+        .astype(np.uint32),
+        u_wind=rng.random((STEPS + 1, N, 2), dtype=np.float32))
 
 
 def _j_start(cfg, x):
     """JAX's fresh state from the draws (``auto_reset_from_draws``'s
     construction), vmapped over envs, and its obs."""
-    def one(u, b, r):
-        field = j_new_field(u, jnp.zeros(2), b, cfg)
+    def one(u, w, b, r):
+        field = j_new_field(u, w, b, cfg)
         z = jnp.zeros((), jnp.int32)
-        c0, k0 = j_sample(field, z, z, cfg)
+        pos = jnp.zeros(cfg.pos_dim, jnp.float32)
+        c0, k0 = j_sample(field, z, z, cfg,
+                          z=pos[2] if cfg.env_3d else None)
         d = cfg.grid_divisions
         st = jenv.EnvState(
-            pos=jnp.zeros(2, jnp.float32), t=z,
+            pos=pos, t=z,
             visited=jnp.zeros((d, d), jnp.int32), field=field, radius=r,
             explore_bonus=jnp.float32(cfg.explore_bonus_init), conc=c0,
             tke=k0, prev_conc=c0, prev_action=z)
         return st, jenv.observe(st, cfg)
-    return jax.vmap(one)(jnp.asarray(x["u0"]), jnp.asarray(x["bits0"]),
-                         jnp.asarray(x["radius"]))
+    return jax.vmap(one)(jnp.asarray(x["u0"]), jnp.asarray(x["u_wind"][0]),
+                         jnp.asarray(x["bits0"]), jnp.asarray(x["radius"]))
 
 
 def _j_rollout_step(cfg, greedy):
     """One step of ``tpu_plume/rollout/rollout.py``'s scan body after the
     policy's forward, without the recurrent, oracle and guide branches."""
     step = jax.vmap(lambda s, a, n: jenv.step_noise(s, a, n, cfg))
-    reset = jax.vmap(lambda s, o, d, u, b: jenv.auto_reset_from_draws(
-        s, o, d, u, jnp.zeros(2), b, cfg))
+    reset = jax.vmap(lambda s, o, d, u, w, b: jenv.auto_reset_from_draws(
+        s, o, d, u, w, b, cfg))
 
     @jax.jit
-    def body(state, acc, logits, gumbel, noise, u, bits):
+    def body(state, acc, logits, gumbel, noise, u, w, bits):
         action = jnp.argmax(logits if greedy else logits + gumbel, axis=-1)
         log_prob = jnp.sum(jax.nn.log_softmax(logits)
                            * jax.nn.one_hot(action, logits.shape[-1]), -1)
@@ -128,13 +159,19 @@ def _j_rollout_step(cfg, greedy):
                    done=trans.done, pos=state.pos, conc=info.conc_raw)
         keep = 1.0 - trans.done.astype(jnp.float32)
         acc = {k: v * keep for k, v in acc.items()}
-        state, obs = reset(state, trans.obs, trans.done, u, bits)
+        state, obs = reset(state, trans.obs, trans.done, u, w, bits)
         return state, obs, acc, row, record
 
     return body
 
 
-def _compare_state(js, ts):
+def _compare_state(js, ts, tol):
+    if ts.field.wind is None:
+        assert not np.asarray(js.field.wind).any()
+    else:
+        np.testing.assert_allclose(ts.field.wind.numpy(),
+                                   np.asarray(js.field.wind), rtol=RTOL,
+                                   atol=ATOL)
     for a, b in ((ts.t, js.t), (ts.visited, js.visited),
                  (ts.prev_action, js.prev_action)):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
@@ -143,8 +180,7 @@ def _compare_state(js, ts):
     for a, b in ((ts.pos, js.pos), (ts.field.source, js.field.source),
                  (ts.conc, js.conc), (ts.tke, js.tke),
                  (ts.prev_conc, js.prev_conc)):
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=RTOL,
-                                   atol=ATOL)
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **tol)
 
 
 def _run(case, greedy=False):
@@ -152,16 +188,19 @@ def _run(case, greedy=False):
     x = _inputs(tcfg, seed=len(case) + 10 * greedy, greedy=greedy)
     js, _ = _j_start(jcfg, x)
     jacc = {f: jnp.zeros(N, jnp.float32) for f in plume.ACCUM_FIELDS}
+    wind, tol = plume.reads_wind(tcfg), tolerance(tcfg)
     ts, _ = tenv.reset_from_draws(
-        torch.from_numpy(x["u0"]), torch.from_numpy(x["bits0"].view(np.int32)),
-        tcfg)
+        torch.from_numpy(x["u0"]),
+        torch.from_numpy(x["u_wind"][0]) if wind else None,
+        torch.from_numpy(x["bits0"].view(np.int32)), tcfg)
     ts = ts.replace(radius=torch.from_numpy(x["radius"]))
     tacc = EpisodeAccum.zeros(N, "cpu")
     draws = ChunkDraws(
         turb_noise=torch.from_numpy(x["turb"]),
         gumbel=None if greedy else torch.from_numpy(x["gumbel"]),
         u_src=torch.from_numpy(x["u_src"]),
-        bits=torch.from_numpy(x["bits"].view(np.int32)))
+        bits=torch.from_numpy(x["bits"].view(np.int32)),
+        u_wind=torch.from_numpy(x["u_wind"][1:]) if wind else None)
     traj, obs_rows = rollout.empty_trajectory(STEPS, N, tcfg, "cpu")
     body = _j_rollout_step(jcfg, greedy)
     gumbel = x["gumbel"] if not greedy else np.zeros((STEPS, N, 1),
@@ -171,7 +210,7 @@ def _run(case, greedy=False):
         js, jobs, jacc, jrow, jrec = body(
             js, jacc, jnp.asarray(x["logits"][t]), jnp.asarray(gumbel[t]),
             jnp.asarray(x["turb"][t]), jnp.asarray(x["u_src"][t]),
-            jnp.asarray(x["bits"][t]))
+            jnp.asarray(x["u_wind"][t + 1]), jnp.asarray(x["bits"][t]))
         ts, tobs, tacc = rollout.env_step_plain(
             torch.from_numpy(x["logits"][t]), torch.from_numpy(x["value"][t]),
             draws, t, ts, tacc, traj, obs_rows, tcfg)
@@ -186,19 +225,18 @@ def _run(case, greedy=False):
         np.testing.assert_array_equal(traj.value[t].numpy(), x["value"][t])
         for name in ("log_prob", "reward", "pos", "conc"):
             np.testing.assert_allclose(getattr(traj, name)[t].numpy(),
-                                       np.asarray(jrow[name]), rtol=RTOL,
-                                       atol=ATOL, err_msg=name)
+                                       np.asarray(jrow[name]), **tol,
+                                       err_msg=name)
         for name in plume.ACCUM_FIELDS + RECORD_FLOATS:
             np.testing.assert_allclose(getattr(traj.episode, name)[t].numpy(),
-                                       np.asarray(jrec[name]), rtol=RTOL,
-                                       atol=ATOL, err_msg=name)
+                                       np.asarray(jrec[name]), **tol,
+                                       err_msg=name)
             if name in jacc:
                 np.testing.assert_allclose(getattr(tacc, name).numpy(),
-                                           np.asarray(jacc[name]), rtol=RTOL,
-                                           atol=ATOL, err_msg=name)
-        np.testing.assert_allclose(tobs.numpy(), np.asarray(jobs), rtol=RTOL,
-                                   atol=ATOL)
-        _compare_state(js, ts)
+                                           np.asarray(jacc[name]), **tol,
+                                           err_msg=name)
+        np.testing.assert_allclose(tobs.numpy(), np.asarray(jobs), **tol)
+        _compare_state(js, ts, tol)
         dones += int(traj.done[t].sum())
     # the episode record's done is the step's, and the final position is
     # the step's position
@@ -216,6 +254,11 @@ def test_env_step_plain_matches_jax(case):
 
 def test_env_step_plain_matches_jax_greedy():
     _run("v1_1", greedy=True)
+
+
+@pytest.mark.parametrize("case", ANALYTIC_CASES)
+def test_env_step_plain_matches_jax_greedy_on_the_analytic_plumes(case):
+    _run(case, greedy=True)
 
 
 def test_cpu_rollout_never_reaches_the_kernel_and_keeps_the_carry(
@@ -312,6 +355,61 @@ def test_env_step_inputs_checks_refuse(fault):
         cfg = dataclasses.replace(cfg, reward_variant="v2")
     with pytest.raises(error):
         plume.check_env_step_inputs(state, accum, draws, traj, obs, cfg, -1)
+
+
+@pytest.mark.parametrize("fault", [
+    "wind_missing", "wind_dtype", "wind_on_a_calm_field", "u_wind_missing",
+    "u_wind_shape", "turb_2d", "pos_2d", "traj_pos_2d", "too_many_sources",
+    "elastic_3d"])
+def test_env_step_inputs_checks_refuse_on_the_analytic_modes(fault):
+    cfg = _cfgs("aniso_3d_s3_delta")[1]
+    state, accum, draws, traj, obs = _step_inputs(cfg)
+    field = state.field
+    error = ValueError
+    if fault == "wind_missing":
+        state = state.replace(field=dataclasses.replace(field, wind=None))
+    elif fault == "wind_dtype":
+        state, error = state.replace(field=dataclasses.replace(
+            field, wind=field.wind.double())), TypeError
+    elif fault == "wind_on_a_calm_field":
+        cfg = dataclasses.replace(cfg, wind_speed_range=(0.0, 0.0))
+    elif fault == "u_wind_missing":
+        draws = dataclasses.replace(draws, u_wind=None)
+    elif fault == "u_wind_shape":
+        draws = dataclasses.replace(draws, u_wind=draws.u_wind[:, :4])
+    elif fault == "turb_2d":
+        draws = dataclasses.replace(
+            draws, turb_noise=draws.turb_noise[..., :2].contiguous())
+    elif fault == "pos_2d":
+        state = state.replace(pos=state.pos[:, :2].contiguous())
+    elif fault == "traj_pos_2d":
+        traj = dataclasses.replace(traj, pos=traj.pos[..., :2].contiguous())
+    elif fault == "too_many_sources":
+        cfg = dataclasses.replace(cfg, num_sources=plume.MAX_SOURCES + 1)
+    elif fault == "elastic_3d":
+        cfg = dataclasses.replace(cfg, elastic_walls=True)
+    with pytest.raises(error):
+        plume.check_env_step_inputs(state, accum, draws, traj, obs, cfg, -1)
+
+
+def test_env_step_bytes_count_positions_and_wind():
+    """3-D flight reads and writes three floats a position and a
+    displacement; a field with a wind reads it every step and, where an
+    episode ends, its reset uniforms, writing the fresh wind."""
+    cfg = t_get_preset("ppo_v2_0").env
+    flat = plume.env_step_bytes(cfg, 4096, 3, False)
+    aniso = dataclasses.replace(cfg, plume_model="anisotropic",
+                                wind_speed_range=(1.0, 4.0))
+    assert plume.env_step_bytes(aniso, 4096, 3, False) - flat == (
+        4096 * 8 + 3 * 16)
+    calm = dataclasses.replace(aniso, wind_speed_range=(0.0, 0.0))
+    assert plume.env_step_bytes(calm, 4096, 3, False) == flat
+    # 3-D: four position-wide rows (pos read and written, displacement
+    # read, trajectory row written) and the obs' z
+    flight = dataclasses.replace(cfg, env_3d=True)
+    assert flight.num_actions == 7 and flight.obs_dim == 7
+    assert plume.env_step_bytes(flight, 4096, 0, True) - plume.env_step_bytes(
+        cfg, 4096, 0, True) == 4096 * (4 * 4 + 4 + 2 * 4)
 
 
 def test_env_step_bytes_count_the_finished_envs():

@@ -348,7 +348,7 @@ def test_gridded_field_sample_matches_jax(banks, layout, subcell):
 
     jf, (jc, jk) = jax.vmap(one)(jnp.asarray(u), jnp.asarray(bits),
                                  jnp.asarray(pos), jnp.asarray(t))
-    tf = new_field_from_draws(torch.from_numpy(u),
+    tf = new_field_from_draws(torch.from_numpy(u), None,
                               torch.from_numpy(bits.view(np.int32)), tcfg, tb)
     np.testing.assert_array_equal(tf.idx.numpy(), _np(jf.idx))
     np.testing.assert_array_equal(tf.source.numpy(), _np(jf.source))
@@ -363,7 +363,7 @@ def test_gridded_without_a_bank_raises_as_jax_does():
     u = torch.rand(4, 2, generator=torch.Generator().manual_seed(0))
     bits = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="requires a FieldBank"):
-        new_field_from_draws(u, bits, cfg)
+        new_field_from_draws(u, None, bits, cfg)
     field = FieldState(source=u, seed=bits, idx=torch.zeros(4, dtype=torch.int32))
     with pytest.raises(ValueError, match="requires a FieldBank"):
         sample_conc_tke(field, torch.zeros(4, 3), cfg)

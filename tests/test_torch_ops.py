@@ -125,12 +125,12 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_bad_inputs():
     # no fallback: the kernel's wrapper never computes on the CPU
     with pytest.raises(ValueError, match="CUDA"):
         plume.sample_plume_cuda(pos, src, seed, cfg)
-    with pytest.raises(TypeError):
-        plume._check(pos, src, seed.to(torch.int64))
+    with pytest.raises(TypeError, match="int32"):
+        plume._check(pos, src, seed.to(torch.int64), None, cfg)
     with pytest.raises(ValueError, match="shape"):
-        plume._check(pos, src[:4], seed)
+        plume._check(pos, src[:4], seed, None, cfg)
     with pytest.raises(ValueError, match="contiguous"):
-        plume._check(torch.zeros(2, 8).t(), src, seed)
+        plume._check(torch.zeros(2, 8).t(), src, seed, None, cfg)
 
 
 def test_build_names_source_and_flags():

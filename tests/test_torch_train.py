@@ -230,8 +230,7 @@ def test_cli_train_on_cpu(tmp_path, capsys):
 
 
 def test_cli_refuses_flags_of_later_slices():
-    for flag in (["--train-guide", "fit"], ["--arch", "lstm"], ["--netcdf"],
-                 ["--plume-model", "anisotropic"]):
+    for flag in (["--train-guide", "fit"], ["--arch", "lstm"], ["--netcdf"]):
         with pytest.raises(SystemExit):
             cli_main(["train", "--cpu", *flag])
 
@@ -248,10 +247,6 @@ def test_entry_points_raise_without_a_card(tmp_path, monkeypatch):
 
 
 UNPORTED = {   # name: (config part, fields, ROADMAP Queue 1 slice)
-    "anisotropic": ("env", {"plume_model": "anisotropic"}, 6),
-    "num_sources": ("env", {"num_sources": 2}, 6),
-    # 3-D flight over the analytic plume; over a bank it is ported
-    "env_3d": ("env", {"env_3d": True}, 6),
     "lstm": ("ppo", {"arch": "lstm"}, 7),
     "distill_oracle": ("ppo", {"distill_oracle": "naive"}, 10),
 }

@@ -157,7 +157,8 @@ def build_parser():
                          "(the reference README's R = dCH4 - 0.2*|dtheta|)")
     sp.add_argument("--obs-memory", action="store_true",
                     help="append [dconc, prev-action one-hot] to the obs")
-    sp.add_argument("--plume-model", choices=["isotropic", "gridded"],
+    sp.add_argument("--plume-model",
+                    choices=["isotropic", "anisotropic", "gridded"],
                     help="plume field model (gridded needs --synth-bank)")
     sp.add_argument("--synth-bank", choices=["static", "time", "3d", "les"],
                     help="procedurally synthesize a gridded field bank")

@@ -1,10 +1,10 @@
 """MethaneEnv over a batch of N envs (port of ``tpu_plume/env/methane.py``:
-the analytic isotropic plume in 2-D flight, and gridded banks in 2-D or 3-D
-flight).
+the analytic isotropic or anisotropic plume of one or S sources, and gridded
+banks, in 2-D or 3-D flight).
 
-    reset_from_draws(u_src, bits, cfg, radius, explore_bonus, bank) -> (EnvState, obs)
+    reset_from_draws(u_src, u_wind, bits, cfg, radius, explore_bonus, bank) -> (EnvState, obs)
     step_noise(state, action, turb_noise, cfg, bank)                -> (EnvState, Transition)
-    auto_reset_from_draws(state, obs, done, u_src, bits, cfg, bank) -> (EnvState, obs)
+    auto_reset_from_draws(state, obs, done, u_src, u_wind, bits, cfg, bank) -> (EnvState, obs)
 
 Every tensor carries the env axis first.  The functions return new states
 and do not modify their inputs.  ``bank`` is the ``FieldBank`` of
@@ -12,7 +12,10 @@ and do not modify their inputs.  ``bank`` is the ``FieldBank`` of
 nominally in [0, 1]: [x/G, y/G, conc/peak, tke/(3*TI), t/max_steps,
 explore_level], with z/domain_height after (x, y) in 3-D flight (``env_3d``),
 plus [dconc/peak, one-hot(prev action)] with ``obs_memory``.  3-D flight
-adds +z and -z actions of ``z_move_step``; success stays a horizontal gate.
+adds +z and -z actions of ``z_move_step``; success stays a horizontal gate,
+at the nearest source of a multi-source field.  ``u_wind`` holds the wind
+uniforms of the fields that have a wind (``ops.plume.reads_wind``), and may
+be None for the others.
 
 The visit grid is read and written by direct indexing at each env's explore
 cell; the JAX package uses one-hot masks there, with the same counts.
@@ -34,6 +37,7 @@ from tpu_plume_torch.fields.analytic import (
     sample_conc_tke,
 )
 from tpu_plume_torch.fields.gridded import bank_wind
+from tpu_plume_torch.ops import plume
 
 
 @dataclass
@@ -162,19 +166,21 @@ def _fresh_state(field: FieldState, radius, explore_bonus, cfg: EnvConfig,
     )
 
 
-def reset_from_draws(u_src: torch.Tensor, bits: torch.Tensor, cfg: EnvConfig,
+def reset_from_draws(u_src: torch.Tensor, u_wind: torch.Tensor | None,
+                     bits: torch.Tensor, cfg: EnvConfig,
                      radius: float | None = None,
                      explore_bonus: float | None = None, bank=None):
-    """Fresh episodes for N envs from uniform draws u_src f32[N, 2] and
-    seeds ``bits`` int32[N]: new source and field (or bank row), agent at
-    the origin, cleared visit grid."""
+    """Fresh episodes for N envs from uniform draws u_src f32[N, 2], wind
+    uniforms u_wind f32[N, 2] (or None) and seeds ``bits`` int32[N]: new
+    source, wind and field (or bank row), agent at the origin, cleared
+    visit grid."""
     check_env(cfg)
     n, dev = bits.shape[0], bits.device
     radius = cfg.initial_radius if radius is None else radius
     explore_bonus = (cfg.explore_bonus_init if explore_bonus is None
                      else explore_bonus)
     state = _fresh_state(
-        new_field_from_draws(u_src, bits, cfg, bank),
+        new_field_from_draws(u_src, u_wind, bits, cfg, bank),
         torch.full((n,), radius, dtype=torch.float32, device=dev),
         torch.full((n,), explore_bonus, dtype=torch.float32, device=dev),
         cfg, bank,
@@ -214,13 +220,19 @@ def step_noise(state: EnvState, action: torch.Tensor, turb_noise: torch.Tensor,
     turb_eff = (move_step * cfg.turb_displacement_coef * turb_noise
                 * prev_tke[:, None] / tke_norm)
     raw = state.pos + delta + turb_eff
-    # Horizontal advection by the bank's wind; the isotropic plume's wind
-    # is zero, so there it adds nothing.
-    if cfg.wind_advect_coef and cfg.plume_model == "gridded":
-        advect = cfg.wind_advect_coef * bank_wind(bank, state.field.idx, t_new)
-        if cfg.env_3d:
-            advect = torch.cat([advect, torch.zeros_like(advect[:, :1])], -1)
-        raw = raw + advect
+    # Horizontal advection by the bank's wind or the field's; a field
+    # without wind (None) has a zero wind, which adds nothing.
+    if cfg.wind_advect_coef:
+        if cfg.plume_model == "gridded":
+            wind = bank_wind(bank, state.field.idx, t_new)
+        else:
+            wind = state.field.wind
+        if wind is not None:
+            advect = cfg.wind_advect_coef * wind
+            if cfg.env_3d:
+                advect = torch.cat([advect, torch.zeros_like(advect[:, :1])],
+                                   -1)
+            raw = raw + advect
 
     if cfg.elastic_walls:
         # V1.0 bounce-back walls: clip to a 10% margin, then revert the whole
@@ -296,11 +308,16 @@ def step_noise(state: EnvState, action: torch.Tensor, turb_noise: torch.Tensor,
     total_reward = (conc_reward + explore_reward + move_penalty + tke_penalty
                     + boundary_penalty)
 
-    # Terminal bonus within the (horizontal) curriculum radius: min(500,
-    # 150 R0/R), or the uncapped 100 R0/R of V1.0, plus the optional depth
-    # and gate terms.
-    d = new_pos[:, :2] - state.field.source
-    distance = torch.sqrt((d * d).sum(-1))
+    # Terminal bonus within the (horizontal) curriculum radius of the
+    # nearest source: min(500, 150 R0/R), or the uncapped 100 R0/R of V1.0,
+    # plus the optional depth and gate terms.
+    if cfg.num_sources > 1:
+        d = new_pos[:, None, :2] - plume.all_sources(
+            state.field.source, state.field.seed, cfg)
+        distance = torch.sqrt((d * d).sum(-1)).amin(-1)
+    else:
+        d = new_pos[:, :2] - state.field.source
+        distance = torch.sqrt((d * d).sum(-1))
     reached = distance <= state.radius
     if cfg.reward_variant == "v1_0":
         terminal_bonus = 100.0 * (cfg.initial_radius / state.radius)
@@ -335,10 +352,11 @@ def step_noise(state: EnvState, action: torch.Tensor, turb_noise: torch.Tensor,
 
 def auto_reset_from_draws(state: EnvState, obs: torch.Tensor,
                           done: torch.Tensor, u_src: torch.Tensor,
-                          bits: torch.Tensor, cfg: EnvConfig, bank=None):
+                          u_wind: torch.Tensor | None, bits: torch.Tensor,
+                          cfg: EnvConfig, bank=None):
     """Swap a fresh episode (from the draws) into every env where ``done``,
     carrying the curriculum values; ``obs`` is the post-step observation."""
-    fresh = _fresh_state(new_field_from_draws(u_src, bits, cfg, bank),
+    fresh = _fresh_state(new_field_from_draws(u_src, u_wind, bits, cfg, bank),
                          state.radius, state.explore_bonus, cfg, bank)
     fresh_obs = observe(fresh, cfg)
     return select(done, fresh, state), select(done, fresh_obs, obs)

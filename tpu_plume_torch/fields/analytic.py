@@ -1,31 +1,36 @@
 """Plume fields, batched over N episodes (port of
-``tpu_plume/fields/analytic.py``: the isotropic model, the gridded model,
-and the single-source anisotropic dispersion the bank synthesizers use).
+``tpu_plume/fields/analytic.py``: the isotropic and anisotropic analytic
+models of one or S sources, in 2-D or 3-D flight, and the gridded model).
 
     base(ix, iy)  = peak * exp(-((ix-sx)^2 + (iy-sy)^2) / (2 sigma^2))
-                    (isotropic), or the bank row at the agent (gridded)
+                    (isotropic), the Gaussian dispersion in the episode's
+                    wind (anisotropic), min(peak, sum of each source's
+                    strength times its base) for S sources, or the bank row
+                    at the agent (gridded)
     turb(ix, iy)  = TI * (|N(0,1)| + 0.3 sin(0.05 ix) cos(0.07 iy) + 0.2 U(0,1))
     conc          = clip(base + turb, 0, peak)
     tke           = turb                      (V1.1+)
     turb normal is signed and tke = |turb|*2  (V1.0)
 
-The turbulence is a pure function of ``(field seed, ix, iy)``, so a field is
-a source, one 32-bit seed and, for the gridded model, a bank row per
-episode.  The isotropic sample is the kernel of ``tpu_plume_torch.ops.plume``;
-the gridded sample reads the bank (``fields.gridded``) and adds the same
-turbulence, cell-hashed also when the bank is read between cells, where
-the whole sample is one launch of the sample kernel of
-``tpu_plume_torch.ops.gather``.
+The turbulence, the extra sources and their strengths are pure functions of
+the field's seed, so a field is a primary source, one 32-bit seed, a wind
+(anisotropic model) and, for the gridded model, a bank row per episode.  The
+analytic sample is the kernel of ``tpu_plume_torch.ops.plume``, whose plain
+version holds the models' arithmetic; the gridded sample reads the bank
+(``fields.gridded``) and adds the same turbulence, cell-hashed also when the
+bank is read between cells, where the whole sample is one launch of the
+sample kernel of ``tpu_plume_torch.ops.gather``.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
 
 from tpu_plume_torch.core.config import EnvConfig
-from tpu_plume_torch.core.support import check_env, check_sources
+from tpu_plume_torch.core.support import check_env
 from tpu_plume_torch.fields.gridded import sample_bank
 from tpu_plume_torch.ops import gather, plume
 
@@ -34,9 +39,13 @@ from tpu_plume_torch.ops import gather, plume
 class FieldState:
     """Per-episode plume fields of N envs."""
 
-    source: torch.Tensor   # f32[N, 2]
+    source: torch.Tensor   # f32[N, 2] the primary source
     seed: torch.Tensor     # int32[N], the uint32 turbulence seed's bits
-    idx: torch.Tensor | None = None   # i32[N] bank row; None off the bank
+    idx: torch.Tensor | None = None    # i32[N] bank row; None off the bank
+    # f32[N, 2] advection velocity (grid units per step) of the anisotropic
+    # model with a wind speed range above 0; None where the JAX package's
+    # wind is zero (``plume.reads_wind``).
+    wind: torch.Tensor | None = None
 
 
 def _need_bank(bank):
@@ -44,12 +53,33 @@ def _need_bank(bank):
         raise ValueError('plume_model="gridded" requires a FieldBank')
 
 
-def new_field_from_draws(u_src: torch.Tensor, bits: torch.Tensor,
-                         cfg: EnvConfig, bank=None) -> FieldState:
-    """Fresh fields from uniform draws u_src f32[N, 2] in [0, 1) and seeds
-    ``bits`` int32[N]: source ~ U(padding, grid - padding)^2, or, for the
-    gridded model, bank row min(floor(u_src[:, 0] K), K-1) and its source."""
+def wind_from_draws(u_wind: torch.Tensor, cfg: EnvConfig) -> torch.Tensor:
+    """Winds f32[N, 2] from uniforms u_wind f32[N, 2]: speed w_lo + (w_hi -
+    w_lo) u_wind[:, 0] in the direction 2 pi u_wind[:, 1]
+    (``tpu_plume/fields/analytic.py:90-93``)."""
+    w_lo, w_hi = cfg.wind_speed_range
+    speed = w_lo + (w_hi - w_lo) * u_wind[:, 0]
+    theta = 2.0 * math.pi * u_wind[:, 1]
+    return speed[:, None] * torch.stack([torch.cos(theta), torch.sin(theta)],
+                                        -1)
+
+
+def new_field_from_draws(u_src: torch.Tensor, u_wind: torch.Tensor | None,
+                         bits: torch.Tensor, cfg: EnvConfig,
+                         bank=None) -> FieldState:
+    """Fresh fields from uniform draws u_src f32[N, 2] in [0, 1), wind
+    uniforms u_wind f32[N, 2] (read only where the field has a wind;
+    None otherwise) and seeds ``bits`` int32[N]: source ~ U(padding, grid -
+    padding)^2, or, for the gridded model, bank row min(floor(u_src[:, 0]
+    K), K-1) and its source (``tpu_plume/fields/analytic.py:75-102``)."""
     check_env(cfg)
+    wind = None
+    if plume.reads_wind(cfg):
+        if u_wind is None:
+            raise ValueError(f"a field of plume_model={cfg.plume_model!r} "
+                             f"with wind_speed_range={cfg.wind_speed_range} "
+                             f"needs u_wind draws")
+        wind = wind_from_draws(u_wind, cfg)
     if cfg.plume_model == "gridded":
         _need_bank(bank)
         k = bank.conc.shape[0]
@@ -57,20 +87,22 @@ def new_field_from_draws(u_src: torch.Tensor, bits: torch.Tensor,
         return FieldState(source=bank.source[idx], seed=bits, idx=idx)
     lo = cfg.source_padding
     hi = cfg.grid_size - cfg.source_padding
-    return FieldState(source=lo + (hi - lo) * u_src, seed=bits)
+    return FieldState(source=lo + (hi - lo) * u_src, seed=bits, wind=wind)
 
 
 def sample_conc_tke(field: FieldState, pos: torch.Tensor, cfg: EnvConfig,
                     bank=None, t: torch.Tensor | None = None):
     """Concentration and TKE f32[N] at positions f32[N, pos_dim].
 
-    Isotropic: the CUDA kernel on the card, its plain version on the CPU,
-    at the grid cell.  Gridded: the bank row at env step ``t`` (and height
-    pos[:, 2] in 3-D flight), at the grid cell, or, with
-    ``cfg.subcell_sampling``, at the float position: one launch of the
-    sample kernel on the card, its plain version on the CPU."""
+    Analytic: the CUDA kernel on the card, its plain version on the CPU, at
+    the grid cell (and, in 3-D flight, the height pos[:, 2]).  Gridded: the
+    bank row at env step ``t`` (and height pos[:, 2] in 3-D flight), at the
+    grid cell, or, with ``cfg.subcell_sampling``, at the float position:
+    one launch of the sample kernel on the card, its plain version on the
+    CPU."""
     if cfg.plume_model != "gridded":
-        return plume.sample_plume(pos, field.source, field.seed, cfg)
+        return plume.sample_plume(pos, field.source, field.seed, cfg,
+                                  field.wind)
     _need_bank(bank)
     if cfg.subcell_sampling:
         return gather.sample_bank_conc_tke(bank, field.idx, pos, t,
@@ -82,38 +114,3 @@ def sample_conc_tke(field: FieldState, pos: torch.Tensor, cfg: EnvConfig,
     conc = torch.clamp(base + turb, 0.0, cfg.conc_peak)
     tke = torch.abs(turb) * 2.0 if cfg.tke_abs_times_two else turb
     return conc, tke
-
-
-def anisotropic_base(source: torch.Tensor, wind: torch.Tensor, fx, fy,
-                     cfg: EnvConfig, z=None) -> torch.Tensor:
-    """Gaussian dispersion of one source f32[2] in wind f32[2] at cells
-    (fx, fy) (``_aniso_kernel``, ``tpu_plume/fields/analytic.py:200-223``):
-    crosswind spread sigma_y = max(sigma_y_min, 0.3 d^0.71) growing with
-    the downwind distance d, the centerline decaying by mass conservation,
-    and a compact kernel of sigma_y_min around and upwind of the source.
-    With a height ``z`` the plume gains the vertical profile
-    exp(-(z - source_z)^2 / (2 sigma_z^2)), sigma_z growing like sigma_y.
-    Broadcasts over fx, fy and z."""
-    check_sources(cfg)
-    r0 = fx - source[0]
-    r1 = fy - source[1]
-    speed = torch.sqrt(wind[0] * wind[0] + wind[1] * wind[1]) + 1e-8
-    u = wind / speed
-    downwind = r0 * u[0] + r1 * u[1]
-    r2 = r0 ** 2 + r1 ** 2
-    cross2 = torch.clamp(r2 - downwind ** 2, min=0.0)
-    d = torch.clamp(downwind, min=0.0)
-    sigma = torch.clamp(cfg.sigma_y_coef * d ** cfg.sigma_y_exp,
-                        min=cfg.sigma_y_min)
-    centerline = cfg.conc_peak * (cfg.sigma_y_min / sigma)
-    vert = blob_vert = 1.0
-    if z is not None:
-        dz = z - cfg.source_z
-        sigma_z = torch.clamp(cfg.sigma_z_coef * d ** cfg.sigma_z_exp,
-                              min=cfg.sigma_z_min)
-        centerline = centerline * (cfg.sigma_z_min / sigma_z)
-        vert = torch.exp(-(dz * dz) / (2.0 * sigma_z ** 2))
-        blob_vert = torch.exp(-(dz * dz) / (2.0 * cfg.sigma_z_min ** 2))
-    plume_val = centerline * torch.exp(-cross2 / (2.0 * sigma ** 2)) * vert
-    blob = cfg.conc_peak * torch.exp(-r2 / (2.0 * cfg.sigma_y_min ** 2)) * blob_vert
-    return torch.where(downwind >= 0.0, torch.maximum(plume_val, blob), blob)

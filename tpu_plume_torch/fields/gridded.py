@@ -38,7 +38,7 @@ import torch
 
 from tpu_plume_torch.core.config import EnvConfig
 from tpu_plume_torch.core.support import GATHER_MODES
-from tpu_plume_torch.ops import gather
+from tpu_plume_torch.ops import gather, plume
 
 
 @dataclass(frozen=True)
@@ -160,11 +160,9 @@ def build_static_bank(sources: torch.Tensor, theta: torch.Tensor,
                       cfg: EnvConfig) -> FieldBank:
     """``synthesize_bank``'s body: one anisotropic plume per source with a
     unit wind at angle ``theta`` f32[K]."""
-    from tpu_plume_torch.fields.analytic import anisotropic_base
-
     fx, fy = _grid(cfg.grid_size, sources.device)
     winds = _winds(theta)
-    conc = torch.stack([anisotropic_base(s, wnd, fx, fy, cfg)
+    conc = torch.stack([plume.anisotropic_kernel(s, wnd, fx, fy, cfg)
                         for s, wnd in zip(sources, winds)])
     return FieldBank(conc=conc.contiguous(), source=sources)
 
@@ -189,13 +187,12 @@ def build_time_varying_bank(sources, theta0, veer, cfg: EnvConfig,
                             grid: int | None = None) -> FieldBank:
     """``synthesize_time_varying_bank``'s body: the wind veers from
     ``theta0`` by ``veer`` radians across the frames."""
-    from tpu_plume_torch.fields.analytic import anisotropic_base
-
     fx, fy = _grid(grid or cfg.grid_size, sources.device)
     thetas = _frame_thetas(theta0, veer, num_frames)
     wind = _winds(thetas)                                    # [K, T, 2]
     conc = torch.stack([
-        torch.stack([anisotropic_base(s, wnd, fx, fy, cfg) for wnd in ws])
+        torch.stack([plume.anisotropic_kernel(s, wnd, fx, fy, cfg)
+                     for wnd in ws])
         for s, ws in zip(sources, wind)])
     return FieldBank(conc=conc.contiguous(), source=sources, wind=wind,
                      steps_per_frame=steps_per_frame)
@@ -222,8 +219,6 @@ def build_3d_bank(sources, theta0, veer, cfg: EnvConfig, num_frames: int = 8,
     """``synthesize_3d_bank``'s body: veering wind of ``wind_speed`` and the
     Gaussian-dispersion vertical profile at ``num_levels`` heights evenly
     over [0, z_extent]; built one frame at a time."""
-    from tpu_plume_torch.fields.analytic import anisotropic_base
-
     dev = sources.device
     fx, fy = _grid(grid or cfg.grid_size, dev)
     ze = cfg.domain_height if z_extent is None else z_extent
@@ -234,7 +229,8 @@ def build_3d_bank(sources, theta0, veer, cfg: EnvConfig, num_frames: int = 8,
                        dtype=torch.float32, device=dev)
     for k, s in enumerate(sources):
         for f in range(num_frames):
-            conc[k, f] = anisotropic_base(s, wind[k, f], fx, fy, cfg, z=levels)
+            conc[k, f] = plume.anisotropic_kernel(s, wind[k, f], fx, fy, cfg,
+                                                  z=levels)
     return FieldBank(conc=conc, source=sources, wind=wind,
                      steps_per_frame=steps_per_frame, z_extent=ze)
 

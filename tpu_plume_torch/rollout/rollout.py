@@ -8,7 +8,8 @@ episode totals and records, and the auto-reset of finished envs.  On the
 card over the analytic plume the env step is one launch of the env-step
 kernel (``tpu_plume_torch.ops.plume.EnvStepper``), whose plain version
 ``env_step_plain`` is.  The chunk's randomness (turbulence normals, Gumbel
-noise, reset uniforms and seeds) is drawn up front in one ``ChunkDraws``; a
+noise, reset uniforms and seeds, and the reset wind uniforms of a field
+with a wind) is drawn up front in one ``ChunkDraws``; a
 caller may pass its own draws instead, which is how the tests feed both
 packages the same numbers.  Each step writes its row of [T, N] buffers
 (``empty_trajectory``).  Per-episode totals are carried per env and
@@ -97,6 +98,9 @@ class ChunkDraws:
     gumbel: torch.Tensor | None  # f32[T, N, A] Gumbel noise; None = greedy
     u_src: torch.Tensor          # f32[T, N, 2] reset source uniforms
     bits: torch.Tensor           # i32[T, N] reset field seeds
+    # f32[T, N, 2] reset wind uniforms (speed, direction) of a field with a
+    # wind (``plume.reads_wind``); None for the others
+    u_wind: torch.Tensor | None = None
 
 
 @dataclass
@@ -121,9 +125,13 @@ def gumbel_noise(shape, generator: torch.Generator) -> torch.Tensor:
 
 def draw_chunk(generator: torch.Generator, cfg: EnvConfig, length: int,
                num_envs: int, greedy: bool = False) -> ChunkDraws:
+    """The chunk's draws from ``generator``, in the order turbulence,
+    Gumbel noise, source uniforms, seeds and, last and only for a field
+    with a wind, the wind uniforms, so that every other field's stream is
+    what it was before fields had winds."""
     dev = generator.device
     t, n = length, num_envs
-    return ChunkDraws(
+    draws = ChunkDraws(
         turb_noise=torch.randn(t, n, cfg.pos_dim, device=dev,
                                generator=generator),
         gumbel=None if greedy else gumbel_noise((t, n, cfg.num_actions),
@@ -131,6 +139,9 @@ def draw_chunk(generator: torch.Generator, cfg: EnvConfig, length: int,
         u_src=torch.rand(t, n, 2, device=dev, generator=generator),
         bits=random_bits((t, n), generator),
     )
+    if plume.reads_wind(cfg):
+        draws.u_wind = torch.rand(t, n, 2, device=dev, generator=generator)
+    return draws
 
 
 def init_rollout(cfg: EnvConfig, num_envs: int, generator: torch.Generator,
@@ -140,9 +151,11 @@ def init_rollout(cfg: EnvConfig, num_envs: int, generator: torch.Generator,
     """Fresh episodes in every env, on the generator's device."""
     dev = generator.device
     u_src = torch.rand(num_envs, 2, device=dev, generator=generator)
-    env_state, obs = reset_from_draws(
-        u_src, random_bits((num_envs,), generator), cfg, radius, explore_bonus,
-        bank)
+    bits = random_bits((num_envs,), generator)
+    u_wind = (torch.rand(num_envs, 2, device=dev, generator=generator)
+              if plume.reads_wind(cfg) else None)
+    env_state, obs = reset_from_draws(u_src, u_wind, bits, cfg, radius,
+                                      explore_bonus, bank)
     return RolloutCarry(env_state=env_state, obs=obs,
                         accum=EpisodeAccum.zeros(num_envs, dev),
                         generator=generator)
@@ -214,7 +227,8 @@ def env_step_plain(logits: torch.Tensor, value: torch.Tensor,
     envs with the turbulence normals ``draws.turb_noise[t]``, adds the
     episode totals, records row ``t`` of ``traj`` (``value`` f32[N] too),
     clears the totals of the envs that finished and swaps fresh episodes
-    from ``draws.u_src[t]`` and ``draws.bits[t]`` into them.  Writes the
+    from ``draws.u_src[t]``, ``draws.u_wind[t]`` and ``draws.bits[t]`` into
+    them.  Writes the
     next obs into ``obs_rows[t + 1]`` and returns ``(state', obs',
     accum')``; ``state`` and ``accum`` are not modified."""
     if draws.gumbel is None:
@@ -249,9 +263,10 @@ def env_step_plain(logits: torch.Tensor, value: torch.Tensor,
     # Clear the totals of envs that finished, then auto-reset them.
     keep = 1.0 - trans.done.to(torch.float32)
     acc = EpisodeAccum(*torch._foreach_mul(_totals(acc), [keep] * 6))
+    u_wind = None if draws.u_wind is None else draws.u_wind[t]
     state, obs = auto_reset_from_draws(state, trans.obs, trans.done,
-                                       draws.u_src[t], draws.bits[t], cfg,
-                                       bank)
+                                       draws.u_src[t], u_wind, draws.bits[t],
+                                       cfg, bank)
     _write_rows(rows + [(obs_rows[t + 1], obs)])
     return state, obs_rows[t + 1], acc
 
