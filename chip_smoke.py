@@ -68,12 +68,35 @@ outside a checkout of the repository.  Phases, each of which must pass:
    one trilinear launch a sample); the 64-field static bank of
    ``--synth-bank static`` read between cells (one bilinear launch a
    sample);
-7. the ``train`` CLI for two iterations at the same width: ppo_v2_0 in f32
+7. the evaluation harness at the reference protocol's width, 1000
+   episodes x 1000 steps, each episode reset once and frozen once it ends:
+   eval A, ppo_v2_0 with the heuristic stop and the params of the f32 main
+   path (one plume-sample launch per eval step plus one at the reset), and
+   eval B, wrf_les_3d over the main path's bank with its params (one bank
+   sample, the trilinear kernel, per step plus one); each with the launch
+   counts set to 0 just before it and read just after, its summary, wall
+   ms and eval env-steps/s, then the same eval again under the profiler
+   for its launches per eval step and device busy share (device kernel
+   time over the unprofiled eval's wall); and each at that width on the
+   card against the CPU from the same draws (at most one episode in 64
+   may differ in steps, stop flag or deviation beyond the env tolerance;
+   where each such path departs is logged), with a third such check of
+   the heuristic gate in a setting where it stops some episodes early and
+   not all;
+8. the ``train`` CLI for two iterations at the same width: ppo_v2_0 in f32
    and with ``--bf16``, ``--preset wrf_les``, and ``--preset wrf_les_3d
-   --synth-bank 3d``.
+   --synth-bank 3d``; on the f32 run ``eval --pth`` and ``eval --ckpt``
+   with the heuristic stop (the same summary, the reference's
+   ``validation_metrics.npz`` and ``evaluation_results.csv``) and ``expert
+   --episodes 100`` (the ``expert_data.npz`` contract);
+9. a learning check, printed and not a gate: ppo_v2_0 f32 trained at full
+   width for 20 iterations, then eval A's protocol over the same draws for
+   the trained and the untrained initial params.
 
-Then it prints the ``kernels`` JSON line, the card's name and power limit,
-and, last, the result line ``{"ok": true, "device": {...}}``.
+Then it prints a JSON line of the eval phases, the ``kernels`` JSON line
+(each kernel's launches in evals A and B under ``eval_launches``), the
+card's name and power limit, and, last, the result line ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -164,6 +187,18 @@ ENV_ODD_N = MAIN_N + 37
 # and a log), the move and its clip (about 20), the visit, reward terms,
 # terminal bonus and obs (about 50).
 ENV_STEP_OPS = 90
+# The eval phases: the warm-up's steps and the learning check's
+# iterations.
+EVAL_WARMUP = 16
+LEARN_ITERS = 20
+# The heuristic gate's card check (tests/test_torch_eval.py's setting): a
+# 100-cell grid with a wide plume, low turbulence and a goal radius of 5,
+# and a policy whose stay action's bias is raised by STAY_BIAS, so that it
+# stays put and the concentration at the start decides: the gate fires
+# where the source lies near the start and not elsewhere.
+STOP_ENV = dict(grid_size=100, source_padding=10.0, turbulence_intensity=0.5,
+                plume_sigma=60.0, initial_radius=5.0)
+STAY_BIAS = 1.0
 # Operations the anisotropic base adds to a plume query's, a source: the
 # unit wind (about 8), the downwind and crosswind distances (about 8), the
 # crosswind spread with its pow (4), the centerline (3), two exponentials
@@ -558,9 +593,13 @@ def device_kernels(prof):
 
 def kernel_device_ms(fn, kernel_name: str, reps: int = 100):
     """Mean device ms of the kernel ``kernel_name`` over ``reps`` calls of
-    ``fn``, from torch.profiler; None if the profiler recorded no device
-    time for it."""
+    ``fn``: the self device time of the profiler's CUDA entries whose key
+    holds the name; None if they recorded none.  Where the name matches
+    more than one entry, or another kind of entry, or no device time, or
+    where the first matching entry's self time differs from the sum, the
+    entries are logged."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -569,11 +608,20 @@ def kernel_device_ms(fn, kernel_name: str, reps: int = 100):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    for e in prof.key_averages():
-        if kernel_name in e.key and e.count:
-            total_us = e.self_device_time_total
-            return total_us / e.count / 1e3 if total_us else None
-    return None
+    found = [e for e in prof.key_averages()
+             if kernel_name in e.key and e.count]
+    kernels = [e for e in found if e.device_type == DeviceType.CUDA]
+    total_us = sum(e.self_device_time_total for e in kernels)
+    first_us = found[0].self_device_time_total if found else 0
+    if (len(found) != 1 or len(kernels) != 1 or not total_us
+            or first_us != total_us):
+        log(f"kernel_device_ms {kernel_name}: {len(found)} profiler entries: "
+            + "; ".join(f"{e.key[:80]!r} {e.device_type} x{e.count} self "
+                        f"{e.self_device_time_total} total "
+                        f"{e.device_time_total}" for e in found))
+    if not total_us:
+        return None
+    return total_us / sum(e.count for e in kernels) / 1e3
 
 
 def ppo_batch(PPOBatch, b: int, d: int, seed: int):
@@ -1319,14 +1367,17 @@ def run_main_path(ttrain, rollout_chunk, k, label, cfg, bank=None, iters=3,
             f"{roll['launches_per_step']:.2f} per env step, device "
             f"{roll['device_ms']:.2f} ms of {roll['wall_ms']:.2f} ms wall")
         loop, busy, profiled = profile_iteration(step, loop)
-    return dict(counts=counts, total_counts=total, sps=sps,
+    return dict(counts=counts, total_counts=total, sps=sps, model=loop.model,
                 whole_ms=wall / iters * 1e3, busy=busy,
                 profiled_launches=profiled, rollout_profile=roll,
                 max_memory_allocated=max_mem,
                 **{key: v / iters for key, v in phases.items()})
 
 
-def run_cli(cli_main, ActorCritic, preset, obs_dim, num_actions, *flags):
+def run_cli(cli_main, ActorCritic, preset, obs_dim, num_actions, *flags,
+            then=None):
+    """``train`` for two iterations at full width, its files checked; then
+    ``then(run directory)`` before the directory goes."""
     import torch
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1351,6 +1402,233 @@ def run_cli(cli_main, ActorCritic, preset, obs_dim, num_actions, *flags):
             f"iterations, {res['episodes']} episodes in the CSV, "
             f"{res['steps_per_sec']:.1f} env-steps/s after the first; "
             "checkpoint and .pth load")
+        if then is not None:
+            then(tmp)
+
+
+def cli_json(cli_main, argv) -> tuple:
+    """``cli_main(argv)``'s last printed line as JSON, and its wall s."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli_main(argv)
+    wall = time.perf_counter() - t0
+    return json.loads(out.getvalue().strip().splitlines()[-1]), wall
+
+
+def eval_length(cfg) -> int:
+    return min(cfg.env.max_steps, cfg.eval.max_eval_steps)
+
+
+def eval_gate(ev, cfg, stop):
+    return (ev.make_heuristic_gate(cfg.eval, cfg.env.conc_peak)
+            if stop == "heuristic" else None)
+
+
+def check_eval_metrics(m, cfg, n: int, length: int) -> None:
+    """What comes out of an eval: finite values of the expected shapes,
+    steps within the eval's length, success at the protocol's distance."""
+    import numpy as np
+
+    assert m.deviations.shape == m.steps.shape == (n,), m.deviations.shape
+    assert np.isfinite(m.deviations).all() and np.isfinite(m.final_conc).all()
+    assert m.steps.min() >= 1 and m.steps.max() <= length, m.steps
+    assert (m.success == (m.deviations <= cfg.eval.success_distance)).all()
+    assert m.sources.shape == (n, 2)
+
+
+def run_eval(ev, k, label, cfg, model, bank=None, stop=None) -> dict:
+    """The eval at the reference protocol's width (``cfg.eval.episodes``
+    episodes, each reset once, over ``min(max_steps, max_eval_steps)``
+    steps) on the card: after an EVAL_WARMUP-step warm-up, the whole eval
+    with every launch count set to 0 just before it and read just after
+    (one field-sample launch per step plus one at the reset); then the same
+    eval, from the same seed, under the profiler: its device launches per
+    eval step (the reset and the draws included) and its device kernel time
+    over the unprofiled eval's wall, the device's busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    gate = eval_gate(ev, cfg, stop)
+    n, length = cfg.eval.episodes, eval_length(cfg)
+
+    def run(seed, steps=None):
+        return ev.evaluate_policy(
+            model, cfg.env, cfg.eval,
+            torch.Generator(device="cuda").manual_seed(seed), stop_gate=gate,
+            max_steps=steps, bank=bank, device="cuda")
+
+    run(1, EVAL_WARMUP)
+    zero_counts(k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = run(0)
+    wall = time.perf_counter() - t0
+    counts = read_counts(k)
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    want[_field_sample(cfg.env, bank)] = length + 1
+    assert counts == want, (label, counts, want)
+    check_eval_metrics(m, cfg, n, length)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(0)
+        torch.cuda.synchronize()
+        profiled_wall = time.perf_counter() - t0
+    kernels = device_kernels(prof)
+    launches = sum(e.count for e in kernels)
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    summary = ev.summarize(m)
+    out = dict(summary=summary, wall_ms=wall * 1e3,
+               env_steps_per_s=n * length / wall,
+               active_env_steps=int(m.steps.sum()),
+               launches_per_step=launches / length, device_ms=device_ms,
+               busy=device_ms / (wall * 1e3),
+               profiled_wall_ms=profiled_wall * 1e3, launches=counts)
+    log(f"eval {label}: {cfg.name} {n} episodes x {length} steps, stop "
+        f"{stop}: wall {wall * 1e3:.1f} ms = {n * length / wall:.1f} eval "
+        f"env-steps/s ({out['active_env_steps']} steps of active "
+        f"episodes); the same eval profiled: {launches} device launches = "
+        f"{launches / length:.2f} per eval step, device kernels "
+        f"{device_ms:.2f} ms = busy share {out['busy']:.4f} of the "
+        f"unprofiled wall ({device_ms / (profiled_wall * 1e3):.4f} of the "
+        f"profiled wall, {profiled_wall * 1e3:.1f} ms); launches "
+        f"{ {name: c for name, c in counts.items() if c} }")
+    log(f"eval {label} summary: " + json.dumps(summary))
+    return out
+
+
+def check_eval_against_cpu(ev, label, cfg, model, bank=None, stop=None,
+                           mixed_stops=False) -> dict:
+    """The same eval at the protocol's width on the card and on the CPU
+    from the same draws, every episode's path tracked.  An episode agrees
+    where its steps, stop flag and deviation (within the env tolerance)
+    agree; at most one in 64 may not: a position one float ulp apart can
+    land in another cell, and over 1000 steps another path follows.  For
+    each such episode the step where its path departs and the largest gap
+    of its path before that step are logged.  With ``mixed_stops`` the gate
+    must stop some episodes early, and not all, on both."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    gate = eval_gate(ev, cfg, stop)
+    n, length = cfg.eval.episodes, eval_length(cfg)
+    draws = ev.draw_eval(torch.Generator().manual_seed(7), cfg.env, length, n)
+    kw = dict(num_episodes=n, max_steps=length, stop_gate=gate, bank=bank,
+              draws=draws, track_trajectories=n)
+    want = ev.evaluate_policy(copy.deepcopy(model), cfg.env, cfg.eval,
+                              device="cpu", **kw)
+    got = ev.evaluate_policy(model, cfg.env, cfg.eval, device="cuda", **kw)
+    agree = ((got.steps == want.steps)
+             & (got.stopped_early == want.stopped_early)
+             & np.isclose(got.deviations, want.deviations, rtol=RTOL,
+                          atol=ATOL))
+    apart = np.flatnonzero(~agree)
+    path_gap = np.abs(got.trajectories[apart, :, :2]
+                      - want.trajectories[apart, :, :2]).max(-1)
+    off = ~np.isclose(got.trajectories[apart, :, :2],
+                      want.trajectories[apart, :, :2], rtol=RTOL, atol=ATOL,
+                      equal_nan=True).all(-1)
+    departs = np.where(off.any(-1), off.argmax(-1), -1)
+    before = max((float(np.nanmax(g[:t])) for g, t in zip(path_gap, departs)
+                  if t > 0), default=0.0)
+    stopped = (int(want.stopped_early.sum()), int(got.stopped_early.sum()))
+    log(f"eval {label} card vs CPU, {n} episodes x {length} steps, stop "
+        f"{stop}: {len(apart)} of {n} episodes apart ("
+        f"{int((got.steps != want.steps).sum())} in steps, "
+        f"{int((got.stopped_early != want.stopped_early).sum())} in the "
+        f"stop flag); their paths depart at steps {departs.tolist()}, the "
+        f"largest gap of a path before its departure {before:.3e}; "
+        f"{int((want.steps < length).sum())} episodes ended, stopped early "
+        f"{stopped[0]} on the CPU and {stopped[1]} on the card")
+    assert len(apart) <= n // 64, (label, apart)
+    if mixed_stops:
+        assert all(0 < s < n for s in stopped), (label, stopped)
+    return dict(apart=len(apart), departs=departs.tolist(),
+                gap_before_departure=before, stopped_early=stopped[1])
+
+
+def check_eval_cli(cli_main, tmp) -> dict:
+    """``eval --pth`` and ``eval --ckpt`` of the ``train`` run in ``tmp``
+    at the full protocol with the heuristic stop (the same summary, the
+    reference's files), and ``expert --episodes 100``."""
+    import numpy as np
+
+    pth = os.path.join(tmp, "model", "ppo_successful_models.pth")
+    out = os.path.join(tmp, "eval")
+    by_pth, pth_s = cli_json(cli_main, ["eval", "--pth", pth, "--stop",
+                                        "heuristic", "--out", out])
+    metrics = np.load(os.path.join(out, "validation_metrics.npz"))
+    assert sorted(metrics.files) == ["deviations", "steps", "stopped_early",
+                                     "success"], metrics.files
+    assert all(metrics[f].shape == (1000,) for f in metrics.files)
+    with open(os.path.join(out, "evaluation_results.csv")) as fh:
+        rows = fh.read().strip().splitlines()
+    assert rows[0] == "episode,steps,deviation,success,final_conc"
+    assert len(rows) == 1001, len(rows)
+    by_ckpt, ckpt_s = cli_json(cli_main, [
+        "eval", "--ckpt", os.path.join(tmp, "checkpoint.pt"), "--stop",
+        "heuristic"])
+    assert by_ckpt == by_pth, (by_ckpt, by_pth)
+    path = os.path.join(tmp, "expert_data.npz")
+    res, expert_s = cli_json(cli_main, ["expert", "--episodes", "100",
+                                        "--ckpt", tmp, "--out", path])
+    data = np.load(path)
+    assert sorted(data.files) == ["actions", "states"], data.files
+    m = res["samples"]
+    assert data["states"].shape == (m, MAIN_D) and data["actions"].shape == (m,)
+    assert data["states"].dtype == np.float32
+    assert data["actions"].dtype == np.int64
+    assert 0 < m <= 100 * 1000 and np.isfinite(data["states"]).all()
+    log(f"cli eval --pth ... --stop heuristic: {pth_s:.2f} s, "
+        f"{json.dumps(by_pth)}; cli eval --ckpt: {ckpt_s:.2f} s, the same "
+        f"summary; cli expert --episodes 100: {expert_s:.2f} s, {m} "
+        f"(state, action) rows")
+    return dict(summary=by_pth, expert_samples=m)
+
+
+def learning_check(ttrain, ev, cfg) -> dict:
+    """ppo_v2_0 f32 at full width trained for LEARN_ITERS iterations, then
+    the protocol's eval (heuristic stop) of the result and of the untrained
+    initial params over the same draws: a printed record, not a gate."""
+    import torch
+
+    cfg = cfg.replace(total_episodes=2**62)    # a fixed count of iterations
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        res = ttrain.train_ppo(cfg, tmp, device="cuda",
+                               max_iterations=LEARN_ITERS, write_csv=False,
+                               verbose=False)
+        train_s = time.perf_counter() - t0
+    trained = ttrain.make_policy_model(cfg)
+    trained.load_state_dict(res.state_dict)
+    initial, _ = ttrain.make_train_state(cfg, "cuda", cfg.seed)
+    n, length = cfg.eval.episodes, eval_length(cfg)
+    draws = ev.draw_eval(torch.Generator(device="cuda").manual_seed(3),
+                         cfg.env, length, n)
+    gate = eval_gate(ev, cfg, "heuristic")
+    out = dict(iterations=LEARN_ITERS, train_s=train_s,
+               episodes=res.episodes, successes=res.successes,
+               radius=float(res.curriculum.radius))
+    for label, model in (("untrained", initial), ("trained", trained.to("cuda"))):
+        m = ev.evaluate_policy(model, cfg.env, cfg.eval, draws=draws,
+                               stop_gate=gate)
+        check_eval_metrics(m, cfg, n, length)
+        out[label] = ev.summarize(m)
+    log(f"learning check: ppo_v2_0 f32, {LEARN_ITERS} iterations of "
+        f"{cfg.rollout.num_envs} envs x {cfg.rollout.unroll_length} steps in "
+        f"{train_s:.1f} s, {res.episodes} training episodes, "
+        f"{res.successes} successes, curriculum radius {out['radius']:.2f}; "
+        f"the protocol's eval ({n} episodes x {length} steps, heuristic "
+        f"stop, the same draws): untrained success@40 "
+        f"{out['untrained']['success_rate']:.3f}, mean deviation "
+        f"{out['untrained']['mean_deviation']:.2f}, mean steps "
+        f"{out['untrained']['mean_steps']:.1f}; trained success@40 "
+        f"{out['trained']['success_rate']:.3f}, mean deviation "
+        f"{out['trained']['mean_deviation']:.2f}, mean steps "
+        f"{out['trained']['mean_steps']:.1f}")
+    return out
 
 
 def build_kernels(build, names) -> None:
@@ -1373,6 +1651,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from tpu_plume_torch.cli.main import main as cli_main
     from tpu_plume_torch.core.config import PPOConfig, RolloutConfig, get_preset
+    from tpu_plume_torch.evaluation import harnesses as ev
     from tpu_plume_torch.fields import gridded
     from tpu_plume_torch.models import ActorCritic
     from tpu_plume_torch.ops import build, gather, plume
@@ -1443,6 +1722,28 @@ def main() -> int:
     launches = runs["f32"][0]["total_counts"]
     fused_launches = runs["fused_update"][0]["total_counts"]
 
+    # Eval A: the reference protocol (1000 greedy episodes x 1000 steps,
+    # heuristic stop, success@40) with the main-path ppo_v2_0 f32 params,
+    # and the same params on the card against the CPU.
+    v20_main = v20.replace(ppo=dataclasses.replace(v20.ppo,
+                                                   minibatch_size=MAIN_MB))
+    f32_model = runs["f32"][0]["model"]
+    eval_a = run_eval(ev, k, "A", v20_main, f32_model, stop="heuristic")
+    eval_a["card_vs_cpu"] = check_eval_against_cpu(
+        ev, "ppo_v2_0", v20_main, f32_model, stop="heuristic")
+    stay = ActorCritic(MAIN_D, MAIN_A, MAIN_HIDDEN)
+    stay.reset_parameters(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        stay.actor.bias[0] += STAY_BIAS
+    eval_a["stop_card_vs_cpu"] = check_eval_against_cpu(
+        ev, "ppo_v2_0 stop setting",
+        v20_main.replace(env=dataclasses.replace(v20_main.env, **STOP_ENV)),
+        stay, stop="heuristic", mixed_stops=True)
+    for blocks in runs.values():
+        for run in blocks:
+            del run["model"]
+    torch.cuda.empty_cache()
+
     # wrf_les at full width: the anisotropic plume in a per-episode wind,
     # one env-step launch per env step, no cuts.
     wl = get_preset("wrf_les")
@@ -1458,7 +1759,12 @@ def main() -> int:
     log(f"wrf_les_3d bank {list(bank.conc.shape)}, {bank.conc.numel() * 4} B")
     wrf = run_main_path(ttrain, rollout.rollout_chunk, k, "wrf_les_3d", w3,
                         bank)
-    del bank
+    # Eval B: wrf_les_3d at the protocol's width over the same bank, no
+    # stop, with the main path's params; and on the card against the CPU.
+    eval_b = run_eval(ev, k, "B", w3, wrf["model"], bank)
+    eval_b["card_vs_cpu"] = check_eval_against_cpu(ev, "wrf_les_3d", w3,
+                                                   wrf["model"], bank)
+    del bank, wrf["model"]
     torch.cuda.empty_cache()
     # A static bank read between cells: the bilinear kernel's path.
     st = v20.replace(
@@ -1482,11 +1788,19 @@ def main() -> int:
         f"{label} {run['rollout_profile']['launches_per_step']:.2f}"
         for label, run in profiled))
 
-    run_cli(cli_main, ActorCritic, "ppo_v2_0", MAIN_D, MAIN_A)
+    cli_eval = {}
+    run_cli(cli_main, ActorCritic, "ppo_v2_0", MAIN_D, MAIN_A,
+            then=lambda tmp: cli_eval.update(check_eval_cli(cli_main, tmp)))
     run_cli(cli_main, ActorCritic, "ppo_v2_0", MAIN_D, MAIN_A, "--bf16")
     run_cli(cli_main, ActorCritic, "wrf_les", 6, 5)
     run_cli(cli_main, ActorCritic, "wrf_les_3d", 7, 7, "--synth-bank", "3d")
 
+    learning = learning_check(ttrain, ev, v20_main)
+
+    eval_launches = {name: eval_a["launches"][name] + eval_b["launches"][name]
+                     for name in KERNEL_NAMES}
+    log(json.dumps({"eval": {"A": eval_a, "B": eval_b, "cli": cli_eval,
+                             "learning": learning}}))
     main_t = plume_report["timing"][MAIN_N]
     env_t = env_time["ppo_v2_0"][MAIN_N]
     aniso_t = env_time["wrf_les"]
@@ -1584,6 +1898,8 @@ def main() -> int:
     log("host split (ns per call) of the bank sample wrapper: "
         + json.dumps(sample_time["split_ns"]) + "; of the trilinear gather "
         "wrapper: " + json.dumps(gather_time["split_ns"]))
+    for entry in kernels:
+        entry["eval_launches"] = eval_launches[entry["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -25,7 +25,12 @@ tolerance (rtol 1e-5, atol 1e-4), at every analytic mode (isotropic and
 anisotropic, one or three sources, 2-D and 3-D flight, with and without
 wind advection); a rollout on the card launches it once a step and leaves
 the carry it was given as it was.  The plume kernel is held to its plain
-version at the same modes.
+version at the same modes.  The evaluation harness on the card is held to
+the same evaluation on the CPU, given the same draws: steps and stop flags
+equal in all but at most one of 64 episodes (a position one float ulp
+apart can land in another cell), deviations of the others at the env
+tolerance, and one plume-sample launch per eval step plus one at the
+reset.
 """
 
 import dataclasses
@@ -34,6 +39,7 @@ import pytest
 import torch
 
 from tpu_plume_torch.core import PPOConfig, get_preset
+from tpu_plume_torch.evaluation import harnesses
 from tpu_plume_torch.fields.gridded import FieldBank
 from tpu_plume_torch.models import ActorCritic
 from tpu_plume_torch.ops import gather, plume
@@ -449,3 +455,28 @@ def test_analytic_wrappers_raise_on_bad_cuda_inputs(card):
                          traj, obs, cfg)
     with pytest.raises(ValueError, match="sources"):
         plume.EnvStepper(state, accum, draws, traj, obs, too_many)
+
+
+def test_eval_on_the_card_matches_the_cpu(card):
+    cfg = get_preset("ppo_v2_0")
+    n, length = 64, 200
+    model = ActorCritic(cfg.env.obs_dim, cfg.env.num_actions)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    draws = harnesses.draw_eval(torch.Generator().manual_seed(1), cfg.env,
+                                length, n)
+    gate = harnesses.make_heuristic_gate(cfg.eval, cfg.env.conc_peak)
+    kw = dict(num_episodes=n, max_steps=length, stop_gate=gate,
+              goal_radius=120.0)
+    want = harnesses.evaluate_policy(model, cfg.env, cfg.eval, draws=draws,
+                                     device="cpu", **kw)
+    before = plume.launches
+    got = harnesses.evaluate_policy(model, cfg.env, cfg.eval, draws=draws,
+                                    device=card, **kw)
+    assert plume.launches == before + length + 1
+    same = ((got.steps == want.steps)
+            & (got.stopped_early == want.stopped_early))
+    assert same.sum() >= n - 1, (got.steps, want.steps)
+    torch.testing.assert_close(torch.from_numpy(got.deviations[same]),
+                               torch.from_numpy(want.deviations[same]),
+                               rtol=1e-5, atol=1e-4)
+    assert (want.steps < length).any()

@@ -2,16 +2,22 @@
 
     python -m tpu_plume_torch.cli train --preset ppo_v2_0 --out runs/torch_v20
     python -m tpu_plume_torch.cli train --preset wrf_les_3d --synth-bank 3d
+    python -m tpu_plume_torch.cli eval --pth runs/torch_v20/model/ppo_successful_models.pth --stop heuristic --out runs/eval
+    python -m tpu_plume_torch.cli expert --ckpt runs/torch_v20/checkpoint.pt --episodes 100
 
 Runs on the card; ``--cpu`` runs on the CPU.  The flags are the JAX CLI's
-(``python -m tpu_plume.cli train``), with its types, defaults and override
+(``python -m tpu_plume.cli``), with its types, defaults and override
 rules, for the paths the port runs: the env's reward shaping
 (``--depth-coef``, ``--depth-power``, ``--terminal-gate``,
 ``--inplume-bonus``), the curriculum floor (``--min-radius``) and the trunk
 widths (``--hidden``) among them, so JAX's recipe ``--min-radius 50
---terminal-gate 40`` runs here too.  A flag of a path the port does not run
-yet is not accepted (``--bank file.nc`` among them: banks are synthesized
-from ``--bank-seed``).
+--terminal-gate 40`` runs here too.  ``--pth`` loads a policy in the
+reference ``.pth`` layout (the JAX package's ``export_actor_critic_pth``
+writes one from a JAX run) and ``--ckpt`` the port's own ``checkpoint.pt``;
+``train`` takes either as its initial params.  A flag of a path the port
+does not run yet is either not accepted (``train --bank file.nc``: banks
+are synthesized from ``--bank-seed``) or, for ``eval`` and ``expert``,
+refused before any work, naming the ``ROADMAP.md`` slice that ports it.
 """
 
 from __future__ import annotations
@@ -19,7 +25,9 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 
+from tpu_plume_torch.core import support
 from tpu_plume_torch.core.config import PRESETS, get_preset
 from tpu_plume_torch.core.device import resolve_device
 
@@ -114,11 +122,152 @@ def make_bank(args, cfg, device):
         steps_per_frame=args.bank_spf or 128.0)
 
 
+def load_policy(args, cfg, device):
+    """The policy network of ``cfg`` (its ``--hidden`` widths) on
+    ``device``, with the weights of ``--pth`` (a state_dict in the
+    reference ``.pth`` layout, e.g. ``model/ppo_successful_models.pth`` of
+    a run of either package) or ``--ckpt`` (the port's ``checkpoint.pt``,
+    or a run directory holding one)."""
+    import os
+
+    import torch
+
+    from tpu_plume_torch.train.ppo_trainer import make_policy_model
+
+    if args.pth:
+        state_dict = torch.load(args.pth, map_location="cpu",
+                                weights_only=True)
+    elif args.ckpt:
+        path = args.ckpt
+        if os.path.isdir(path):
+            path = os.path.join(path, "checkpoint.pt")
+        if not os.path.isfile(path):
+            raise SystemExit(
+                f"--ckpt {args.ckpt}: no checkpoint.pt there.  The port "
+                f"reads its own torch.save checkpoint, not an Orbax "
+                f"directory of the JAX package; export a JAX run's params "
+                f"with tpu_plume.data.torch_export.export_actor_critic_pth "
+                f"and pass that file as --pth")
+        state_dict = torch.load(path, map_location="cpu",
+                                weights_only=True)["model"]
+    else:
+        raise SystemExit("need --ckpt or --pth")
+    model = make_policy_model(cfg)
+    model.load_state_dict(state_dict)
+    return model.to(device)
+
+
+# eval / expert flags of later slices, left undeclared and refused before
+# any work: a flag's name (without "--", "no-" and "=value") matched
+# against each pattern, with the ROADMAP item that ports it.
+LATER_FLAGS = ((r"guide-.+", support.GUIDES),
+               (r"lstm-ckpt", support.STOP_LSTM),
+               (r"oracle", support.IMITATION),
+               (r"localize(-window)?", support.LOCALIZE),
+               (r"bank", support.NETCDF))
+
+
+def refuse_later_flags(extra):
+    """Raise ``SystemExit`` naming the ROADMAP slice of the first flag of
+    ``extra`` (what ``parse_known_args`` left) that a later slice ports."""
+    for token in extra:
+        if not token.startswith("--"):
+            continue
+        name = token[2:].split("=", 1)[0].removeprefix("no-")
+        for pattern, item in LATER_FLAGS:
+            if re.fullmatch(pattern, name):
+                raise SystemExit(support.unported_message(token.split("=")[0],
+                                                          item))
+
+
+def refuse_unported(args):
+    """Raise ``SystemExit`` naming the ROADMAP slice of a ported flag's
+    value whose path the port does not run yet."""
+    def refuse(flag, item):
+        raise SystemExit(support.unported_message(flag, item))
+
+    if args.arch == "lstm":
+        refuse("--arch lstm", support.RNN)
+    if getattr(args, "stop", None) in ("threshold", "peakstop"):
+        refuse(f"--stop {args.stop}", support.STOP_LSTM)
+    if getattr(args, "guide", "none") != "none":
+        refuse(f"--guide {args.guide}", support.GUIDES)
+
+
+def _eval_setup(args):
+    """(cfg, device, model, bank) of an ``eval`` or ``expert`` command,
+    after its refusals."""
+    refuse_unported(args)
+    cfg = apply_overrides(get_preset(args.preset), args)
+    device = resolve_device("cpu" if args.cpu else None)
+    model = load_policy(args, cfg, device)
+    return cfg, device, model, make_bank(args, cfg, device)
+
+
+def cmd_eval(args):
+    import os
+
+    import numpy as np
+    import torch
+
+    from tpu_plume_torch.evaluation import (
+        evaluate_policy,
+        make_heuristic_gate,
+        summarize,
+    )
+
+    cfg, device, model, bank = _eval_setup(args)
+    stop_gate = None
+    if args.stop == "heuristic":
+        stop_gate = make_heuristic_gate(cfg.eval, cfg.env.conc_peak)
+    n_eval = args.episodes or cfg.eval.episodes
+    m = evaluate_policy(
+        model, cfg.env, cfg.eval,
+        torch.Generator(device=device).manual_seed(args.seed or 0),
+        num_episodes=args.episodes, stop_gate=stop_gate,
+        greedy=not args.sample, goal_radius=args.goal_radius, bank=bank,
+        track_trajectories=n_eval if args.save_flights else 0,
+        device=device,
+    )
+    if args.save_flights:
+        os.makedirs(os.path.dirname(args.save_flights) or ".", exist_ok=True)
+        np.savez_compressed(args.save_flights, trajectories=m.trajectories,
+                            sources=m.sources)
+    summary = summarize(m)
+    if args.goal_radius is not None:
+        # precision protocol: the bullseye rate (deviation within the
+        # terminator itself) is the headline, not success@success_distance
+        summary["bullseye_rate"] = float(
+            (np.asarray(m.deviations) <= args.goal_radius).mean())
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        m.save_npz(os.path.join(args.out, "validation_metrics.npz"))
+        m.save_csv(os.path.join(args.out, "evaluation_results.csv"))
+    print(json.dumps(summary))
+
+
+def cmd_expert(args):
+    import torch
+
+    from tpu_plume_torch.evaluation import generate_expert_data
+
+    cfg, device, model, bank = _eval_setup(args)
+    states, _ = generate_expert_data(
+        model, cfg.env,
+        torch.Generator(device=device).manual_seed(args.seed or 0),
+        num_episodes=args.episodes or 100, path=args.out, bank=bank,
+        device=device)
+    print(json.dumps({"samples": int(states.shape[0]), "path": args.out}))
+
+
 def cmd_train(args):
     from tpu_plume_torch.train import train_ppo
 
     cfg = apply_overrides(get_preset(args.preset), args)
     device = resolve_device("cpu" if args.cpu else None)
+    init_params = None
+    if args.ckpt or args.pth:
+        init_params = load_policy(args, cfg, "cpu").state_dict()
     res = train_ppo(
         cfg,
         args.out,
@@ -127,6 +276,7 @@ def cmd_train(args):
         max_iterations=args.iterations,
         sync_every=args.sync_every,
         bank=make_bank(args, cfg, device),
+        init_params=init_params,
     )
     print(json.dumps({
         "episodes": res.episodes,
@@ -138,12 +288,11 @@ def cmd_train(args):
     }))
 
 
-def build_parser():
-    p = argparse.ArgumentParser(prog="tpu_plume_torch")
-    sub = p.add_subparsers(dest="cmd", required=True)
-    sp = sub.add_parser("train", help="PPO training")
+def _common(sp, out_default):
+    """The flags of every command: the preset and its overrides, the bank,
+    the run's size and seed, the device and the policy to load."""
     sp.add_argument("--preset", default="ppo_v2_0", choices=sorted(PRESETS))
-    sp.add_argument("--out", default="runs/train_torch")
+    sp.add_argument("--out", default=out_default)
     sp.add_argument("--envs", type=int)
     sp.add_argument("--unroll", type=int)
     sp.add_argument("--minibatch", type=int)
@@ -202,19 +351,70 @@ def build_parser():
     sp.add_argument("--f32-heads", action="store_true",
                     help="keep the actor/critic heads in f32 under --bf16 or "
                          "--bf16-update")
+    sp.add_argument("--cpu", action="store_true",
+                    help="run on the CPU instead of the card")
+    sp.add_argument("--ckpt",
+                    help="the port's checkpoint.pt (or a run directory "
+                         "holding one) to load the policy from")
+    sp.add_argument("--pth",
+                    help="a policy state_dict in the reference .pth layout "
+                         "(model/ppo_successful_models.pth of a run of "
+                         "either package)")
+
+
+def _arch(sp):
+    sp.add_argument("--arch", choices=["mlp", "lstm"],
+                    help="policy architecture (lstm: not ported yet)")
+
+
+def build_parser():
+    p = argparse.ArgumentParser(prog="tpu_plume_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+    sp = sub.add_parser("train", help="PPO training")
+    _common(sp, "runs/train_torch")
     sp.add_argument("--sync-every", type=int,
                     help="iterations per batched drain of episode records to "
                          "the CSV (default 8)")
-    sp.add_argument("--cpu", action="store_true",
-                    help="run on the CPU instead of the card")
     sp.add_argument("--no-csv", action="store_true",
                     help="skip the per-episode CSV")
     sp.set_defaults(fn=cmd_train)
+
+    sp = sub.add_parser("eval", help="greedy evaluation harness",
+                        allow_abbrev=False)
+    _common(sp, None)
+    _arch(sp)
+    sp.add_argument("--guide", choices=["none", "fit", "learned", "bank"],
+                    default="none",
+                    help="terminal guidance (only none is ported yet)")
+    sp.add_argument("--stop",
+                    choices=["none", "heuristic", "threshold", "peakstop"],
+                    default="none",
+                    help="stop gate (threshold and peakstop: not ported yet)")
+    sp.add_argument("--sample", action="store_true",
+                    help="sample actions instead of greedy argmax")
+    sp.add_argument("--goal-radius", type=float,
+                    help="episode-termination radius (default: "
+                         "INITIAL_RADIUS=50, the reference protocol; set 5.0 "
+                         "for the precision metric)")
+    sp.add_argument("--save-flights",
+                    help="write flights.npz (trajectories + true sources)")
+    sp.set_defaults(fn=cmd_eval)
+
+    sp = sub.add_parser("expert", help="generate expert demonstrations",
+                        allow_abbrev=False)
+    _common(sp, "expert_data.npz")
+    _arch(sp)
+    sp.set_defaults(fn=cmd_expert)
     return p
 
 
 def main(argv=None):
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args, extra = parser.parse_known_args(argv)
+    if extra:
+        if args.cmd != "train":
+            refuse_later_flags(extra)
+        parser.error("unrecognized arguments: " + " ".join(extra))
     args.fn(args)
 
 

@@ -9,17 +9,24 @@ from __future__ import annotations
 
 from tpu_plume_torch.core.config import EnvConfig, PPOConfig
 
-_RNN = "ROADMAP.md Queue 1, slice 7 (recurrent policy)"
-_GUIDES = "ROADMAP.md Queue 1, slice 9 (guides)"
-_IMITATION = "ROADMAP.md Queue 1, slice 10 (imitation, GAIL and distilled PPO)"
+NETCDF = "ROADMAP.md Queue 1, slice 4 (NetCDF I/O)"
+RNN = "ROADMAP.md Queue 1, slice 7 (recurrent policy)"
+STOP_LSTM = "ROADMAP.md Queue 1, slice 8 (stop-LSTM family)"
+GUIDES = "ROADMAP.md Queue 1, slice 9 (guides)"
+IMITATION = "ROADMAP.md Queue 1, slice 10 (imitation, GAIL and distilled PPO)"
+LOCALIZE = "ROADMAP.md Queue 1, slice 11 (flux and localization)"
 
 # The JAX package's bank gather formulations; the port samples one function
 # for all of them.
 GATHER_MODES = ("auto", "packed", "corner", "fused")
 
 
+def unported_message(what: str, item: str) -> str:
+    return f"{what} is not ported yet: {item}"
+
+
 def _unported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet: {item}")
+    raise NotImplementedError(unported_message(what, item))
 
 
 PLUME_MODELS = ("isotropic", "anisotropic", "gridded")
@@ -36,11 +43,21 @@ def check_env(cfg: EnvConfig) -> None:
 
 def check_ppo(cfg: PPOConfig) -> None:
     if cfg.arch != "mlp":
-        _unported(f"arch={cfg.arch!r}", _RNN)
+        _unported(f"arch={cfg.arch!r}", RNN)
     if cfg.distill_oracle is not None:
-        _unported("distill_oracle", _IMITATION)
+        _unported("distill_oracle", IMITATION)
 
 
 def check_guide(guide) -> None:
     if guide is not None:
-        _unported("a training guide", _GUIDES)
+        _unported("a training guide", GUIDES)
+
+
+def check_eval(rnn, guide, oracle) -> None:
+    """The evaluation's recurrent policy, guide and scripted oracle."""
+    if rnn is not None:
+        _unported("a recurrent policy (rnn=)", RNN)
+    if guide is not None:
+        _unported("an evaluation guide (guide=)", GUIDES)
+    if oracle is not None:
+        _unported("a scripted oracle (oracle=)", IMITATION)

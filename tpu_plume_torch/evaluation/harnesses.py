@@ -1,0 +1,366 @@
+"""Evaluation harnesses: greedy policy + stop gate over N parallel episodes
+(port of ``tpu_plume/evaluation/harnesses.py``).
+
+Reproduces the reference evaluators' statistical protocol:
+
+  - ``ModelEvaluator.run_evaluation`` (PPOV1.1/evaluate_model.py:43-90):
+    1000 greedy episodes, heuristic stop, deviation/success CSV;
+  - ``evaluate_with_lstm.main`` V2.0 (PPOV2.0/evaluate_with_lstm.py:39-135):
+    LSTM threshold stop, metrics npz {deviations, steps, success,
+    stopped_early};
+  - ``evaluate_with_lstm.main`` V2.1 (PPOV2.1/evaluate_with_lstm.py:29-118):
+    PeakAndStop gate (stop_prob > 0.8), success@50px, peak predictions.
+
+All episodes run at once as batched envs on the eval's device: each is
+reset once, then every step is one policy forward over all of them, the env
+step (``env.methane.step_noise``, whose field sample is one launch of the
+plume-sample kernel over the analytic plume or of the bank sample over a
+sub-cell bank) and the stop gate; finished episodes are frozen, with no
+auto-reset, for the whole ``min(env.max_steps, eval.max_eval_steps)``
+steps, as JAX's ``lax.scan`` runs them.  The randomness (reset uniforms and
+seeds, turbulence normals, Gumbel noise) is drawn up front in one
+``EvalDraws``; a caller may pass its own, which is how the tests feed both
+packages the same numbers.  A seed gives other episodes here than in the
+JAX package (Philox against threefry).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from tpu_plume_torch.core.config import EnvConfig, EvalConfig, StopConfig
+from tpu_plume_torch.core.device import resolve_device
+from tpu_plume_torch.core.support import check_env, check_eval
+from tpu_plume_torch.env.methane import reset_from_draws, select, step_noise
+from tpu_plume_torch.ops import plume
+from tpu_plume_torch.rollout.rollout import gumbel_noise, random_bits
+from tpu_plume_torch.stop import controllers as ctrl
+
+
+@dataclasses.dataclass
+class EvalMetrics:
+    """The reference validation_metrics.npz schema
+    (PPOV2.0/evaluate_with_lstm.py:63-68, 132).  The JAX package's guide
+    diagnostics come with the guides (ROADMAP.md Queue 1, slice 9)."""
+
+    deviations: np.ndarray
+    steps: np.ndarray
+    success: np.ndarray
+    stopped_early: np.ndarray
+    peak_pred: np.ndarray | None = None
+    final_conc: np.ndarray | None = None
+    trajectories: np.ndarray | None = None  # [K, T, 3] (x, y, conc), NaN-padded
+    sources: np.ndarray | None = None       # [N, 2] true source positions
+
+    def save_csv(self, path: str):
+        """The V1.1 evaluator's evaluation_results.csv schema
+        (PPOV1.1/evaluate_model.py:77-87)."""
+        import csv
+
+        with open(path, "w", newline="") as fh:
+            w = csv.writer(fh)
+            w.writerow(["episode", "steps", "deviation", "success",
+                        "final_conc"])
+            for i in range(len(self.deviations)):
+                w.writerow([
+                    i + 1,
+                    int(self.steps[i]),
+                    float(self.deviations[i]),
+                    bool(self.success[i]),
+                    float(self.final_conc[i])
+                    if self.final_conc is not None else "",
+                ])
+
+    def save_npz(self, path: str):
+        data = dict(
+            deviations=self.deviations,
+            steps=self.steps,
+            success=self.success,
+            stopped_early=self.stopped_early,
+        )
+        if self.peak_pred is not None:
+            data["peak_pred"] = self.peak_pred
+        np.savez(path, **data)
+
+
+# A stop gate bundles (one episode's init state, step_fn(state, conc, pos)
+# -> (state', stop)).  JAX's step_fn steps one episode and is vmapped; this
+# one steps the batch: state [N, ...], conc f32[N], pos f32[N, pos_dim] ->
+# (state', stop bool[N]).  See tpu_plume_torch.stop.controllers.
+StopGate = tuple[Any, Callable]
+
+
+def make_threshold_gate(predict_fn: Callable, stop_cfg: StopConfig) -> StopGate:
+    return (
+        ctrl.threshold_init(stop_cfg),
+        lambda s, conc, pos: ctrl.threshold_step(s, conc, predict_fn,
+                                                 stop_cfg),
+    )
+
+
+def make_peak_stop_gate(predict_fn: Callable, stop_cfg: StopConfig) -> StopGate:
+    return (
+        ctrl.peak_stop_init(stop_cfg),
+        lambda s, conc, pos: ctrl.peak_stop_step(s, conc, predict_fn,
+                                                 stop_cfg),
+    )
+
+
+def make_heuristic_gate(eval_cfg: EvalConfig, conc_peak: float) -> StopGate:
+    return (
+        ctrl.heuristic_stop_init(eval_cfg),
+        lambda s, conc, pos: ctrl.heuristic_stop_step(s, pos, conc, conc_peak,
+                                                      eval_cfg),
+    )
+
+
+@dataclass
+class EvalDraws:
+    """The randomness of an eval of N episodes over T steps."""
+
+    u_src: torch.Tensor             # f32[N, 2] reset source uniforms
+    u_wind: torch.Tensor | None     # f32[N, 2] reset wind uniforms, or None
+    bits: torch.Tensor              # i32[N] reset field seeds
+    turb_noise: torch.Tensor        # f32[T, N, pos_dim] displacement normals
+    gumbel: torch.Tensor | None     # f32[T, N, A] Gumbel noise; None = greedy
+
+    def to(self, device) -> "EvalDraws":
+        return EvalDraws(**{
+            f.name: None if getattr(self, f.name) is None
+            else getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)})
+
+
+def draw_eval(generator: torch.Generator, cfg: EnvConfig, length: int,
+              num_episodes: int, greedy: bool = True) -> EvalDraws:
+    """An eval's draws from ``generator``, on its device: the reset's
+    source uniforms, seeds and (for a field with a wind,
+    ``plume.reads_wind``) wind uniforms, then the turbulence normals and,
+    unless ``greedy``, the Gumbel noise."""
+    dev = generator.device
+    n = num_episodes
+    u_src = torch.rand(n, 2, device=dev, generator=generator)
+    bits = random_bits((n,), generator)
+    u_wind = (torch.rand(n, 2, device=dev, generator=generator)
+              if plume.reads_wind(cfg) else None)
+    turb = torch.randn(length, n, cfg.pos_dim, device=dev,
+                       generator=generator)
+    gumbel = (None if greedy else
+              gumbel_noise((length, n, cfg.num_actions), generator))
+    return EvalDraws(u_src=u_src, u_wind=u_wind, bits=bits, turb_noise=turb,
+                     gumbel=gumbel)
+
+
+def _check_draws(draws: EvalDraws, cfg: EnvConfig, length: int, n: int,
+                 greedy: bool) -> None:
+    want = {"u_src": (n, 2), "bits": (n,),
+            "turb_noise": (length, n, cfg.pos_dim)}
+    if plume.reads_wind(cfg):
+        want["u_wind"] = (n, 2)
+    if not greedy:
+        want["gumbel"] = (length, n, cfg.num_actions)
+    for name, shape in want.items():
+        x = getattr(draws, name)
+        if x is None or tuple(x.shape) != shape:
+            raise ValueError(f"EvalDraws.{name} must have shape {shape}, got "
+                             f"{None if x is None else tuple(x.shape)}")
+
+
+def _start(model, env_cfg, device, generator, draws, n, length, greedy,
+           goal_radius, bank):
+    """The eval's device (``device`` resolved as ``train_ppo`` resolves
+    it), the model, bank and draws moved there, and freshly reset
+    episodes.  A ``generator`` must lie on that device.  A bank there
+    already stays the same object, keeping its cached launch."""
+    dev = resolve_device(device)
+    model = model.to(dev)
+    if bank is not None and bank.conc.device.type != dev.type:
+        bank = bank.to(dev)
+    if draws is None:
+        if generator is None:
+            raise ValueError("pass a generator or the draws")
+        if torch.device(generator.device).type != dev.type:
+            raise ValueError(f"the generator is on {generator.device} but "
+                             f"the eval runs on {dev}")
+        draws = draw_eval(generator, env_cfg, length, n, greedy)
+    _check_draws(draws, env_cfg, length, n, greedy)
+    draws = draws.to(dev)
+    env_state, obs = reset_from_draws(draws.u_src, draws.u_wind, draws.bits,
+                                      env_cfg, radius=goal_radius, bank=bank)
+    return dev, model, bank, draws, env_state, obs
+
+
+@torch.no_grad()
+def evaluate_policy(
+    model: torch.nn.Module,
+    env_cfg: EnvConfig,
+    eval_cfg: EvalConfig,
+    generator: torch.Generator | None = None,
+    num_episodes: Optional[int] = None,
+    stop_gate: Optional[StopGate] = None,
+    max_steps: Optional[int] = None,
+    greedy: bool = True,
+    track_trajectories: int = 0,
+    goal_radius: float | None = None,
+    bank=None,
+    draws: EvalDraws | None = None,
+    device=None,
+    rnn=None,
+    guide=None,
+    oracle=None,
+) -> EvalMetrics:
+    """Run ``num_episodes`` parallel episodes of ``model`` (an
+    ``ActorCritic``) for ``max_steps`` steps (default
+    ``min(env_cfg.max_steps, eval_cfg.max_eval_steps)``); returns
+    per-episode metrics in the reference npz layout.
+
+    ``device`` defaults to ``cuda`` and raises without a card; pass
+    ``"cpu"`` to run on the CPU.  The model (in place), the bank and the
+    draws are moved there; ``generator``, on that device, draws the
+    randomness unless ``draws`` gives it.  ``greedy`` takes
+    argmax actions, else argmax(logits + Gumbel noise), JAX's categorical.
+
+    ``track_trajectories=K`` additionally records the (x, y, conc) history
+    of the first K episodes in ``metrics.trajectories`` [K, T, 3], NaN past
+    episode end.
+
+    ``goal_radius`` overrides the env's episode-termination radius (the
+    reference protocol uses the INITIAL_RADIUS=50 of a fresh env).
+
+    ``rnn``, ``guide`` and ``oracle`` are not ported yet and raise."""
+    check_env(env_cfg)
+    check_eval(rnn, guide, oracle)
+    n = num_episodes or eval_cfg.episodes
+    length = max_steps or min(env_cfg.max_steps, eval_cfg.max_eval_steps)
+    dev, model, bank, draws, env_state, obs = _start(
+        model, env_cfg, device, generator, draws, n, length, greedy,
+        goal_radius, bank)
+    if stop_gate is not None:
+        stop_init, stop_fn = stop_gate
+        stop_state = ctrl.broadcast(stop_init, n, dev)
+    else:
+        stop_state = None
+    finished = torch.zeros(n, dtype=torch.bool, device=dev)
+    steps = torch.zeros(n, dtype=torch.int32, device=dev)
+    stopped_early = torch.zeros(n, dtype=torch.bool, device=dev)
+    k = track_trajectories
+    tracked = (torch.empty(length, k, 3, dtype=torch.float32, device=dev)
+               if k else None)
+
+    for t in range(length):
+        logits, _ = model(obs)
+        if greedy:
+            action = torch.argmax(logits, dim=-1)
+        else:
+            action = torch.argmax(logits + draws.gumbel[t], dim=-1)
+        new_env, trans = step_noise(env_state, action, draws.turb_noise[t],
+                                    env_cfg, bank)
+        active = ~finished
+        done = trans.done
+        if stop_state is not None:
+            new_stop, stop_fired = stop_fn(stop_state, trans.info.conc_raw,
+                                           new_env.pos)
+            stop_state = select(active, new_stop, stop_state)
+            stopped_early = stopped_early | (active & stop_fired)
+            done = done | stop_fired
+        env_state = select(active, new_env, env_state)
+        obs = torch.where(active[:, None], trans.obs, obs)
+        steps = steps + active.to(torch.int32)
+        finished = finished | done
+        if k:
+            tracked[t] = torch.where(
+                active[:k, None],
+                torch.cat([env_state.pos[:k, :2], env_state.conc[:k, None]],
+                          dim=1),
+                float("nan"))
+
+    # planimetric deviation (3-D flight keeps the horizontal success gate)
+    d = env_state.pos[:, :2] - env_state.field.source
+    deviation = torch.sqrt((d * d).sum(-1)).cpu().numpy()
+    peak_pred = (stop_state.peak_pred.cpu().numpy()
+                 if isinstance(stop_state, ctrl.PeakStopState) else None)
+    return EvalMetrics(
+        deviations=deviation,
+        steps=steps.cpu().numpy(),
+        success=deviation <= eval_cfg.success_distance,
+        stopped_early=stopped_early.cpu().numpy(),
+        peak_pred=peak_pred,
+        final_conc=env_state.conc.cpu().numpy(),
+        trajectories=(None if tracked is None
+                      else np.swapaxes(tracked.cpu().numpy(), 0, 1)),
+        sources=env_state.field.source.cpu().numpy(),
+    )
+
+
+def summarize(m: EvalMetrics) -> dict:
+    """The reference's printed summary block
+    (PPOV2.0/evaluate_with_lstm.py:112-129)."""
+    succ_dev = m.deviations[m.success]
+    return {
+        "mean_deviation": float(m.deviations.mean()),
+        "std_deviation": float(m.deviations.std()),
+        "success_rate": float(m.success.mean()),
+        "success_mean_deviation": float(succ_dev.mean()) if succ_dev.size else 0.0,
+        "success_std_deviation": float(succ_dev.std()) if succ_dev.size else 0.0,
+        "early_stop_rate": float(m.stopped_early.mean()),
+        "mean_steps": float(m.steps.mean()),
+    }
+
+
+@torch.no_grad()
+def generate_expert_data(
+    model: torch.nn.Module,
+    env_cfg: EnvConfig,
+    generator: torch.Generator | None = None,
+    num_episodes: int = 100,
+    path: str | None = None,
+    bank=None,
+    draws: EvalDraws | None = None,
+    device=None,
+    rnn=None,
+    oracle=None,
+):
+    """Greedy-rollout (state, action) collection -- the reference
+    expert-data pipeline (PPOV1.1/generate_expert_data.py:14-61): the eval
+    loop with no gate, at the env's own radius, for ``env_cfg.max_steps``
+    steps, keeping each active episode's (obs, action) in step-major order.
+    Returns numpy ``(states f32[M, obs_dim], actions i64[M])`` and writes
+    them to ``path`` in the ``expert_data.npz`` contract when given.
+    ``device``, ``generator`` and ``draws`` are as in ``evaluate_policy``.
+
+    ``rnn`` and ``oracle`` are not ported yet and raise."""
+    check_env(env_cfg)
+    check_eval(rnn, None, oracle)
+    n, length = num_episodes, env_cfg.max_steps
+    dev, model, bank, draws, env_state, obs = _start(
+        model, env_cfg, device, generator, draws, n, length, True, None, bank)
+    finished = torch.zeros(n, dtype=torch.bool, device=dev)
+    states = torch.empty(length, n, env_cfg.obs_dim, dtype=torch.float32,
+                         device=dev)
+    actions = torch.empty(length, n, dtype=torch.int64, device=dev)
+    valid = torch.empty(length, n, dtype=torch.bool, device=dev)
+    for t in range(length):
+        logits, _ = model(obs)
+        action = torch.argmax(logits, dim=-1)
+        new_env, trans = step_noise(env_state, action, draws.turb_noise[t],
+                                    env_cfg, bank)
+        active = ~finished
+        states[t] = obs
+        actions[t] = action
+        valid[t] = active
+        env_state = select(active, new_env, env_state)
+        obs = torch.where(active[:, None], trans.obs, obs)
+        finished = finished | trans.done
+    mask = valid.reshape(-1)
+    states = states.reshape(-1, env_cfg.obs_dim)[mask].cpu().numpy()
+    actions = actions.reshape(-1)[mask].cpu().numpy()
+    if path is not None:
+        from tpu_plume_torch.data.expert import save_expert_data
+
+        save_expert_data(path, states, actions)
+    return states, actions

@@ -242,11 +242,16 @@ def build_train_step(cfg: TrainConfig, bank=None, time_phases: bool = False):
     return train_step
 
 
-def init_loop(cfg: TrainConfig, device, bank=None) -> LoopCarry:
+def init_loop(cfg: TrainConfig, device, bank=None,
+              init_params: dict | None = None) -> LoopCarry:
     """Fresh model, optimizer, envs and curriculum from ``cfg.seed``;
-    ``bank`` (gridded model) on ``device``."""
+    ``bank`` (gridded model) on ``device``.  ``init_params``, a state_dict
+    in the reference ``.pth`` layout, replaces the initial params (the
+    optimizer starts fresh)."""
     device = torch.device(device)
     model, optimizer = make_train_state(cfg, device, cfg.seed)
+    if init_params is not None:
+        model.load_state_dict(init_params)
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
     rollout = init_rollout(cfg.env, cfg.rollout.num_envs, generator,
                            radius=cfg.curriculum.initial_radius,
@@ -342,6 +347,7 @@ def train_ppo(
     sync_every: int | None = None,
     guide=None,
     bank=None,
+    init_params: dict | None = None,
 ) -> TrainResult:
     """Train until ``cfg.total_episodes`` episodes complete (or
     ``max_iterations`` iterations).  ``device`` defaults to ``cuda`` and
@@ -351,7 +357,10 @@ def train_ppo(
     toward ``cfg.total_episodes`` when the batch is drained, so training
     runs to the end of the window that reaches it, as JAX's does.  ``guide`` (a training
     guide) is not ported yet and raises.  ``bank`` is the ``FieldBank`` of
-    ``plume_model="gridded"``; it is moved to ``device``."""
+    ``plume_model="gridded"``; it is moved to ``device``.  ``init_params``
+    (a state_dict in the reference ``.pth`` layout, as ``--pth`` and
+    ``--ckpt`` load it) warm-starts the policy; the optimizer starts
+    fresh."""
     device = resolve_device(device)
     check_env(cfg.env)
     check_ppo(cfg.ppo)
@@ -359,7 +368,7 @@ def train_ppo(
     if bank is not None:
         bank = bank.to(device)
     os.makedirs(out_dir, exist_ok=True)
-    loop = init_loop(cfg, device, bank)
+    loop = init_loop(cfg, device, bank, init_params)
     train_step = build_train_step(cfg, bank)
     per_iter_steps = cfg.rollout.num_envs * cfg.rollout.unroll_length
     sync_every = max(8 if sync_every is None else sync_every, 1)
