@@ -90,7 +90,7 @@ def worker(tree: str, variants) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         roll = chip_smoke.profile_rollout(rollout_chunk, loop, cfg)
-        loop, busy, launches = chip_smoke.profile_iteration(step, loop)
+        loop, busy, launches, _ = chip_smoke.profile_iteration(step, loop)
         out[name] = dict(sps=iters * n * t / wall, whole_ms=wall / iters * 1e3,
                          busy=busy, launches=launches, rollout_profile=roll,
                          **phases)

@@ -30,7 +30,12 @@ the same evaluation on the CPU, given the same draws: steps and stop flags
 equal in all but at most one of 64 episodes (a position one float ulp
 apart can land in another cell), deviations of the others at the env
 tolerance, and one plume-sample launch per eval step plus one at the
-reset.
+reset.  The recurrent policy's rollout on the card is held to the same
+rollout on the CPU from the same start, carry and draws: one env-step
+launch a step, actions and dones equal in all but at most one env in 64
+(the carry takes the card's rounding from step to step), the others'
+values and carries at the env tolerance, and the carry zeroed where the
+last step ended an episode.
 """
 
 import dataclasses
@@ -41,7 +46,7 @@ import torch
 from tpu_plume_torch.core import PPOConfig, get_preset
 from tpu_plume_torch.evaluation import harnesses
 from tpu_plume_torch.fields.gridded import FieldBank
-from tpu_plume_torch.models import ActorCritic
+from tpu_plume_torch.models import ActorCritic, RecurrentActorCritic
 from tpu_plume_torch.ops import gather, plume
 from tpu_plume_torch.ops import ppo as fused_ops
 from tpu_plume_torch.rl.ppo import PPOBatch
@@ -480,3 +485,55 @@ def test_eval_on_the_card_matches_the_cpu(card):
                                torch.from_numpy(want.deviations[same]),
                                rtol=1e-5, atol=1e-4)
     assert (want.steps < length).any()
+
+
+def _moved(obj, device):
+    """Tensors of (nested) dataclasses and tuples moved to ``device``."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if isinstance(obj, tuple):
+        return tuple(_moved(x, device) for x in obj)
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: _moved(getattr(obj, f.name), device)
+            for f in dataclasses.fields(obj)
+            if isinstance(getattr(obj, f.name), (torch.Tensor, tuple))
+            or dataclasses.is_dataclass(getattr(obj, f.name))})
+    return obj
+
+
+@pytest.mark.parametrize("layer_norm_cell", [False, True], ids=["plain", "ln"])
+def test_recurrent_rollout_on_the_card_matches_the_cpu(card, layer_norm_cell):
+    cfg = dataclasses.replace(_env_cfg("v1_1"), max_steps=6)
+    n, length, hidden = 256, 16, 32
+    g = torch.Generator().manual_seed(0)
+    model = RecurrentActorCritic(cfg.obs_dim, cfg.num_actions, hidden, hidden,
+                                 layer_norm_cell=layer_norm_cell)
+    model.reset_parameters(g)
+    carry = rollout.init_rollout(
+        cfg, n, g, radius=200.0, hidden=tuple(
+            0.5 * torch.randn(n, hidden, generator=g) for _ in range(2)))
+    draws = rollout.draw_chunk(g, cfg, length, n)
+    want_carry, want, want_boot = rollout.rollout_chunk(model, carry, cfg,
+                                                        length, draws=draws)
+    before = (plume.launches, plume.env_step_launches)
+    got_carry, got, got_boot = rollout.rollout_chunk(
+        model.to(card), _moved(carry, card), cfg, length,
+        draws=_moved(draws, card))
+    torch.cuda.synchronize()
+    assert (plume.launches, plume.env_step_launches) == (before[0],
+                                                         before[1] + length)
+    got, got_carry = _moved(got, "cpu"), _moved(got_carry, "cpu")
+    off = (got.action != want.action) | (got.done != want.done)
+    agree = ~off.any(0)
+    assert int((~agree).sum()) <= n // 64, off.nonzero()
+    assert want.done[:, agree].any()
+    for a, b in ((got.value, want.value), (got.log_prob, want.log_prob),
+                 (got.reward, want.reward)):
+        torch.testing.assert_close(a[:, agree], b[:, agree], rtol=1e-5,
+                                   atol=1e-4)
+    torch.testing.assert_close(got_boot.cpu()[agree], want_boot[agree],
+                               rtol=1e-5, atol=1e-4)
+    for a, b in zip(got_carry.hidden, want_carry.hidden):
+        torch.testing.assert_close(a[agree], b[agree], rtol=1e-5, atol=1e-4)
+        assert not a[got.done[-1]].any()

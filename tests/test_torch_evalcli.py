@@ -269,7 +269,6 @@ REFUSED = {   # flags: ROADMAP.md Queue 1 slice
     "localize": (["--localize", "dir"], 11),
     "localize_window": (["--localize-window", "32"], 11),
     "netcdf_bank": (["--bank", "field.nc"], 4),
-    "lstm_arch": (["--arch", "lstm"], 7),
     "expert_oracle": (["--oracle", "naive"], 10),
     "expert_bank": (["--bank", "field.nc"], 4),
 }

@@ -230,7 +230,7 @@ def test_cli_train_on_cpu(tmp_path, capsys):
 
 
 def test_cli_refuses_flags_of_later_slices():
-    for flag in (["--train-guide", "fit"], ["--arch", "lstm"], ["--netcdf"]):
+    for flag in (["--train-guide", "fit"], ["--netcdf"]):
         with pytest.raises(SystemExit):
             cli_main(["train", "--cpu", *flag])
 
@@ -247,7 +247,6 @@ def test_entry_points_raise_without_a_card(tmp_path, monkeypatch):
 
 
 UNPORTED = {   # name: (config part, fields, ROADMAP Queue 1 slice)
-    "lstm": ("ppo", {"arch": "lstm"}, 7),
     "distill_oracle": ("ppo", {"distill_oracle": "naive"}, 10),
 }
 

@@ -4,6 +4,8 @@
     python -m tpu_plume_torch.cli train --preset wrf_les_3d --synth-bank 3d
     python -m tpu_plume_torch.cli eval --pth runs/torch_v20/model/ppo_successful_models.pth --stop heuristic --out runs/eval
     python -m tpu_plume_torch.cli expert --ckpt runs/torch_v20/checkpoint.pt --episodes 100
+    python -m tpu_plume_torch.cli train --arch lstm --ln-lstm --out runs/torch_lstm
+    python -m tpu_plume_torch.cli eval --arch lstm --ln-lstm --ckpt runs/torch_lstm --stop heuristic
 
 Runs on the card; ``--cpu`` runs on the CPU.  The flags are the JAX CLI's
 (``python -m tpu_plume.cli``), with its types, defaults and override
@@ -14,10 +16,13 @@ widths (``--hidden``) among them, so JAX's recipe ``--min-radius 50
 --terminal-gate 40`` runs here too.  ``--pth`` loads a policy in the
 reference ``.pth`` layout (the JAX package's ``export_actor_critic_pth``
 writes one from a JAX run) and ``--ckpt`` the port's own ``checkpoint.pt``;
-``train`` takes either as its initial params.  A flag of a path the port
-does not run yet is either not accepted (``train --bank file.nc``: banks
-are synthesized from ``--bank-seed``) or, for ``eval`` and ``expert``,
-refused before any work, naming the ``ROADMAP.md`` slice that ports it.
+``train`` takes either as its initial params.  ``--arch lstm`` (with
+``--ln-lstm``, the LayerNorm cell) selects the recurrent policy, whose
+weights load from ``--ckpt`` only: the ``.pth`` layout is the 2-layer MLP.
+A flag of a path the port does not run yet is either not accepted (``train
+--bank file.nc``: banks are synthesized from ``--bank-seed``) or, for
+``eval`` and ``expert``, refused before any work, naming the
+``ROADMAP.md`` slice that ports it.
 """
 
 from __future__ import annotations
@@ -75,6 +80,10 @@ def apply_overrides(cfg, args):
     if args.hidden:
         ppo = dataclasses.replace(
             ppo, hidden_sizes=tuple(int(h) for h in args.hidden.split(",")))
+    if args.arch:
+        ppo = dataclasses.replace(ppo, arch=args.arch)
+    if args.ln_lstm:
+        ppo = dataclasses.replace(ppo, lstm_layer_norm=True)
     cfg = cfg.replace(env=env, curriculum=curriculum, rollout=rollout,
                       ppo=ppo)
     if args.episodes:
@@ -123,17 +132,23 @@ def make_bank(args, cfg, device):
 
 
 def load_policy(args, cfg, device):
-    """The policy network of ``cfg`` (its ``--hidden`` widths) on
-    ``device``, with the weights of ``--pth`` (a state_dict in the
-    reference ``.pth`` layout, e.g. ``model/ppo_successful_models.pth`` of
-    a run of either package) or ``--ckpt`` (the port's ``checkpoint.pt``,
-    or a run directory holding one)."""
+    """The policy network of ``cfg`` (its ``--arch``, ``--ln-lstm`` and
+    ``--hidden``) on ``device``, with the weights of ``--pth`` (a state_dict
+    in the reference ``.pth`` layout, e.g. ``model/ppo_successful_models.pth``
+    of a run of either package; the MLP only) or ``--ckpt`` (the port's
+    ``checkpoint.pt``, or a run directory holding one, whose recorded
+    architecture must be ``cfg``'s)."""
     import os
 
     import torch
 
     from tpu_plume_torch.train.ppo_trainer import make_policy_model
 
+    if args.pth and cfg.ppo.arch != "mlp":
+        raise SystemExit(
+            f"--pth with --arch {cfg.ppo.arch}: the reference .pth layout "
+            f"is the 2-layer MLP policy; load a recurrent policy from the "
+            f"port's checkpoint.pt with --ckpt")
     if args.pth:
         state_dict = torch.load(args.pth, map_location="cpu",
                                 weights_only=True)
@@ -148,8 +163,17 @@ def load_policy(args, cfg, device):
                 f"directory of the JAX package; export a JAX run's params "
                 f"with tpu_plume.data.torch_export.export_actor_critic_pth "
                 f"and pass that file as --pth")
-        state_dict = torch.load(path, map_location="cpu",
-                                weights_only=True)["model"]
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        saved = ckpt.get("config", {}).get("ppo", {})
+        fields = ("arch", "lstm_layer_norm") if cfg.ppo.arch == "lstm" else (
+            "arch",)
+        want = {f: getattr(cfg.ppo, f) for f in fields}
+        got = {f: saved.get(f, want[f]) for f in fields}
+        if got != want:
+            raise SystemExit(
+                f"--ckpt {args.ckpt} holds a policy of {got}, not {want}: "
+                f"give the --arch and --ln-lstm it was trained with")
+        state_dict = ckpt["model"]
     else:
         raise SystemExit("need --ckpt or --pth")
     model = make_policy_model(cfg)
@@ -186,8 +210,6 @@ def refuse_unported(args):
     def refuse(flag, item):
         raise SystemExit(support.unported_message(flag, item))
 
-    if args.arch == "lstm":
-        refuse("--arch lstm", support.RNN)
     if getattr(args, "stop", None) in ("threshold", "peakstop"):
         refuse(f"--stop {args.stop}", support.STOP_LSTM)
     if getattr(args, "guide", "none") != "none":
@@ -217,6 +239,7 @@ def cmd_eval(args):
     )
 
     cfg, device, model, bank = _eval_setup(args)
+    rnn = model if cfg.ppo.arch == "lstm" else None
     stop_gate = None
     if args.stop == "heuristic":
         stop_gate = make_heuristic_gate(cfg.eval, cfg.env.conc_peak)
@@ -227,7 +250,7 @@ def cmd_eval(args):
         num_episodes=args.episodes, stop_gate=stop_gate,
         greedy=not args.sample, goal_radius=args.goal_radius, bank=bank,
         track_trajectories=n_eval if args.save_flights else 0,
-        device=device,
+        device=device, rnn=rnn,
     )
     if args.save_flights:
         os.makedirs(os.path.dirname(args.save_flights) or ".", exist_ok=True)
@@ -256,7 +279,7 @@ def cmd_expert(args):
         model, cfg.env,
         torch.Generator(device=device).manual_seed(args.seed or 0),
         num_episodes=args.episodes or 100, path=args.out, bank=bank,
-        device=device)
+        device=device, rnn=model if cfg.ppo.arch == "lstm" else None)
     print(json.dumps({"samples": int(states.shape[0]), "path": args.out}))
 
 
@@ -360,11 +383,11 @@ def _common(sp, out_default):
                     help="a policy state_dict in the reference .pth layout "
                          "(model/ppo_successful_models.pth of a run of "
                          "either package)")
-
-
-def _arch(sp):
     sp.add_argument("--arch", choices=["mlp", "lstm"],
-                    help="policy architecture (lstm: not ported yet)")
+                    help="policy architecture: mlp (reference parity) or "
+                         "lstm (the recurrent PPO+LSTM policy)")
+    sp.add_argument("--ln-lstm", action="store_true",
+                    help="LayerNorm-LSTM cell for --arch lstm")
 
 
 def build_parser():
@@ -382,7 +405,6 @@ def build_parser():
     sp = sub.add_parser("eval", help="greedy evaluation harness",
                         allow_abbrev=False)
     _common(sp, None)
-    _arch(sp)
     sp.add_argument("--guide", choices=["none", "fit", "learned", "bank"],
                     default="none",
                     help="terminal guidance (only none is ported yet)")
@@ -403,7 +425,6 @@ def build_parser():
     sp = sub.add_parser("expert", help="generate expert demonstrations",
                         allow_abbrev=False)
     _common(sp, "expert_data.npz")
-    _arch(sp)
     sp.set_defaults(fn=cmd_expert)
     return p
 

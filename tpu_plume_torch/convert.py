@@ -1,5 +1,6 @@
-"""Parameters between the flax ``ActorCritic`` layout and the port's module,
-and field banks from the JAX package's arrays into the port.
+"""Parameters between the flax ``ActorCritic`` / ``RecurrentActorCritic``
+layouts and the port's modules, and field banks from the JAX package's
+arrays into the port.
 
 Works on plain numpy arrays, so neither side needs the other's framework:
 flax ``{"params": {"Dense_0": {"kernel", "bias"}, "LayerNorm_0": {"scale",
@@ -59,6 +60,81 @@ def actor_critic_to_flax(state_dict: dict) -> dict:
             p[flax_name] = {"scale": w.copy(), "bias": b}
         else:
             p[flax_name] = {"kernel": np.ascontiguousarray(w.T), "bias": b}
+    return {"params": p}
+
+
+def _arr(t) -> np.ndarray:
+    if isinstance(t, torch.Tensor):
+        t = t.detach().cpu().numpy()
+    return np.array(t, np.float32, order="C")
+
+
+def _tensor(a) -> torch.Tensor:
+    return torch.from_numpy(_arr(a))
+
+
+_GATES = ("i", "f", "g", "o")
+# (torch prefix, flax module, is_layernorm) of the recurrent model's layers
+# outside the cell.
+_RECURRENT_OUTER = (("encoder", "encoder", False),
+                    ("encoder_norm", "encoder_norm", True),
+                    ("actor", "actor", False), ("critic", "critic", False))
+
+
+def recurrent_actor_critic_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """flax ``RecurrentActorCritic`` param tree (numpy leaves) -> a
+    state_dict for the port's ``RecurrentActorCritic``, either cell.  The
+    plain cell's per-gate kernels stack in the order (i, f, g, o), the flax
+    biases of the hidden side into ``cell.hh.bias``, as
+    ``tpu_plume/data/torch_export.py`` maps them."""
+    p = params["params"] if "params" in params else params
+    sd = {}
+    for torch_name, flax_name, is_ln in _RECURRENT_OUTER:
+        mod = p[flax_name]
+        w = _arr(mod["scale"] if is_ln else mod["kernel"])
+        sd[f"{torch_name}.weight"] = _tensor(w if is_ln else w.T)
+        sd[f"{torch_name}.bias"] = _tensor(mod["bias"])
+    cell = p["cell"]
+    if "ln_gates" in cell:
+        sd["cell.ih.weight"] = _tensor(_arr(cell["ih"]["kernel"]).T)
+        sd["cell.hh.weight"] = _tensor(_arr(cell["hh"]["kernel"]).T)
+        for name in ("ln_gates", "ln_cell"):
+            sd[f"cell.{name}.weight"] = _tensor(cell[name]["scale"])
+            sd[f"cell.{name}.bias"] = _tensor(cell[name]["bias"])
+    else:
+        for side in ("i", "h"):
+            sd[f"cell.{side}h.weight"] = _tensor(np.concatenate(
+                [_arr(cell[f"{side}{g}"]["kernel"]).T for g in _GATES]))
+        sd["cell.hh.bias"] = _tensor(np.concatenate(
+            [_arr(cell[f"h{g}"]["bias"]) for g in _GATES]))
+    return sd
+
+
+def recurrent_actor_critic_to_flax(state_dict: dict) -> dict:
+    """The port's ``RecurrentActorCritic`` state_dict -> flax param tree
+    with numpy leaves (the inverse of ``recurrent_actor_critic_from_flax``)."""
+    sd = {k: _arr(v) for k, v in state_dict.items()}
+    p = {}
+    for torch_name, flax_name, is_ln in _RECURRENT_OUTER:
+        w, b = sd[f"{torch_name}.weight"], sd[f"{torch_name}.bias"]
+        p[flax_name] = ({"scale": w, "bias": b} if is_ln else
+                        {"kernel": np.ascontiguousarray(w.T), "bias": b})
+    if "cell.ln_gates.weight" in sd:
+        cell = {name: {"kernel": np.ascontiguousarray(
+            sd[f"cell.{name}.weight"].T)} for name in ("ih", "hh")}
+        for name in ("ln_gates", "ln_cell"):
+            cell[name] = {"scale": sd[f"cell.{name}.weight"],
+                          "bias": sd[f"cell.{name}.bias"]}
+    else:
+        cell = {}
+        w_i = np.split(sd["cell.ih.weight"], len(_GATES))
+        w_h = np.split(sd["cell.hh.weight"], len(_GATES))
+        b_h = np.split(sd["cell.hh.bias"], len(_GATES))
+        for g, wi, wh, bh in zip(_GATES, w_i, w_h, b_h):
+            cell[f"i{g}"] = {"kernel": np.ascontiguousarray(wi.T)}
+            cell[f"h{g}"] = {"kernel": np.ascontiguousarray(wh.T),
+                             "bias": bh.copy()}
+    p["cell"] = cell
     return {"params": p}
 
 

@@ -10,7 +10,6 @@ from __future__ import annotations
 from tpu_plume_torch.core.config import EnvConfig, PPOConfig
 
 NETCDF = "ROADMAP.md Queue 1, slice 4 (NetCDF I/O)"
-RNN = "ROADMAP.md Queue 1, slice 7 (recurrent policy)"
 STOP_LSTM = "ROADMAP.md Queue 1, slice 8 (stop-LSTM family)"
 GUIDES = "ROADMAP.md Queue 1, slice 9 (guides)"
 IMITATION = "ROADMAP.md Queue 1, slice 10 (imitation, GAIL and distilled PPO)"
@@ -30,6 +29,7 @@ def _unported(what: str, item: str):
 
 
 PLUME_MODELS = ("isotropic", "anisotropic", "gridded")
+ARCHS = ("mlp", "lstm")
 
 
 def check_env(cfg: EnvConfig) -> None:
@@ -42,8 +42,8 @@ def check_env(cfg: EnvConfig) -> None:
 
 
 def check_ppo(cfg: PPOConfig) -> None:
-    if cfg.arch != "mlp":
-        _unported(f"arch={cfg.arch!r}", RNN)
+    if cfg.arch not in ARCHS:
+        raise ValueError(f"arch must be one of {ARCHS}, got {cfg.arch!r}")
     if cfg.distill_oracle is not None:
         _unported("distill_oracle", IMITATION)
 
@@ -53,10 +53,8 @@ def check_guide(guide) -> None:
         _unported("a training guide", GUIDES)
 
 
-def check_eval(rnn, guide, oracle) -> None:
-    """The evaluation's recurrent policy, guide and scripted oracle."""
-    if rnn is not None:
-        _unported("a recurrent policy (rnn=)", RNN)
+def check_eval(guide, oracle) -> None:
+    """The evaluation's guide and scripted oracle."""
     if guide is not None:
         _unported("an evaluation guide (guide=)", GUIDES)
     if oracle is not None:

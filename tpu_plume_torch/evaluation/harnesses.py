@@ -17,7 +17,10 @@ step (``env.methane.step_noise``, whose field sample is one launch of the
 plume-sample kernel over the analytic plume or of the bank sample over a
 sub-cell bank) and the stop gate; finished episodes are frozen, with no
 auto-reset, for the whole ``min(env.max_steps, eval.max_eval_steps)``
-steps, as JAX's ``lax.scan`` runs them.  The randomness (reset uniforms and
+steps, as JAX's ``lax.scan`` runs them.  With ``rnn=``, the recurrent
+policy, the policy forward is its ``step`` from a carry that starts at zeros
+(frozen with the episode in the eval, advanced every step in the expert
+data, as in JAX).  The randomness (reset uniforms and
 seeds, turbulence normals, Gumbel noise) is drawn up front in one
 ``EvalDraws``; a caller may pass its own, which is how the tests feed both
 packages the same numbers.  A seed gives other episodes here than in the
@@ -232,14 +235,19 @@ def evaluate_policy(
     ``goal_radius`` overrides the env's episode-termination radius (the
     reference protocol uses the INITIAL_RADIUS=50 of a fresh env).
 
-    ``rnn``, ``guide`` and ``oracle`` are not ported yet and raise."""
+    ``rnn`` (a ``RecurrentActorCritic``) is the policy in place of
+    ``model``, as in JAX, where ``model`` is then not read (the CLI passes
+    the same module as both): each step is ``rnn.step`` from a carry that
+    starts at zeros and is frozen, like the env state, once the episode has
+    ended.  ``guide`` and ``oracle`` are not ported yet and raise."""
     check_env(env_cfg)
-    check_eval(rnn, guide, oracle)
+    check_eval(guide, oracle)
     n = num_episodes or eval_cfg.episodes
     length = max_steps or min(env_cfg.max_steps, eval_cfg.max_eval_steps)
     dev, model, bank, draws, env_state, obs = _start(
-        model, env_cfg, device, generator, draws, n, length, greedy,
-        goal_radius, bank)
+        model if rnn is None else rnn, env_cfg, device, generator, draws, n,
+        length, greedy, goal_radius, bank)
+    hidden = None if rnn is None else model.initial_state(n, dev)
     if stop_gate is not None:
         stop_init, stop_fn = stop_gate
         stop_state = ctrl.broadcast(stop_init, n, dev)
@@ -253,7 +261,10 @@ def evaluate_policy(
                if k else None)
 
     for t in range(length):
-        logits, _ = model(obs)
+        if hidden is None:
+            logits, _ = model(obs)
+        else:
+            new_hidden, logits, _ = model.step(hidden, obs)
         if greedy:
             action = torch.argmax(logits, dim=-1)
         else:
@@ -270,6 +281,9 @@ def evaluate_policy(
             done = done | stop_fired
         env_state = select(active, new_env, env_state)
         obs = torch.where(active[:, None], trans.obs, obs)
+        if hidden is not None:
+            hidden = tuple(torch.where(active[:, None], new, old)
+                           for new, old in zip(new_hidden, hidden))
         steps = steps + active.to(torch.int32)
         finished = finished | done
         if k:
@@ -333,19 +347,26 @@ def generate_expert_data(
     them to ``path`` in the ``expert_data.npz`` contract when given.
     ``device``, ``generator`` and ``draws`` are as in ``evaluate_policy``.
 
-    ``rnn`` and ``oracle`` are not ported yet and raise."""
+    ``rnn`` is the recurrent policy, as in ``evaluate_policy``, but its
+    carry advances at every step, also after the episode has ended, as in
+    JAX.  ``oracle`` is not ported yet and raises."""
     check_env(env_cfg)
-    check_eval(rnn, None, oracle)
+    check_eval(None, oracle)
     n, length = num_episodes, env_cfg.max_steps
     dev, model, bank, draws, env_state, obs = _start(
-        model, env_cfg, device, generator, draws, n, length, True, None, bank)
+        model if rnn is None else rnn, env_cfg, device, generator, draws, n,
+        length, True, None, bank)
+    hidden = None if rnn is None else model.initial_state(n, dev)
     finished = torch.zeros(n, dtype=torch.bool, device=dev)
     states = torch.empty(length, n, env_cfg.obs_dim, dtype=torch.float32,
                          device=dev)
     actions = torch.empty(length, n, dtype=torch.int64, device=dev)
     valid = torch.empty(length, n, dtype=torch.bool, device=dev)
     for t in range(length):
-        logits, _ = model(obs)
+        if hidden is None:
+            logits, _ = model(obs)
+        else:
+            hidden, logits, _ = model.step(hidden, obs)
         action = torch.argmax(logits, dim=-1)
         new_env, trans = step_noise(env_state, action, draws.turb_noise[t],
                                     env_cfg, bank)

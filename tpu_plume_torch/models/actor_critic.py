@@ -35,7 +35,8 @@ LAYER_NORM_EPS = 1e-6
 def _dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype):
     if dtype == torch.float32:
         return lin(x)
-    return F.linear(x.to(dtype), lin.weight.to(dtype)) + lin.bias.to(dtype)
+    y = F.linear(x.to(dtype), lin.weight.to(dtype))
+    return y if lin.bias is None else y + lin.bias.to(dtype)
 
 
 def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype):

@@ -15,6 +15,11 @@ takes every minibatch when the batch has no per-sample weights, the model
 is the standard feedforward ActorCritic and the minibatch has a row tile
 (the JAX gate, ``tpu_plume/rl/ppo.py:294-302``).  A batch on the card then
 goes to the CUDA kernel, one on the CPU to the kernel's plain version.
+
+``ppo_update_recurrent`` is the recurrent policy's update: the same losses
+over [T, n] sequence minibatches, cut from the env axis after one env
+permutation per epoch, with the policy's carry replayed from the chunk-start
+``h_init`` (BPTT).
 """
 
 from __future__ import annotations
@@ -51,6 +56,32 @@ class PPOBatch:
                            for f in dataclasses.fields(self)})
 
 
+@dataclass
+class RecurrentPPOBatch:
+    """Sequence-major rollout data of the recurrent policy: the time axis
+    stays, so that the update replays the policy's carry over each chunk
+    from the chunk-start ``h_init``, zeroed where ``resets`` is set."""
+
+    obs: torch.Tensor            # f32[T, N, obs_dim]
+    actions: torch.Tensor        # i64[T, N]
+    old_log_probs: torch.Tensor  # f32[T, N]
+    advantages: torch.Tensor     # f32[T, N] (normalized)
+    returns: torch.Tensor        # f32[T, N]
+    old_values: torch.Tensor     # f32[T, N]
+    resets: torch.Tensor         # bool[T, N]: zero the carry before step t
+    h_init: tuple                # (c, h), each f32[N, H], at chunk start
+
+    def envs(self, index) -> "RecurrentPPOBatch":
+        """The sequences of the envs ``index`` (a slice or an index
+        tensor).  The split goes by field, not by shape: ``h_init`` is
+        env-major and the others time-major, and a shape test would take
+        one for the other where T == N == H."""
+        return RecurrentPPOBatch(
+            h_init=tuple(x[index] for x in self.h_init),
+            **{f.name: getattr(self, f.name)[:, index]
+               for f in dataclasses.fields(self) if f.name != "h_init"})
+
+
 def normalize_advantages(advantages: torch.Tensor, cfg: PPOConfig):
     """Global advantage normalization with the reference's degenerate-std
     guard; the population std, as ``jnp.std`` computes it."""
@@ -63,8 +94,18 @@ def normalize_advantages(advantages: torch.Tensor, cfg: PPOConfig):
 def ppo_loss(model: torch.nn.Module, batch: PPOBatch, cfg: PPOConfig):
     """(total loss, metrics dict of 0-d tensors) for one minibatch."""
     logits, values = model(batch.obs)
+    return _clipped_loss(logits, values, batch, cfg, batch.weights)
+
+
+def _clipped_loss(logits: torch.Tensor, values: torch.Tensor, batch,
+                  cfg: PPOConfig, weights: torch.Tensor | None = None):
+    """The clipped surrogate, the clipped value loss and the entropy bonus
+    of the policy's ``logits`` [..., A] and ``values`` [...] against
+    ``batch``'s fields of the same leading shape, averaged over all of it
+    (``weights`` masks the surrogate and the entropy)."""
     log_probs_all = torch.log_softmax(logits, dim=-1)
-    new_log_probs = log_probs_all.gather(-1, batch.actions[:, None]).squeeze(-1)
+    new_log_probs = log_probs_all.gather(
+        -1, batch.actions[..., None]).squeeze(-1)
 
     # Clipped policy surrogate.
     ratio = torch.exp(new_log_probs - batch.old_log_probs)
@@ -72,9 +113,9 @@ def ppo_loss(model: torch.nn.Module, batch: PPOBatch, cfg: PPOConfig):
     surr2 = torch.clamp(ratio, 1.0 - cfg.clip_epsilon,
                         1.0 + cfg.clip_epsilon) * batch.advantages
     surr = torch.minimum(surr1, surr2)
-    if batch.weights is not None:
-        wsum = torch.clamp(batch.weights.sum(), min=1.0)
-        policy_loss = -(surr * batch.weights).sum() / wsum
+    if weights is not None:
+        wsum = torch.clamp(weights.sum(), min=1.0)
+        policy_loss = -(surr * weights).sum() / wsum
     else:
         policy_loss = -surr.mean()
 
@@ -88,9 +129,9 @@ def ppo_loss(model: torch.nn.Module, batch: PPOBatch, cfg: PPOConfig):
 
     # Entropy bonus.
     ent = -(torch.exp(log_probs_all) * log_probs_all).sum(-1)
-    if batch.weights is not None:
-        entropy = (ent * batch.weights).sum() / torch.clamp(
-            batch.weights.sum(), min=1.0)
+    if weights is not None:
+        entropy = (ent * weights).sum() / torch.clamp(
+            weights.sum(), min=1.0)
     else:
         entropy = ent.mean()
 
@@ -106,6 +147,22 @@ def ppo_loss(model: torch.nn.Module, batch: PPOBatch, cfg: PPOConfig):
             .to(torch.float32).mean(),
         }
     return total, metrics
+
+
+def ppo_loss_recurrent(model: torch.nn.Module, batch: RecurrentPPOBatch,
+                       cfg: PPOConfig):
+    """``ppo_loss`` over a [T, n] sequence minibatch: the policy's
+    ``sequence`` replay from ``batch.h_init`` with ``batch.resets``."""
+    _, logits, values = model.sequence(batch.h_init, batch.obs, batch.resets)
+    return _clipped_loss(logits, values, batch, cfg)
+
+
+def draw_env_permutations(num_envs: int, cfg: PPOConfig,
+                          generator: torch.Generator) -> list:
+    """One env permutation i64[N] per epoch, the recurrent update's
+    shuffles."""
+    return [torch.randperm(num_envs, device=generator.device,
+                           generator=generator) for _ in range(cfg.epochs)]
 
 
 def draw_shuffles(batch_size: int, cfg: PPOConfig,
@@ -179,6 +236,51 @@ def ppo_update(model: torch.nn.Module, optimizer, batch: PPOBatch,
                     loss, metrics = ppo_loss(model, part, cfg)
                 optimizer.zero_grad(set_to_none=True)
                 loss.backward()
+            optimizer.step()
+            for k, v in metrics.items():
+                sums[k] = sums[k] + v if k in sums else v
+    count = cfg.epochs * num_minibatches
+    return {k: v / count for k, v in sums.items()}
+
+
+def ppo_update_recurrent(model: torch.nn.Module, optimizer,
+                         batch: RecurrentPPOBatch, cfg: PPOConfig,
+                         generator: torch.Generator | None = None,
+                         shuffles: Sequence | None = None
+                         ) -> dict[str, torch.Tensor]:
+    """The recurrent policy's update (``tpu_plume/rl/ppo.py``
+    ``ppo_update_recurrent``): ``cfg.epochs`` epochs, each over one env
+    permutation (``shuffles``, else ``draw_env_permutations`` from
+    ``generator``), cut into minibatches of whole sequences:
+    ``cfg.minibatch_size`` counts steps, so a minibatch holds
+    ``minibatch_size // T`` envs.  Each minibatch step takes autodiff's
+    gradients of ``ppo_loss_recurrent`` (BPTT through ``sequence``), then
+    the clip and Adam of ``optimizer``.  ``cfg.fused_update`` and
+    ``cfg.remat`` are not read, as JAX's recurrent update does not read
+    them: the fused kernels compute the feedforward network.  Returns the
+    metrics averaged over all minibatches (0-d tensors)."""
+    check_ppo(cfg)
+    T, N = batch.actions.shape
+    envs_per_mb = max(1, cfg.minibatch_size // T)
+    num_minibatches = max(1, N // envs_per_mb)
+    envs_per_mb = N // num_minibatches
+    if num_minibatches * envs_per_mb != N:
+        raise ValueError(f"num_envs {N} not divisible into "
+                         f"{num_minibatches} minibatches")
+    if shuffles is None:
+        shuffles = draw_env_permutations(N, cfg, generator)
+    if len(shuffles) != cfg.epochs:
+        raise ValueError(f"{len(shuffles)} shuffles for {cfg.epochs} epochs")
+
+    sums: dict[str, torch.Tensor] = {}
+    for perm in shuffles:
+        shuffled = batch.envs(perm)
+        for i in range(num_minibatches):
+            part = shuffled.envs(slice(i * envs_per_mb,
+                                       (i + 1) * envs_per_mb))
+            loss, metrics = ppo_loss_recurrent(model, part, cfg)
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
             optimizer.step()
             for k, v in metrics.items():
                 sums[k] = sums[k] + v if k in sums else v

@@ -1,8 +1,10 @@
 """Rollout of the policy and the env over N envs for T steps (port of
-``tpu_plume/rollout/rollout.py``, feedforward policy, analytic plume or a
-gridded ``FieldBank`` passed as ``bank``).
+``tpu_plume/rollout/rollout.py``, the feedforward or the recurrent policy,
+analytic plume or a gridded ``FieldBank`` passed as ``bank``).
 
-Per step: one policy forward over all envs, then the env step
+Per step: one policy forward over all envs (with the recurrent policy,
+``step`` from the carry's ``hidden``, which is zeroed after the env step
+where the episode ended), then the env step
 (``env_step_plain``): a Gumbel-max action sample, ``step_noise``, the
 episode totals and records, and the auto-reset of finished envs.  On the
 card over the analytic plume the env step is one launch of the env-step
@@ -109,6 +111,9 @@ class RolloutCarry:
     obs: torch.Tensor            # f32[N, obs_dim]
     accum: EpisodeAccum
     generator: torch.Generator   # on the rollout's device
+    # The recurrent policy's (c, h), each f32[N, H], zeroed at episode
+    # boundaries; None for the feedforward policy.
+    hidden: tuple | None = None
 
 
 def random_bits(shape, generator: torch.Generator) -> torch.Tensor:
@@ -147,8 +152,10 @@ def draw_chunk(generator: torch.Generator, cfg: EnvConfig, length: int,
 def init_rollout(cfg: EnvConfig, num_envs: int, generator: torch.Generator,
                  radius: float | None = None,
                  explore_bonus: float | None = None,
-                 bank=None) -> RolloutCarry:
-    """Fresh episodes in every env, on the generator's device."""
+                 bank=None, hidden: tuple | None = None) -> RolloutCarry:
+    """Fresh episodes in every env, on the generator's device; ``hidden``
+    is the recurrent policy's initial carry (None for the feedforward
+    policy)."""
     dev = generator.device
     u_src = torch.rand(num_envs, 2, device=dev, generator=generator)
     bits = random_bits((num_envs,), generator)
@@ -158,7 +165,7 @@ def init_rollout(cfg: EnvConfig, num_envs: int, generator: torch.Generator,
                                       explore_bonus, bank)
     return RolloutCarry(env_state=env_state, obs=obs,
                         accum=EpisodeAccum.zeros(num_envs, dev),
-                        generator=generator)
+                        generator=generator, hidden=hidden)
 
 
 def empty_trajectory(length: int, num_envs: int, cfg: EnvConfig, device):
@@ -286,7 +293,13 @@ def rollout_chunk(model: torch.nn.Module, carry: RolloutCarry, cfg: EnvConfig,
     plume, one launch of the env-step kernel (``ops.plume.EnvStepper``),
     which updates a copy of the carry's state made once per chunk; on the
     CPU, and over a bank on either device, ``env_step_plain``.  The carry
-    passed in is not modified."""
+    passed in is not modified.
+
+    With ``carry.hidden`` set, ``model`` is the recurrent policy: each step
+    is ``model.step(hidden, obs)``, and after the env step ``hidden`` is
+    zeroed where that step's ``done`` is set (read from ``traj.done``,
+    which the env step has just written).  The bootstrap value comes from
+    ``model.step`` on the final carry, which it does not advance."""
     num_envs = carry.obs.shape[0]
     if draws is None:
         draws = draw_chunk(carry.generator, cfg, length, num_envs, greedy)
@@ -296,25 +309,44 @@ def rollout_chunk(model: torch.nn.Module, carry: RolloutCarry, cfg: EnvConfig,
                                       carry.obs.device)
     obs_rows[0] = carry.obs
     inputs = obs_rows.unbind(0)
+    hidden = carry.hidden
+
+    def policy(t):
+        nonlocal hidden
+        if hidden is None:
+            return model(inputs[t])
+        hidden, logits, value = model.step(hidden, inputs[t])
+        return logits, value
+
+    def reset_hidden(t):
+        nonlocal hidden
+        if hidden is not None:
+            done = traj.done[t][:, None]
+            hidden = tuple(torch.where(done, 0.0, x) for x in hidden)
+
     if carry.obs.is_cuda and cfg.plume_model != "gridded":
         check_env(cfg)
         env_state, acc = own_copy(carry.env_state), own_copy(carry.accum)
         stepper = plume.EnvStepper(env_state, acc, draws, traj, obs_rows,
                                    cfg)
         for t in range(length):
-            stepper(t, *model(inputs[t]))
+            stepper(t, *policy(t))
+            reset_hidden(t)
     else:
         env_state, acc = carry.env_state, carry.accum
         for t in range(length):
-            logits, value = model(inputs[t])
             env_state, _, acc = env_step_plain(
-                logits, value, draws, t, env_state, acc, traj, obs_rows, cfg,
+                *policy(t), draws, t, env_state, acc, traj, obs_rows, cfg,
                 bank)
+            reset_hidden(t)
 
     obs = inputs[length]
-    _, bootstrap_value = model(obs)
+    if hidden is None:
+        _, bootstrap_value = model(obs)
+    else:
+        _, _, bootstrap_value = model.step(hidden, obs)
     carry = RolloutCarry(env_state=env_state, obs=obs, accum=acc,
-                         generator=carry.generator)
+                         generator=carry.generator, hidden=hidden)
     return carry, traj, bootstrap_value
 
 

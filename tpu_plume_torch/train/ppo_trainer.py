@@ -1,5 +1,6 @@
 """End-to-end PPO training (port of ``tpu_plume/train/ppo_trainer.py``,
-feedforward policy on the analytic plume or a gridded ``FieldBank``).
+the feedforward or the recurrent policy, ``cfg.ppo.arch`` "mlp" or "lstm",
+on the analytic plume or a gridded ``FieldBank``).
 
 One train step runs
 
@@ -10,8 +11,8 @@ One train step runs
 
 on the step's device.  The host loop ``train_ppo`` drains completed-episode
 records to the reference's CSV every ``sync_every`` iterations, logs
-per-iteration scalars, and writes a ``torch.save`` checkpoint and the
-reference-layout ``.pth`` policy at the end.
+per-iteration scalars, and writes a ``torch.save`` checkpoint and, for the
+2-layer feedforward policy, the reference-layout ``.pth`` at the end.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from tpu_plume_torch.core.config import TrainConfig
 from tpu_plume_torch.core.device import resolve_device
 from tpu_plume_torch.core.support import check_env, check_guide, check_ppo
 from tpu_plume_torch.models.actor_critic import ActorCritic
+from tpu_plume_torch.models.recurrent import RecurrentActorCritic
 from tpu_plume_torch.obsv.metrics import EpisodeCSVLogger, TrainLogger
 from tpu_plume_torch.ops import gather
 from tpu_plume_torch.rl.curriculum import (
@@ -38,7 +40,13 @@ from tpu_plume_torch.rl.curriculum import (
     curriculum_update,
 )
 from tpu_plume_torch.rl.gae import compute_gae
-from tpu_plume_torch.rl.ppo import PPOBatch, normalize_advantages, ppo_update
+from tpu_plume_torch.rl.ppo import (
+    PPOBatch,
+    RecurrentPPOBatch,
+    normalize_advantages,
+    ppo_update,
+    ppo_update_recurrent,
+)
 from tpu_plume_torch.rollout.rollout import (
     ChunkDraws,
     RolloutCarry,
@@ -88,28 +96,34 @@ class ClippedAdam:
 
 def policy_dtypes(cfg: TrainConfig, dtype: torch.dtype | None = None):
     """(compute dtype, head dtype) of the policy: ``dtype`` defaults to
-    bf16 under ``bf16_compute``, else f32; ``f32_heads`` keeps the heads in
-    f32 when the compute dtype is bf16 and is a no-op otherwise (head dtype
-    None follows the compute dtype)."""
+    bf16 under ``bf16_compute``, else f32; ``f32_heads`` keeps the
+    feedforward policy's heads in f32 when the compute dtype is bf16 and is
+    a no-op otherwise (head dtype None follows the compute dtype; the
+    recurrent policy's heads always do, as in JAX)."""
     if dtype is None:
         dtype = torch.bfloat16 if cfg.ppo.bf16_compute else torch.float32
-    head_dtype = (torch.float32 if cfg.ppo.f32_heads
+    head_dtype = (torch.float32 if cfg.ppo.f32_heads and cfg.ppo.arch == "mlp"
                   and dtype == torch.bfloat16 else None)
     return dtype, head_dtype
 
 
-def make_policy_model(cfg: TrainConfig, dtype: torch.dtype | None = None
-                      ) -> ActorCritic:
-    """The policy network; ``dtype`` overrides the compute dtype (params are
-    f32 regardless), as ``policy_dtypes`` sets it."""
+def make_policy_model(cfg: TrainConfig, dtype: torch.dtype | None = None):
+    """The policy network of ``cfg.ppo.arch``: ``ActorCritic`` or
+    ``RecurrentActorCritic``; ``dtype`` overrides the compute dtype (params
+    are f32 regardless), as ``policy_dtypes`` sets it."""
     check_ppo(cfg.ppo)
+    dtype, head_dtype = policy_dtypes(cfg, dtype)
+    if cfg.ppo.arch == "lstm":
+        return RecurrentActorCritic(
+            cfg.env.obs_dim, cfg.env.num_actions, cfg.ppo.lstm_embed,
+            cfg.ppo.lstm_hidden, dtype, cfg.ppo.lstm_layer_norm)
     return ActorCritic(cfg.env.obs_dim, cfg.env.num_actions,
-                       cfg.ppo.hidden_sizes, *policy_dtypes(cfg, dtype))
+                       cfg.ppo.hidden_sizes, dtype, head_dtype)
 
 
 def make_train_state(cfg: TrainConfig, device, seed: int):
-    """(model, optimizer); the orthogonal init is drawn on the CPU from
-    ``seed``, so it is the same on every device."""
+    """(model, optimizer); the init is drawn on the CPU from ``seed``, so it
+    is the same on every device."""
     model = make_policy_model(cfg).reset_parameters(
         torch.Generator().manual_seed(seed)).to(device)
     opt = ClippedAdam(model.parameters(), cfg.ppo.learning_rate,
@@ -121,7 +135,7 @@ def make_train_state(cfg: TrainConfig, device, seed: int):
 class LoopCarry:
     """Training loop state."""
 
-    model: ActorCritic
+    model: ActorCritic | RecurrentActorCritic
     optimizer: ClippedAdam
     rollout: RolloutCarry
     curriculum: CurriculumState
@@ -140,8 +154,13 @@ def build_train_step(cfg: TrainConfig, bank=None, time_phases: bool = False):
     ``bank`` is the ``FieldBank`` of ``plume_model="gridded"``, on the
     loop's device; the step holds it.
 
+    With the recurrent policy (``arch="lstm"``) the update is
+    ``ppo_update_recurrent`` over the [T, N] chunk: its replay starts from
+    the chunk-start carry and zeroes it after each done step.
+
     ``draws`` (``ChunkDraws``) and ``shuffles`` (one roll offset or index
-    permutation per epoch) replace the iteration's randomness.  With
+    permutation per epoch; for the recurrent policy one env permutation per
+    epoch) replace the iteration's randomness.  With
     ``time_phases`` the device is synchronised at the phase boundaries and
     ``stats`` gets the wall ms of ``time/rollout_ms``, ``time/gae_ms`` and
     ``time/update_ms``."""
@@ -183,6 +202,7 @@ def build_train_step(cfg: TrainConfig, bank=None, time_phases: bool = False):
                                      dtype=torch.float32, device=device),
         )
         carry = dataclasses.replace(loop.rollout, env_state=env_state)
+        h_init = carry.hidden
 
         mark()
         carry, traj, bootstrap = rollout_chunk(loop.model, carry, env_cfg, T,
@@ -193,28 +213,44 @@ def build_train_step(cfg: TrainConfig, bank=None, time_phases: bool = False):
             ppo_cfg.gamma, ppo_cfg.gae_lambda)
         mark()
 
-        def flat(x):
-            return x.reshape((-1,) + x.shape[2:])
-
-        adv_n = normalize_advantages(flat(advantages), ppo_cfg)
-        if ppo_cfg.bug_compat_returns:
-            # Reference quirk: returns built from normalized advantages.
-            ret = adv_n + flat(traj.value)
-        else:
-            ret = flat(returns)
-        batch = PPOBatch(
-            obs=flat(traj.obs),
-            actions=flat(traj.action),
-            old_log_probs=flat(traj.log_prob),
-            advantages=adv_n,
-            returns=ret,
-            old_values=flat(traj.value),
-        )
         update_model = (loop.model if update_dtypes is None
                         else loop.model.twin(*update_dtypes))
-        loss_metrics = ppo_update(update_model, loop.optimizer, batch,
-                                  ppo_cfg, generator=loop.generator,
-                                  shuffles=shuffles)
+        if h_init is not None:
+            # Sequence-major: the replay needs the time axis.
+            adv_n = normalize_advantages(advantages, ppo_cfg)
+            ret = (adv_n + traj.value if ppo_cfg.bug_compat_returns
+                   else returns)
+            batch = RecurrentPPOBatch(
+                obs=traj.obs, actions=traj.action,
+                old_log_probs=traj.log_prob, advantages=adv_n, returns=ret,
+                old_values=traj.value,
+                resets=torch.cat([torch.zeros_like(traj.done[:1]),
+                                  traj.done[:-1]]),
+                h_init=h_init)
+            loss_metrics = ppo_update_recurrent(
+                update_model, loop.optimizer, batch, ppo_cfg,
+                generator=loop.generator, shuffles=shuffles)
+        else:
+            def flat(x):
+                return x.reshape((-1,) + x.shape[2:])
+
+            adv_n = normalize_advantages(flat(advantages), ppo_cfg)
+            if ppo_cfg.bug_compat_returns:
+                # Reference quirk: returns built from normalized advantages.
+                ret = adv_n + flat(traj.value)
+            else:
+                ret = flat(returns)
+            batch = PPOBatch(
+                obs=flat(traj.obs),
+                actions=flat(traj.action),
+                old_log_probs=flat(traj.log_prob),
+                advantages=adv_n,
+                returns=ret,
+                old_values=flat(traj.value),
+            )
+            loss_metrics = ppo_update(update_model, loop.optimizer, batch,
+                                      ppo_cfg, generator=loop.generator,
+                                      shuffles=shuffles)
         mark()
 
         new_episodes = int(traj.done.sum())
@@ -245,18 +281,21 @@ def build_train_step(cfg: TrainConfig, bank=None, time_phases: bool = False):
 def init_loop(cfg: TrainConfig, device, bank=None,
               init_params: dict | None = None) -> LoopCarry:
     """Fresh model, optimizer, envs and curriculum from ``cfg.seed``;
-    ``bank`` (gridded model) on ``device``.  ``init_params``, a state_dict
-    in the reference ``.pth`` layout, replaces the initial params (the
-    optimizer starts fresh)."""
+    ``bank`` (gridded model) on ``device``; the recurrent policy's carry
+    starts at zeros.  ``init_params``, a state_dict of the policy (for the
+    feedforward policy the reference ``.pth`` layout), replaces the initial
+    params (the optimizer starts fresh)."""
     device = torch.device(device)
     model, optimizer = make_train_state(cfg, device, cfg.seed)
     if init_params is not None:
         model.load_state_dict(init_params)
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
+    hidden = (model.initial_state(cfg.rollout.num_envs, device)
+              if cfg.ppo.arch == "lstm" else None)
     rollout = init_rollout(cfg.env, cfg.rollout.num_envs, generator,
                            radius=cfg.curriculum.initial_radius,
                            explore_bonus=cfg.env.explore_bonus_init,
-                           bank=bank)
+                           bank=bank, hidden=hidden)
     return LoopCarry(model=model, optimizer=optimizer, rollout=rollout,
                      curriculum=curriculum_init(cfg.curriculum,
                                                 cfg.env.explore_bonus_init),
@@ -356,14 +395,19 @@ def train_ppo(
     drained to the CSV in one batch (default 8); their episodes count
     toward ``cfg.total_episodes`` when the batch is drained, so training
     runs to the end of the window that reaches it, as JAX's does.  ``guide`` (a training
-    guide) is not ported yet and raises.  ``bank`` is the ``FieldBank`` of
+    guide) is not ported yet and raises (with the recurrent policy it is
+    refused as JAX refuses it).  ``bank`` is the ``FieldBank`` of
     ``plume_model="gridded"``; it is moved to ``device``.  ``init_params``
-    (a state_dict in the reference ``.pth`` layout, as ``--pth`` and
-    ``--ckpt`` load it) warm-starts the policy; the optimizer starts
-    fresh."""
+    (a state_dict of the policy, as ``--pth`` and ``--ckpt`` load it)
+    warm-starts the policy; the optimizer starts fresh.  The run writes
+    ``checkpoint.pt`` and, for the 2-layer feedforward policy only,
+    ``model/ppo_successful_models.pth``, the reference's layout."""
     device = resolve_device(device)
     check_env(cfg.env)
     check_ppo(cfg.ppo)
+    if guide is not None and cfg.ppo.arch == "lstm":
+        raise ValueError(
+            "guided fine-tuning (--guide) supports the feedforward arch only")
     check_guide(guide)
     if bank is not None:
         bank = bank.to(device)
@@ -453,7 +497,7 @@ def train_ppo(
                      "env_steps": env_steps, "iteration": iteration},
         "config": dataclasses.asdict(cfg),
     }, os.path.join(out_dir, "checkpoint.pt"))
-    if len(cfg.ppo.hidden_sizes) == 2:
+    if cfg.ppo.arch == "mlp" and len(cfg.ppo.hidden_sizes) == 2:
         # The .pth layout is the reference's 2-layer PPOActorCritic.
         model_dir = os.path.join(out_dir, "model")
         os.makedirs(model_dir, exist_ok=True)
