@@ -101,15 +101,37 @@ outside a checkout of the repository.  Phases, each of which must pass:
    --episodes 100`` (the ``expert_data.npz`` contract); on the recurrent
    run ``eval --arch lstm --ckpt`` and ``expert --arch lstm --ckpt``;
 9. a learning check, printed and not a gate: ppo_v2_0 f32 trained at full
-   width for 20 iterations, then eval A's protocol over the same draws for
-   the trained and the untrained initial params.
+   width for 20 iterations through ``train_ppo`` with the trajectory
+   capture on (``capture_conc_csv``, and ``capture_netcdf`` where h5py is
+   installed), its launch counts read over the run (one env-step launch
+   per env step, the capture adds none), its iteration time beside a
+   shorter run of the same config without the capture; then eval A's
+   protocol over the same draws for the trained and the untrained initial
+   params;
+10. the stop LSTMs on the card, from the captured episodes: a 3-epoch run
+   of ``train_threshold_lstm`` (its dropout off) and of
+   ``train_peak_stop_lstm`` on the card against the same runs on the CPU
+   (the same init and batches, losses within rtol 1e-4); one epoch of
+   each profiled (ms and launches per minibatch step); each trained at
+   the JAX package's epochs (150 and 100, cut so that each phase stays
+   within 60 s, the cut printed); then eval A with the trained policy and
+   ``--stop threshold`` and ``--stop peakstop`` gates of those nets (the
+   CLI's ``lstm_gate``), each run as phase 7 runs an eval (exact
+   plume-sample launches, wall, launches per eval step, busy share) and on
+   the card against the CPU (at most one episode in 64 apart); then the
+   CLI: ``train-lstm --variant v12`` on the captured ``data.csv`` and
+   ``eval --stop threshold`` / ``--stop peakstop --lstm-ckpt`` on the
+   checkpoints the trainers wrote, each checked for its JSON line.
 
 Then it prints a JSON line of the eval phases, one of the recurrent main
-path and its replay, the ``kernels`` JSON line (each kernel's launches in
+path and its replay, one of the capture and the stop LSTMs
+(``stop_lstm``), the ``kernels`` JSON line (each kernel's launches in
 evals A and B under ``eval_launches``, the recurrent path's under
-``lstm`` and ``lstm_eval_launches``), the
-card's name and power limit, and, last, the result line ``{"ok": true,
-"device": {...}}``.
+``lstm`` and ``lstm_eval_launches``, the gated evals' under
+``gated_eval_launches``, the capture run's under ``capture``), the card's
+name and power limit, and, last, the result line ``{"ok": true,
+"device": {...}}``.  h5py is never imported here (``find_spec`` tells
+whether it is installed): the card's machine may have none.
 """
 
 from __future__ import annotations
@@ -210,6 +232,18 @@ LSTM_MB_ENVS, LSTM_RESET_RATE = 512, 1.0 / 200.0
 # iterations.
 EVAL_WARMUP = 16
 LEARN_ITERS = 20
+# Iterations of the same run without the capture, for its iteration time,
+# and the learning check's episode target (the NetCDF capture's rows).
+NO_CAPTURE_ITERS = 8
+LEARN_EPISODE_CAP = 10**6
+# The stop-LSTM trainers: the JAX package's epochs, the wall each phase may
+# take before its epochs are cut, and the epochs of the card-vs-CPU runs.
+THRESHOLD_EPOCHS, PEAK_STOP_EPOCHS = 150, 100
+TRAINER_BUDGET_S = 60.0
+EPOCH_MARGIN = 1.5
+TRAINER_CHECK_EPOCHS = 3
+TRAINER_RTOL = 1e-4
+STOP_GATES = ("threshold", "peakstop")
 # The heuristic gate's card check (tests/test_torch_eval.py's setting): a
 # 100-cell grid with a wide plume, low turbulence and a goal radius of 5,
 # and a policy whose stay action's bias is raised by STAY_BIAS, so that it
@@ -1482,7 +1516,15 @@ def eval_length(cfg) -> int:
     return min(cfg.env.max_steps, cfg.eval.max_eval_steps)
 
 
-def eval_gate(ev, cfg, stop):
+def eval_gate(ev, cfg, stop, device="cuda", lstm_ckpts=None):
+    """The eval's stop gate: the heuristic, or an LSTM gate (``threshold``,
+    ``peakstop``) built as ``cli eval --lstm-ckpt`` builds it, on
+    ``device``, from ``lstm_ckpts[stop]``."""
+    if stop in STOP_GATES:
+        from tpu_plume_torch.cli.main import lstm_gate
+
+        return lstm_gate(types.SimpleNamespace(
+            stop=stop, lstm_ckpt=lstm_ckpts[stop]), cfg, device)
     return (ev.make_heuristic_gate(cfg.eval, cfg.env.conc_peak)
             if stop == "heuristic" else None)
 
@@ -1504,7 +1546,8 @@ def rnn_of(cfg, model):
     return model if cfg.ppo.arch == "lstm" else None
 
 
-def run_eval(ev, k, label, cfg, model, bank=None, stop=None) -> dict:
+def run_eval(ev, k, label, cfg, model, bank=None, stop=None,
+             lstm_ckpts=None) -> dict:
     """The eval at the reference protocol's width (``cfg.eval.episodes``
     episodes, each reset once, over ``min(max_steps, max_eval_steps)``
     steps) on the card: after an EVAL_WARMUP-step warm-up, the whole eval
@@ -1516,7 +1559,7 @@ def run_eval(ev, k, label, cfg, model, bank=None, stop=None) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    gate = eval_gate(ev, cfg, stop)
+    gate = eval_gate(ev, cfg, stop, "cuda", lstm_ckpts)
     n, length = cfg.eval.episodes, eval_length(cfg)
 
     def run(seed, steps=None):
@@ -1566,7 +1609,7 @@ def run_eval(ev, k, label, cfg, model, bank=None, stop=None) -> dict:
 
 
 def check_eval_against_cpu(ev, label, cfg, model, bank=None, stop=None,
-                           mixed_stops=False) -> dict:
+                           mixed_stops=False, lstm_ckpts=None) -> dict:
     """The same eval at the protocol's width on the card and on the CPU
     from the same draws, every episode's path tracked.  An episode agrees
     where its steps, stop flag and deviation (within the env tolerance)
@@ -1580,16 +1623,18 @@ def check_eval_against_cpu(ev, label, cfg, model, bank=None, stop=None,
     import numpy as np
     import torch
 
-    gate = eval_gate(ev, cfg, stop)
     n, length = cfg.eval.episodes, eval_length(cfg)
     draws = ev.draw_eval(torch.Generator().manual_seed(7), cfg.env, length, n)
-    kw = dict(num_episodes=n, max_steps=length, stop_gate=gate, bank=bank,
-              draws=draws, track_trajectories=n)
+    kw = dict(num_episodes=n, max_steps=length, bank=bank, draws=draws,
+              track_trajectories=n)
     cpu_model = copy.deepcopy(model)
-    want = ev.evaluate_policy(cpu_model, cfg.env, cfg.eval, device="cpu",
-                              rnn=rnn_of(cfg, cpu_model), **kw)
-    got = ev.evaluate_policy(model, cfg.env, cfg.eval, device="cuda",
-                             rnn=rnn_of(cfg, model), **kw)
+    want = ev.evaluate_policy(
+        cpu_model, cfg.env, cfg.eval, device="cpu",
+        rnn=rnn_of(cfg, cpu_model),
+        stop_gate=eval_gate(ev, cfg, stop, "cpu", lstm_ckpts), **kw)
+    got = ev.evaluate_policy(
+        model, cfg.env, cfg.eval, device="cuda", rnn=rnn_of(cfg, model),
+        stop_gate=eval_gate(ev, cfg, stop, "cuda", lstm_ckpts), **kw)
     agree = ((got.steps == want.steps)
              & (got.stopped_early == want.stopped_early)
              & np.isclose(got.deviations, want.deviations, rtol=RTOL,
@@ -1766,21 +1811,50 @@ def time_bptt_replay(ttrain, ppo, cfg) -> dict:
     return out
 
 
-def learning_check(ttrain, ev, cfg) -> dict:
-    """ppo_v2_0 f32 at full width trained for LEARN_ITERS iterations, then
-    the protocol's eval (heuristic stop) of the result and of the untrained
-    initial params over the same draws: a printed record, not a gate."""
+def learning_check(ttrain, ev, k, cfg, out_dir) -> dict:
+    """ppo_v2_0 f32 at full width trained for LEARN_ITERS iterations into
+    ``out_dir`` with the trajectory capture on (``data.csv``, and
+    ``training_data.nc`` where h5py is installed), every launch count set
+    to 0 just before ``train_ppo`` and read just after (one plume sample in
+    ``init_loop``, then one env-step launch per env step: the capture adds
+    none); its steady env-steps/s beside NO_CAPTURE_ITERS iterations of the
+    same run without the capture; then the protocol's eval (heuristic stop)
+    of the result and of the untrained initial params over the same draws:
+    a printed record, not a gate.  Returns the record, the run's
+    ``TrainResult`` (its captured episodes in ``trajectories``) and the
+    trained policy on the card."""
+    import importlib.util
+
     import torch
 
-    cfg = cfg.replace(total_episodes=2**62)    # a fixed count of iterations
+    # A fixed count of iterations: more episodes than 20 iterations end,
+    # and rows enough for the NetCDF capture's episode axis.
+    cfg = cfg.replace(total_episodes=LEARN_EPISODE_CAP)
+    netcdf = importlib.util.find_spec("h5py") is not None
+    zero_counts(k)
+    t0 = time.perf_counter()
+    res = ttrain.train_ppo(cfg, out_dir, device="cuda",
+                           max_iterations=LEARN_ITERS, write_csv=False,
+                           verbose=False, capture_conc_csv=True,
+                           capture_netcdf=netcdf)
+    train_s = time.perf_counter() - t0
+    counts = read_counts(k)
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    want.update(plume_sample=1,
+                env_step=LEARN_ITERS * cfg.rollout.unroll_length)
+    assert counts == want, (counts, want)
+    captured = len(res.trajectories)
+    with open(os.path.join(out_dir, "data.csv")) as fh:
+        csv_rows = sum(1 for _ in fh)
+    assert 0 < captured <= res.successes and csv_rows == res.successes, (
+        captured, csv_rows, res.successes)
     with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        res = ttrain.train_ppo(cfg, tmp, device="cuda",
-                               max_iterations=LEARN_ITERS, write_csv=False,
-                               verbose=False)
-        train_s = time.perf_counter() - t0
+        plain = ttrain.train_ppo(cfg, tmp, device="cuda",
+                                 max_iterations=NO_CAPTURE_ITERS,
+                                 write_csv=False, verbose=False)
     trained = ttrain.make_policy_model(cfg)
     trained.load_state_dict(res.state_dict)
+    trained = trained.to("cuda")
     initial, _ = ttrain.make_train_state(cfg, "cuda", cfg.seed)
     n, length = cfg.eval.episodes, eval_length(cfg)
     draws = ev.draw_eval(torch.Generator(device="cuda").manual_seed(3),
@@ -1788,12 +1862,32 @@ def learning_check(ttrain, ev, cfg) -> dict:
     gate = eval_gate(ev, cfg, "heuristic")
     out = dict(iterations=LEARN_ITERS, train_s=train_s,
                episodes=res.episodes, successes=res.successes,
-               radius=float(res.curriculum.radius))
-    for label, model in (("untrained", initial), ("trained", trained.to("cuda"))):
+               radius=float(res.curriculum.radius),
+               capture=dict(netcdf=netcdf, conc_csv=True,
+                            captured_episodes=captured, csv_rows=csv_rows,
+                            env_step_launches_per_iteration=(
+                                counts["env_step"] / LEARN_ITERS),
+                            launches=counts,
+                            sps=res.steps_per_sec,
+                            sps_without=plain.steps_per_sec,
+                            iteration_ms=per_iter_ms(cfg, res),
+                            iteration_ms_without=per_iter_ms(cfg, plain)))
+    for label, model in (("untrained", initial), ("trained", trained)):
         m = ev.evaluate_policy(model, cfg.env, cfg.eval, draws=draws,
                                stop_gate=gate)
         check_eval_metrics(m, cfg, n, length)
         out[label] = ev.summarize(m)
+    cap = out["capture"]
+    log(f"capture: train_ppo with capture_conc_csv and "
+        f"{'capture_netcdf' if netcdf else 'no capture_netcdf (no h5py)'}: "
+        f"{captured} episodes captured for training_data.nc's selection "
+        f"(successes at the two smallest radii), {csv_rows} rows in "
+        f"data.csv; {cap['env_step_launches_per_iteration']:.1f} env-step "
+        f"launches per iteration, launches {counts}; steady "
+        f"{cap['sps']:.1f} env-steps/s = {cap['iteration_ms']:.2f} ms per "
+        f"iteration with the capture, {cap['sps_without']:.1f} = "
+        f"{cap['iteration_ms_without']:.2f} ms without it "
+        f"({NO_CAPTURE_ITERS} iterations)")
     log(f"learning check: ppo_v2_0 f32, {LEARN_ITERS} iterations of "
         f"{cfg.rollout.num_envs} envs x {cfg.rollout.unroll_length} steps in "
         f"{train_s:.1f} s, {res.episodes} training episodes, "
@@ -1806,6 +1900,203 @@ def learning_check(ttrain, ev, cfg) -> dict:
         f"{out['trained']['success_rate']:.3f}, mean deviation "
         f"{out['trained']['mean_deviation']:.2f}, mean steps "
         f"{out['trained']['mean_steps']:.1f}")
+    return out, res, trained
+
+
+def per_iter_ms(cfg, res) -> float:
+    return cfg.rollout.num_envs * cfg.rollout.unroll_length / res.steps_per_sec * 1e3
+
+
+def profile_epoch(lt, model, opt, lr, loss_fn, tensors, batch) -> dict:
+    """One epoch of ``lstm_trainer._run_epoch`` on the card: its ms (CUDA
+    events), its minibatch steps, and its device launches per minibatch
+    step from the profiler."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    idx = lt._shuffle_batches(np.random.default_rng(0), len(tensors[0]),
+                              min(batch, len(tensors[0])))
+    lt._run_epoch(model, opt, lr, idx, loss_fn, *tensors)   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = float(lt._run_epoch(model, opt, lr, idx, loss_fn, *tensors))
+    epoch_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        lt._run_epoch(model, opt, lr, idx, loss_fn, *tensors)
+        torch.cuda.synchronize()
+    launches = sum(e.count for e in device_kernels(prof))
+    return dict(epoch_ms=epoch_ms, steps=len(idx),
+                step_ms=epoch_ms / len(idx),
+                launches_per_step=launches / len(idx), loss=loss)
+
+
+def check_trainer_against_cpu(label, train, epochs) -> dict:
+    """``train(device, epochs)`` (a trainer from the same init and batches)
+    on the card and on the CPU: each epoch's loss within TRAINER_RTOL.
+    Returns the card run's wall s per epoch."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    got = train("cuda", epochs)
+    card_s = time.perf_counter() - t0
+    want = train("cpu", epochs)
+    gap = float(np.max(np.abs(np.subtract(got.losses, want.losses))
+                       / np.abs(want.losses)))
+    log(f"{label} card vs CPU, {epochs} epochs from the same init and "
+        f"batches: losses {got.losses} / {want.losses}, largest relative "
+        f"gap {gap:.3e}; card {card_s:.2f} s")
+    np.testing.assert_allclose(got.losses, want.losses, rtol=TRAINER_RTOL)
+    return dict(losses=got.losses, cpu_losses=want.losses, rel_gap=gap,
+                epoch_s=card_s / epochs)
+
+
+def stop_lstm_phase(ev, k, cfg, trained, res, tmp) -> tuple:
+    """The stop LSTMs on the card from the capture of ``learning_check``:
+    each trainer held to the CPU, one epoch of each profiled, each trained
+    at the JAX package's epochs (cut to TRAINER_BUDGET_S), then eval A
+    with ``trained`` and each gate (``run_eval``, and on the card against
+    the CPU).  Returns the record and the checkpoints by gate."""
+    import numpy as np
+    import torch
+
+    from tpu_plume_torch.data import datasets
+    from tpu_plume_torch.models import lstm_zoo
+    from tpu_plume_torch.train import lstm_trainer as lt
+
+    arrays = res.trajectories.arrays()
+    seqs, src = datasets.raw_sequences(arrays)
+    segs = datasets.trajectory_segments(arrays, window_size=20)
+    log(f"stop LSTM data: {len(seqs)} captured sequences "
+        f"({sum(len(q) >= 10 for q in seqs)} of at least 10 steps), "
+        f"{len(segs)} 20-step segments")
+    out = dict(sequences=len(seqs), segments=len(segs))
+
+    # Card against CPU: the threshold net with its dropout off.
+    make = lt.ConcentrationThresholdPredictor
+    lt.ConcentrationThresholdPredictor = lambda: make(dropout=0.0,
+                                                      head_dropout=0.0)
+    try:
+        out["threshold_check"] = check_trainer_against_cpu(
+            "train_threshold_lstm (dropout off)",
+            lambda device, epochs: lt.train_threshold_lstm(
+                seqs, src, os.path.join(tmp, f"thr_{device}"),
+                epochs=epochs, device=device),
+            TRAINER_CHECK_EPOCHS)
+    finally:
+        lt.ConcentrationThresholdPredictor = make
+    out["peak_stop_check"] = check_trainer_against_cpu(
+        "train_peak_stop_lstm",
+        lambda device, epochs: lt.train_peak_stop_lstm(
+            segs, os.path.join(tmp, f"ps_{device}"), epochs=epochs,
+            device=device),
+        TRAINER_CHECK_EPOCHS)
+
+    # One epoch of each profiled, on the trainers' own data and optimizer.
+    feats, targs = datasets.tail_window_dataset(
+        [q for q in seqs if len(q) >= 10],
+        np.array([c for q, c in zip(seqs, src) if len(q) >= 10]), 10)
+    scaler = lt.MinMaxScaler().fit(feats.reshape(-1, 1))
+    feats = scaler.transform(feats.reshape(-1, 1)).reshape(
+        feats.shape).astype(np.float32)
+    model = lstm_zoo.ConcentrationThresholdPredictor().reset_parameters(
+        torch.Generator().manual_seed(0)).cuda()
+    opt = lt.ClippedAdamW(model.parameters(), 1e-2, 1.0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    thr_prof = profile_epoch(
+        lt, model, opt, 3e-4,
+        lambda x, y: lt.smooth_l1(model(x, generator=gen), y, 2.0),
+        [torch.from_numpy(a).cuda() for a in (feats, targs)], 64)
+    pfeats, plabels = datasets.peak_stop_dataset(
+        segs, window_size=20, rng=np.random.default_rng(0))
+    model = lstm_zoo.PeakAndStopPredictor().reset_parameters(
+        torch.Generator().manual_seed(0)).cuda()
+    opt = lt.ClippedAdamW(model.parameters(), 1e-4, 1.0)
+
+    def ps_loss(x, y):
+        peak, stop = model(x)
+        return ((peak - y[:, 0]) ** 2).mean() + lt.bce(stop, y[:, 1])
+
+    ps_prof = profile_epoch(
+        lt, model, opt, 1e-3, ps_loss,
+        [torch.from_numpy(a).cuda() for a in (pfeats, plabels)], 64)
+
+    # The reference trainers at the JAX package's epochs, cut to the budget.
+    ckpts = {}
+    for gate, name, full, prof, train in (
+            ("threshold", "train_threshold_lstm", THRESHOLD_EPOCHS, thr_prof,
+             lambda epochs: lt.train_threshold_lstm(
+                 seqs, src, os.path.join(tmp, "threshold"), epochs=epochs,
+                 device="cuda")),
+            ("peakstop", "train_peak_stop_lstm", PEAK_STOP_EPOCHS, ps_prof,
+             lambda epochs: lt.train_peak_stop_lstm(
+                 segs, os.path.join(tmp, "peakstop"), epochs=epochs,
+                 device="cuda"))):
+        # the profiled epoch's ms, with a margin for the trainer's own
+        # per-epoch work and the host's drift between phases
+        epoch_ms = EPOCH_MARGIN * prof["epoch_ms"]
+        epochs = max(1, min(full, int(TRAINER_BUDGET_S * 1e3 / epoch_ms)))
+        t0 = time.perf_counter()
+        r = train(epochs)
+        wall = time.perf_counter() - t0
+        final = dict(epochs=epochs, jax_epochs=full, wall_s=wall,
+                     epoch_ms=wall * 1e3 / epochs, final_loss=r.losses[-1],
+                     **{key: v for key, v in r.extra.items()
+                        if isinstance(v, float)}, profile=prof)
+        assert np.isfinite(r.losses).all(), r.losses
+        out[gate] = final
+        log(f"{name} on the card: {epochs} epochs (JAX's {full}"
+            f"{'' if epochs == full else ', cut to the budget'}) in "
+            f"{wall:.2f} s = {final['epoch_ms']:.2f} ms per epoch; one "
+            f"profiled epoch {prof['epoch_ms']:.2f} ms, {prof['steps']} "
+            f"minibatch steps of {prof['step_ms']:.3f} ms, "
+            f"{prof['launches_per_step']:.1f} launches per step; final loss "
+            f"{r.losses[-1]:.5f}, "
+            + ", ".join(f"{key} {v:.4f}" for key, v in r.extra.items()
+                        if isinstance(v, float)))
+        ckpts[gate] = os.path.join(r.out_dir, (
+            "lstm_threshold_predictor.pt" if gate == "threshold"
+            else "best_peak_and_stop.pt"))
+
+    # Eval A with each gate, and on the card against the CPU.
+    for gate in STOP_GATES:
+        e = run_eval(ev, k, f"A {gate}", cfg, trained, stop=gate,
+                     lstm_ckpts=ckpts)
+        e["card_vs_cpu"] = check_eval_against_cpu(
+            ev, f"ppo_v2_0 {gate} gate", cfg, trained, stop=gate,
+            lstm_ckpts=ckpts)
+        out[f"eval_{gate}"] = e
+    return out, ckpts
+
+
+def check_stop_cli(cli_main, learn_dir, ckpts, tmp) -> dict:
+    """``train-lstm --variant v12`` on the capture's ``data.csv`` and ``eval
+    --stop threshold`` / ``--stop peakstop --lstm-ckpt`` on the trainers'
+    checkpoints with the learning check's policy, each one's JSON line
+    checked."""
+    import numpy as np
+
+    out_dir = os.path.join(tmp, "v12")
+    v12, v12_s = cli_json(cli_main, [
+        "train-lstm", "--variant", "v12", "--nc",
+        os.path.join(learn_dir, "data.csv"), "--epochs", "2", "--out",
+        out_dir])
+    assert sorted(v12) == ["final_loss", "test_r2"], v12
+    assert np.isfinite(v12["final_loss"]), v12
+    assert os.path.isfile(os.path.join(out_dir, "lstm_v12.pt"))
+    out = dict(v12=v12, v12_s=v12_s)
+    for gate in STOP_GATES:
+        summary, wall = cli_json(cli_main, [
+            "eval", "--ckpt", learn_dir, "--stop", gate, "--lstm-ckpt",
+            ckpts[gate]])
+        assert {"success_rate", "early_stop_rate", "mean_steps"} <= set(
+            summary), summary
+        assert 0.0 <= summary["early_stop_rate"] <= 1.0, summary
+        out[gate] = dict(summary=summary, wall_s=wall)
+        log(f"cli eval --stop {gate} --lstm-ckpt {os.path.basename(ckpts[gate])}"
+            f": {wall:.2f} s, {json.dumps(summary)}")
+    log(f"cli train-lstm --variant v12 --nc data.csv --epochs 2: "
+        f"{v12_s:.2f} s, {json.dumps(v12)}")
     return out
 
 
@@ -1999,7 +2290,22 @@ def main() -> int:
             "lstm", then=lambda tmp: cli_lstm.update(
                 check_lstm_eval_cli(cli_main, tmp)))
 
-    learning = learning_check(ttrain, ev, v20_main)
+    with tempfile.TemporaryDirectory() as tmp:
+        learn_dir = os.path.join(tmp, "learn")
+        learning, learn_res, trained = learning_check(ttrain, ev, k, v20_main,
+                                                      learn_dir)
+        stop_lstm, ckpts = stop_lstm_phase(ev, k, v20_main, trained,
+                                           learn_res, tmp)
+        stop_lstm["cli"] = check_stop_cli(cli_main, learn_dir, ckpts, tmp)
+    stop_lstm["capture"] = learning["capture"]
+    for gate in STOP_GATES:
+        e = stop_lstm[f"eval_{gate}"]
+        log(f"eval A {gate} gate: success@40 {e['summary']['success_rate']:.3f}"
+            f" (a record, not a gate), early stops "
+            f"{e['summary']['early_stop_rate']:.3f}, mean steps "
+            f"{e['summary']['mean_steps']:.1f}")
+    del trained, learn_res
+    torch.cuda.empty_cache()
 
     eval_launches = {name: eval_a["launches"][name] + eval_b["launches"][name]
                      for name in KERNEL_NAMES}
@@ -2012,6 +2318,7 @@ def main() -> int:
                                    "device_ms", "profiled_launches",
                                    "rollout_profile", "max_memory_allocated",
                                    "counts")}, "lstm_replay": lstm_replay}))
+    log(json.dumps({"stop_lstm": stop_lstm}))
     main_t = plume_report["timing"][MAIN_N]
     env_t = env_time["ppo_v2_0"][MAIN_N]
     aniso_t = env_time["wrf_les"]
@@ -2031,6 +2338,9 @@ def main() -> int:
         "device_ms": main_t["device_ms"],
         "split_ns": plume_report["timing"]["split_ns"],
         "lstm_eval_launches": eval_lstm["launches"]["plume_sample"],
+        "gated_eval_launches": {
+            gate: stop_lstm[f"eval_{gate}"]["launches"]["plume_sample"]
+            for gate in STOP_GATES},
     }, {
         "name": "env_step",
         "route": "cuda",
@@ -2054,6 +2364,10 @@ def main() -> int:
             "rollout_launches_per_step":
                 aniso["rollout_profile"]["launches_per_step"],
             **aniso_t[MAIN_N], "large_n": aniso_t[LARGE_N]},
+        "capture": {
+            "launches": learning["capture"]["launches"]["env_step"],
+            "per_iteration":
+                learning["capture"]["env_step_launches_per_iteration"]},
         "lstm": {
             "launches": lstm["total_counts"]["env_step"],
             "launches_timed": lstm["counts"]["env_step"],

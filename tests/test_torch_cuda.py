@@ -35,7 +35,10 @@ rollout on the CPU from the same start, carry and draws: one env-step
 launch a step, actions and dones equal in all but at most one env in 64
 (the carry takes the card's rounding from step to step), the others'
 values and carries at the env tolerance, and the carry zeroed where the
-last step ended an episode.
+last step ended an episode.  The stop LSTMs (cuDNN on the card, TF32
+off) are held to the CPU: a zoo forward and one minibatch step of a
+trainer at rtol 1e-4, atol 1e-5, and an eval with the threshold gate at 64
+episodes x 200 steps as the eval above.
 """
 
 import dataclasses
@@ -47,10 +50,12 @@ from tpu_plume_torch.core import PPOConfig, get_preset
 from tpu_plume_torch.evaluation import harnesses
 from tpu_plume_torch.fields.gridded import FieldBank
 from tpu_plume_torch.models import ActorCritic, RecurrentActorCritic
+from tpu_plume_torch.models import lstm_zoo
 from tpu_plume_torch.ops import gather, plume
 from tpu_plume_torch.ops import ppo as fused_ops
 from tpu_plume_torch.rl.ppo import PPOBatch
 from tpu_plume_torch.rollout import rollout
+from tpu_plume_torch.train import lstm_trainer
 
 pytestmark = pytest.mark.cuda
 
@@ -60,6 +65,7 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -537,3 +543,85 @@ def test_recurrent_rollout_on_the_card_matches_the_cpu(card, layer_norm_cell):
     for a, b in zip(got_carry.hidden, want_carry.hidden):
         torch.testing.assert_close(a[agree], b[agree], rtol=1e-5, atol=1e-4)
         assert not a[got.done[-1]].any()
+
+
+# cuDNN's LSTM against the CPU's: other accumulation orders over up to 3
+# layers x 20 steps; after one Adam step, a move of at most 3% of the
+# learning rate 3e-4 where a gradient element is near 0.
+LSTM_RTOL, LSTM_ATOL = 1e-4, 1e-5
+
+
+@pytest.mark.parametrize("name", ["ConcentrationThresholdPredictor",
+                                  "PeakAndStopPredictor"])
+def test_zoo_forward_on_the_card_matches_the_cpu(card, name):
+    model = getattr(lstm_zoo, name)().reset_parameters(
+        torch.Generator().manual_seed(0))
+    model.eval()
+    x = torch.rand(1000, 20, generator=torch.Generator().manual_seed(1))
+    lengths = torch.randint(1, 21, (1000,),
+                            generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        want = model(x, lengths)
+        got = model.to(card)(x.to(card), lengths.to(card))
+    if not isinstance(want, tuple):
+        got, want = (got,), (want,)
+    for a, b in zip(got, want, strict=True):
+        torch.testing.assert_close(a.cpu(), b, rtol=LSTM_RTOL,
+                                   atol=LSTM_ATOL)
+
+
+def test_lstm_trainer_step_on_the_card_matches_the_cpu(card):
+    """One minibatch step of the threshold trainer (its dropout off): the
+    loss and the updated params."""
+    x = torch.rand(64, 10, generator=torch.Generator().manual_seed(3))
+    y = 100.0 * torch.rand(64, generator=torch.Generator().manual_seed(4))
+    out = {}
+    for device in ("cpu", card):
+        model = lstm_zoo.ConcentrationThresholdPredictor(
+            dropout=0.0, head_dropout=0.0).reset_parameters(
+                torch.Generator().manual_seed(5)).to(device)
+        opt = lstm_trainer.ClippedAdamW(model.parameters(), 1e-2, 1.0)
+        loss = lstm_trainer._run_epoch(
+            model, opt, 3e-4, torch.arange(64)[None].numpy(),
+            lambda a, b: lstm_trainer.smooth_l1(model(a), b, 2.0),
+            x.to(device), y.to(device))
+        out[str(device)] = (float(loss), {k: v.cpu() for k, v in
+                                          model.state_dict().items()})
+    (want_loss, want), (got_loss, got) = out["cpu"], out[str(card)]
+    assert got_loss == pytest.approx(want_loss, rel=1e-5)
+    for k, v in want.items():
+        torch.testing.assert_close(got[k], v, rtol=LSTM_RTOL, atol=LSTM_ATOL)
+
+
+def test_threshold_gated_eval_on_the_card_matches_the_cpu(card):
+    cfg = get_preset("ppo_v2_0")
+    n, length = 64, 200
+    model = ActorCritic(cfg.env.obs_dim, cfg.env.num_actions)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    net = lstm_zoo.ConcentrationThresholdPredictor().reset_parameters(
+        torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        net.fc[4].bias.fill_(5.0)
+    net.eval()
+    draws = harnesses.draw_eval(torch.Generator().manual_seed(1), cfg.env,
+                                length, n)
+    out = {}
+    for device in ("cpu", card):
+        net.to(device)
+
+        @torch.no_grad()
+        def predict(window):
+            return net(window / 100.0)
+
+        gate = harnesses.make_threshold_gate(predict, cfg.stop)
+        out[str(device)] = harnesses.evaluate_policy(
+            model, cfg.env, cfg.eval, draws=draws, device=device,
+            num_episodes=n, max_steps=length, stop_gate=gate)
+    want, got = out["cpu"], out[str(card)]
+    same = ((got.steps == want.steps)
+            & (got.stopped_early == want.stopped_early))
+    assert same.sum() >= n - 1, (got.steps, want.steps)
+    torch.testing.assert_close(torch.from_numpy(got.deviations[same]),
+                               torch.from_numpy(want.deviations[same]),
+                               rtol=1e-5, atol=1e-4)
+    assert want.stopped_early.any()

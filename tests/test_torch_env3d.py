@@ -424,15 +424,27 @@ def test_cli_trains_wrf_les_3d_on_a_synthesized_bank(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags,match", [
     (["--synth-bank", "static"], "would ignore it"),
-    (["--preset", "wrf_les_3d"], "needs --synth-bank"),
-    (["--plume-model", "gridded"], "needs --synth-bank"),
+    (["--preset", "wrf_les_3d"], "needs --bank <file.nc> or --synth-bank"),
+    (["--plume-model", "gridded"], "needs --bank <file.nc> or --synth-bank"),
     (["--preset", "wrf_les_3d", "--bank", "bank.nc"], None),
 ])
-def test_cli_bank_flag_rules(flags, match, capsys):
-    with pytest.raises(SystemExit) as exc:
-        cli_main(["train", "--cpu", "--iterations", "1", *flags])
+def test_cli_bank_flag_rules(flags, match, capsys, tmp_path):
+    """The JAX CLI's bank rules; a missing ``--bank`` file raises the
+    ``FileNotFoundError`` that JAX's ``train`` raises."""
+    argv = ["train", "--cpu", "--iterations", "1", *flags]
     if match:
+        with pytest.raises(SystemExit) as exc:
+            cli_main(argv)
         assert match in str(exc.value)
+        return
+    from tpu_plume.cli.main import main as j_cli_main
+
+    argv += ["--out", str(tmp_path / "run")]
+    with pytest.raises(FileNotFoundError) as want:
+        j_cli_main(argv)
+    with pytest.raises(FileNotFoundError) as got:
+        cli_main(argv)
+    assert str(got.value) == str(want.value)
 
 
 def test_train_ppo_on_a_static_bank_read_between_cells(tmp_path):

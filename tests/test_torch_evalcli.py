@@ -257,9 +257,6 @@ def test_eval_parsers_build_jax_config(cmd, flags):
 
 
 REFUSED = {   # flags: ROADMAP.md Queue 1 slice
-    "stop_threshold": (["--stop", "threshold"], 8),
-    "stop_peakstop": (["--stop", "peakstop"], 8),
-    "lstm_ckpt": (["--lstm-ckpt", "ckpt"], 8),
     "guide_fit": (["--guide", "fit"], 9),
     "guide_bank": (["--guide", "bank"], 9),
     "guide_margin": (["--guide-margin", "1.5"], 9),
@@ -268,9 +265,7 @@ REFUSED = {   # flags: ROADMAP.md Queue 1 slice
     "oracle": (["--oracle", "phase"], 10),
     "localize": (["--localize", "dir"], 11),
     "localize_window": (["--localize-window", "32"], 11),
-    "netcdf_bank": (["--bank", "field.nc"], 4),
     "expert_oracle": (["--oracle", "naive"], 10),
-    "expert_bank": (["--bank", "field.nc"], 4),
 }
 
 
@@ -283,7 +278,33 @@ def test_flags_of_later_slices_are_refused_before_any_work(name):
         cli_main([cmd, "--cpu", "--pth", "/nonexistent.pth", *flags])
 
 
-@pytest.mark.parametrize("cmd", ["eval", "expert"])
+TRAIN_REFUSED = {   # train flags: ROADMAP.md Queue 1 slice
+    "train_guide": (["--train-guide", "fit"], 9),
+    "distill": (["--distill", "phase"], 10),
+    "distill_coef": (["--distill-coef", "0.1"], 10),
+    "distill_gate": (["--distill-gate=0.2"], 10),
+    "resume": (["--resume", "runs/old"], 12),
+    "snapshot_every": (["--snapshot-every", "5"], 12),
+    "tensorboard": (["--tensorboard"], 12),
+    "profile_steps": (["--profile-steps", "3"], 12),
+    "debug_nans": (["--debug-nans"], 12),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TRAIN_REFUSED))
+def test_train_flags_of_later_slices_are_refused_before_any_work(name,
+                                                                 tmp_path):
+    flags, item = TRAIN_REFUSED[name]
+    out = tmp_path / "run"
+    with pytest.raises(SystemExit, match=rf"ROADMAP\.md Queue 1, slice {item} "):
+        cli_main(["train", "--cpu", "--iterations", "1", "--out", str(out),
+                  *flags])
+    assert not out.exists()
+    # JAX's train parser takes each of them
+    j_build_parser().parse_args(["train", *flags])
+
+
+@pytest.mark.parametrize("cmd", ["train", "eval", "expert"])
 def test_flags_no_slice_ports_are_errors(cmd, capsys):
     with pytest.raises(SystemExit) as exc:
         cli_main([cmd, "--cpu", "--pth", "/nonexistent.pth", "--typo", "3"])

@@ -1,11 +1,15 @@
 """Command line of the port:
 
-    python -m tpu_plume_torch.cli train --preset ppo_v2_0 --out runs/torch_v20
+    python -m tpu_plume_torch.cli train --preset ppo_v2_0 --out runs/torch_v20 --netcdf --conc-csv
     python -m tpu_plume_torch.cli train --preset wrf_les_3d --synth-bank 3d
+    python -m tpu_plume_torch.cli train --preset wrf_les_3d --bank bank.nc
     python -m tpu_plume_torch.cli eval --pth runs/torch_v20/model/ppo_successful_models.pth --stop heuristic --out runs/eval
     python -m tpu_plume_torch.cli expert --ckpt runs/torch_v20/checkpoint.pt --episodes 100
     python -m tpu_plume_torch.cli train --arch lstm --ln-lstm --out runs/torch_lstm
     python -m tpu_plume_torch.cli eval --arch lstm --ln-lstm --ckpt runs/torch_lstm --stop heuristic
+    python -m tpu_plume_torch.cli train-lstm --variant threshold --nc runs/torch_v20/training_data.nc --out runs/lstm
+    python -m tpu_plume_torch.cli eval --pth ... --stop threshold --lstm-ckpt runs/lstm/lstm_threshold_predictor.pt
+    python -m tpu_plume_torch.cli inspect-nc runs/torch_v20/training_data.nc
 
 Runs on the card; ``--cpu`` runs on the CPU.  The flags are the JAX CLI's
 (``python -m tpu_plume.cli``), with its types, defaults and override
@@ -19,9 +23,10 @@ writes one from a JAX run) and ``--ckpt`` the port's own ``checkpoint.pt``;
 ``train`` takes either as its initial params.  ``--arch lstm`` (with
 ``--ln-lstm``, the LayerNorm cell) selects the recurrent policy, whose
 weights load from ``--ckpt`` only: the ``.pth`` layout is the 2-layer MLP.
-A flag of a path the port does not run yet is either not accepted (``train
---bank file.nc``: banks are synthesized from ``--bank-seed``) or, for
-``eval`` and ``expert``, refused before any work, naming the
+``--lstm-ckpt`` loads a stop LSTM's state_dict (the port's ``<name>.pt``
+or a reference ``.pth``).  The NetCDF files (``--netcdf``, ``--bank
+file.nc``, ``train-lstm --nc``, ``inspect-nc``) need h5py.  A flag of a
+path the port does not run yet is refused before any work, naming the
 ``ROADMAP.md`` slice that ports it.
 """
 
@@ -94,23 +99,26 @@ def apply_overrides(cfg, args):
 
 
 def make_bank(args, cfg, device):
-    """The ``FieldBank`` of a gridded config, synthesized on ``device`` from
-    ``--bank-seed`` (the JAX CLI's ``_make_bank`` rules and defaults); None
-    for an analytic plume model."""
+    """The ``FieldBank`` of a gridded config on ``device``: ``--bank
+    file.nc`` ingested, else synthesized from ``--bank-seed`` (the JAX CLI's
+    ``_make_bank`` rules and defaults); None for an analytic plume model."""
     import torch
 
     from tpu_plume_torch.fields import gridded
 
     kind = args.synth_bank
-    if kind is not None and cfg.env.plume_model != "gridded":
+    if (args.bank or kind is not None) and cfg.env.plume_model != "gridded":
         # a bank flag on a non-gridded env would be silently ignored
         raise SystemExit(
-            f"--synth-bank given but plume_model='{cfg.env.plume_model}' "
-            f"would ignore it; add --plume-model gridded (or a gridded "
-            f"preset)")
+            f"--synth-bank/--bank given but plume_model="
+            f"'{cfg.env.plume_model}' would ignore it; add --plume-model "
+            f"gridded (or a gridded preset)")
+    if args.bank:
+        return gridded.ingest_netcdf(args.bank, device=device)
     if kind is None:
         if cfg.env.plume_model == "gridded":
-            raise SystemExit('plume_model="gridded" needs --synth-bank')
+            raise SystemExit(
+                'plume_model="gridded" needs --bank <file.nc> or --synth-bank')
         return None
     gen = torch.Generator(device=device).manual_seed(args.bank_seed)
     k = args.bank_fields or (4 if kind == "3d" else 64)
@@ -181,14 +189,16 @@ def load_policy(args, cfg, device):
     return model.to(device)
 
 
-# eval / expert flags of later slices, left undeclared and refused before
-# any work: a flag's name (without "--", "no-" and "=value") matched
-# against each pattern, with the ROADMAP item that ports it.
+# Flags of later slices, left undeclared and refused before any work: a
+# flag's name (without "--", "no-" and "=value") matched against each
+# pattern, with the ROADMAP item that ports it.
 LATER_FLAGS = ((r"guide-.+", support.GUIDES),
-               (r"lstm-ckpt", support.STOP_LSTM),
+               (r"train-guide", support.GUIDES),
                (r"oracle", support.IMITATION),
+               (r"distill(-coef|-gate)?", support.IMITATION),
                (r"localize(-window)?", support.LOCALIZE),
-               (r"bank", support.NETCDF))
+               (r"resume|snapshot-every|tensorboard|profile-steps|debug-nans",
+                support.SCALE_OUT))
 
 
 def refuse_later_flags(extra):
@@ -207,13 +217,72 @@ def refuse_later_flags(extra):
 def refuse_unported(args):
     """Raise ``SystemExit`` naming the ROADMAP slice of a ported flag's
     value whose path the port does not run yet."""
-    def refuse(flag, item):
-        raise SystemExit(support.unported_message(flag, item))
-
-    if getattr(args, "stop", None) in ("threshold", "peakstop"):
-        refuse(f"--stop {args.stop}", support.STOP_LSTM)
     if getattr(args, "guide", "none") != "none":
-        refuse(f"--guide {args.guide}", support.GUIDES)
+        raise SystemExit(support.unported_message(f"--guide {args.guide}",
+                                                  support.GUIDES))
+
+
+def lstm_gate(args, cfg, device):
+    """The stop gate of ``--stop threshold`` or ``--stop peakstop`` (JAX's
+    ``_lstm_gate``): its LSTM from ``--lstm-ckpt``, a state_dict file in the
+    reference layout (the port's ``lstm_threshold_predictor.pt`` /
+    ``best_peak_and_stop.pt``, or a ``.pth`` of either package), run on
+    ``device`` in eval mode over the batch of episodes at every eval step.
+    The threshold gate scales the raw window by ``scaler_params.npy`` beside
+    the checkpoint; the peak-stop gate reads ``window / conc_norm``."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from tpu_plume_torch.data.scaler import MinMaxScaler
+    from tpu_plume_torch.evaluation import (
+        make_peak_stop_gate,
+        make_threshold_gate,
+    )
+    from tpu_plume_torch.models.lstm_zoo import (
+        ConcentrationThresholdPredictor,
+        PeakAndStopPredictor,
+    )
+
+    path = args.lstm_ckpt
+    if not path:
+        raise SystemExit("--stop threshold/peakstop requires --lstm-ckpt")
+    if os.path.isdir(path):
+        raise SystemExit(
+            f"--lstm-ckpt {path} is a directory.  The port reads a "
+            f"state_dict file (its own lstm_threshold_predictor.pt or "
+            f"best_peak_and_stop.pt, or a .pth), not an Orbax directory of "
+            f"the JAX package; export a JAX run's params with "
+            f"tpu_plume.data.torch_export.export_threshold_lstm_pth or "
+            f"export_peak_stop_pth and pass that file")
+    state_dict = torch.load(path, map_location="cpu", weights_only=True)
+    if args.stop == "threshold":
+        scaler_path = os.path.join(os.path.dirname(path), "scaler_params.npy")
+        if not os.path.isfile(scaler_path):
+            raise SystemExit(f"--stop threshold scales its window by the "
+                             f"scaler beside --lstm-ckpt: {scaler_path} "
+                             f"not found")
+        scaler = MinMaxScaler.load(scaler_path)
+        model = ConcentrationThresholdPredictor()
+        lo, scale = (torch.tensor(np.float32(v), device=device)
+                     for v in (scaler.data_min_, scaler._scale))
+    else:
+        model = PeakAndStopPredictor()
+    model.load_state_dict(state_dict)
+    model.to(device).eval()
+    if args.stop == "threshold":
+        @torch.no_grad()
+        def predict(window):
+            return model((window - lo) * scale)
+
+        return make_threshold_gate(predict, cfg.stop)
+
+    @torch.no_grad()
+    def predict(window_norm):
+        return model(window_norm)
+
+    return make_peak_stop_gate(predict, cfg.stop)
 
 
 def _eval_setup(args):
@@ -243,6 +312,8 @@ def cmd_eval(args):
     stop_gate = None
     if args.stop == "heuristic":
         stop_gate = make_heuristic_gate(cfg.eval, cfg.env.conc_peak)
+    elif args.stop in ("threshold", "peakstop"):
+        stop_gate = lstm_gate(args, cfg, device)
     n_eval = args.episodes or cfg.eval.episodes
     m = evaluate_policy(
         model, cfg.env, cfg.eval,
@@ -300,6 +371,8 @@ def cmd_train(args):
         sync_every=args.sync_every,
         bank=make_bank(args, cfg, device),
         init_params=init_params,
+        capture_netcdf=args.netcdf,
+        capture_conc_csv=args.conc_csv,
     )
     print(json.dumps({
         "episodes": res.episodes,
@@ -309,6 +382,58 @@ def cmd_train(args):
         "steps_per_sec": res.steps_per_sec,
         "out_dir": res.out_dir,
     }))
+
+
+def cmd_train_lstm(args):
+    if args.variant == "params":
+        if not (args.nc or args.flights):
+            raise SystemExit("--variant params needs --nc or --flights")
+    elif not args.nc:
+        raise SystemExit(f"--variant {args.variant} needs --nc")
+    from tpu_plume_torch.data.datasets import (
+        load_raw_sequences,
+        load_trajectory_segments,
+    )
+    from tpu_plume_torch.train import lstm_trainer as lt
+
+    device = resolve_device("cpu" if args.cpu else None)
+    if args.variant == "threshold":
+        seqs, src = load_raw_sequences(args.nc)
+        res = lt.train_threshold_lstm(seqs, src, args.out, epochs=args.epochs,
+                                      verbose=True, device=device)
+        print(json.dumps({"final_loss": res.losses[-1], "r2": res.extra["r2"]}))
+    elif args.variant == "v12":
+        if args.nc.endswith(".csv"):
+            from tpu_plume_torch.data.conc_csv import load_conc_rows
+
+            seqs, src = load_conc_rows(args.nc)
+        else:
+            seqs, src = load_raw_sequences(args.nc)
+        res = lt.train_sequence_lstm(seqs, src, args.out, epochs=args.epochs,
+                                     verbose=True, device=device)
+        print(json.dumps({"final_loss": res.losses[-1],
+                          "test_r2": res.extra["test_r2"]}))
+    elif args.variant == "params":
+        res = lt.train_source_lstm(
+            args.nc, args.out, flights_path=args.flights, window=args.window,
+            epochs=args.epochs, verbose=True, features=args.features,
+            hidden=args.hidden_size, device=device)
+        print(json.dumps({
+            "best_loss": res.extra["best_loss"],
+            "val_mean_err_px": res.extra["val_mean_err_px"],
+            "val_median_err_px": res.extra["val_median_err_px"],
+        }))
+    else:
+        segs = load_trajectory_segments(args.nc, window_size=20)
+        res = lt.train_peak_stop_lstm(segs, args.out, epochs=args.epochs,
+                                      verbose=True, device=device)
+        print(json.dumps({"best_loss": res.extra["best_loss"]}))
+
+
+def cmd_inspect_nc(args):
+    from tpu_plume_torch.data.netcdf import describe_nc
+
+    print(describe_nc(args.path))
 
 
 def _common(sp, out_default):
@@ -331,7 +456,10 @@ def _common(sp, out_default):
                     help="append [dconc, prev-action one-hot] to the obs")
     sp.add_argument("--plume-model",
                     choices=["isotropic", "anisotropic", "gridded"],
-                    help="plume field model (gridded needs --synth-bank)")
+                    help="plume field model (gridded needs --bank or "
+                         "--synth-bank)")
+    sp.add_argument("--bank", help="WRF-LES NetCDF field bank to ingest "
+                    "(plume_model=gridded; needs h5py)")
     sp.add_argument("--synth-bank", choices=["static", "time", "3d", "les"],
                     help="procedurally synthesize a gridded field bank")
     sp.add_argument("--bank-fields", type=int, help="bank rows K")
@@ -400,7 +528,36 @@ def build_parser():
                          "the CSV (default 8)")
     sp.add_argument("--no-csv", action="store_true",
                     help="skip the per-episode CSV")
+    sp.add_argument("--netcdf", action="store_true",
+                    help="capture training_data.nc (needs h5py)")
+    sp.add_argument("--conc-csv", action="store_true",
+                    help="capture ragged conc sequences (V1.2 data.csv)")
     sp.set_defaults(fn=cmd_train)
+
+    sp = sub.add_parser("train-lstm", help="LSTM stop-predictor training")
+    sp.add_argument("--variant",
+                    choices=["threshold", "peakstop", "v12", "params"],
+                    default="threshold")
+    sp.add_argument("--window", type=int, default=64,
+                    help="window length for --variant params (the source "
+                         "localizer)")
+    sp.add_argument("--nc",
+                    help="NC trajectory capture (required unless --flights; "
+                         "a data.csv for --variant v12)")
+    sp.add_argument("--flights",
+                    help="flights.npz from `eval --save-flights` "
+                         "(--variant params only)")
+    sp.add_argument("--out", default="runs/lstm")
+    sp.add_argument("--epochs", type=int, default=150)
+    sp.add_argument("--features", choices=["xyc", "xycd"], default="xyc",
+                    help="--variant params window features: normalized "
+                         "(x, y, conc), or with the per-step deltas")
+    sp.add_argument("--hidden-size", type=int, default=32,
+                    help="--variant params LSTM cell/head width (kept in "
+                         "localizer_meta.npz)")
+    sp.add_argument("--cpu", action="store_true",
+                    help="run on the CPU instead of the card")
+    sp.set_defaults(fn=cmd_train_lstm)
 
     sp = sub.add_parser("eval", help="greedy evaluation harness",
                         allow_abbrev=False)
@@ -411,7 +568,12 @@ def build_parser():
     sp.add_argument("--stop",
                     choices=["none", "heuristic", "threshold", "peakstop"],
                     default="none",
-                    help="stop gate (threshold and peakstop: not ported yet)")
+                    help="stop gate (threshold and peakstop read the LSTM "
+                         "of --lstm-ckpt)")
+    sp.add_argument("--lstm-ckpt",
+                    help="the stop LSTM's state_dict for --stop threshold / "
+                         "peakstop (the threshold gate's scaler_params.npy "
+                         "lies beside it)")
     sp.add_argument("--sample", action="store_true",
                     help="sample actions instead of greedy argmax")
     sp.add_argument("--goal-radius", type=float,
@@ -426,6 +588,10 @@ def build_parser():
                         allow_abbrev=False)
     _common(sp, "expert_data.npz")
     sp.set_defaults(fn=cmd_expert)
+
+    sp = sub.add_parser("inspect-nc", help="dump NetCDF dataset schema")
+    sp.add_argument("path")
+    sp.set_defaults(fn=cmd_inspect_nc)
     return p
 
 
@@ -433,8 +599,7 @@ def main(argv=None):
     parser = build_parser()
     args, extra = parser.parse_known_args(argv)
     if extra:
-        if args.cmd != "train":
-            refuse_later_flags(extra)
+        refuse_later_flags(extra)
         parser.error("unrecognized arguments: " + " ".join(extra))
     args.fn(args)
 

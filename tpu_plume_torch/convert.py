@@ -1,6 +1,6 @@
 """Parameters between the flax ``ActorCritic`` / ``RecurrentActorCritic``
-layouts and the port's modules, and field banks from the JAX package's
-arrays into the port.
+and stop-LSTM layouts and the port's modules, and field banks from the JAX
+package's arrays into the port.
 
 Works on plain numpy arrays, so neither side needs the other's framework:
 flax ``{"params": {"Dense_0": {"kernel", "bias"}, "LayerNorm_0": {"scale",
@@ -135,6 +135,64 @@ def recurrent_actor_critic_to_flax(state_dict: dict) -> dict:
             cell[f"h{g}"] = {"kernel": np.ascontiguousarray(wh.T),
                              "bias": bh.copy()}
     p["cell"] = cell
+    return {"params": p}
+
+
+def _cells(p: dict) -> list[str]:
+    return sorted((k for k in p if k.startswith("OptimizedLSTMCell_")),
+                  key=lambda k: int(k.rsplit("_", 1)[1]))
+
+
+def lstm_zoo_from_flax(model, params: dict) -> dict[str, torch.Tensor]:
+    """flax param tree (numpy leaves) of a stop-LSTM model of
+    ``tpu_plume/models/lstm_zoo.py`` -> a state_dict for the port's model
+    of the same name (``model``, the class or an instance).  Cell ``k``
+    (``OptimizedLSTMCell_k``) becomes ``lstm`` layer ``k`` as
+    ``tpu_plume/data/torch_export.py`` maps it: per-gate kernels stacked in
+    the order (i, f, g, o), the flax bias into ``bias_hh``, ``bias_ih``
+    zero.  The Dense and LayerNorm layers map by ``model.FLAX_LAYERS``."""
+    p = params["params"] if "params" in params else params
+    sd = {}
+    for k, name in enumerate(_cells(p)):
+        cell = p[name]
+        for side, torch_side in (("i", "ih"), ("h", "hh")):
+            sd[f"lstm.weight_{torch_side}_l{k}"] = _tensor(np.concatenate(
+                [_arr(cell[f"{side}{g}"]["kernel"]).T for g in _GATES]))
+        b = np.concatenate([_arr(cell[f"h{g}"]["bias"]) for g in _GATES])
+        sd[f"lstm.bias_ih_l{k}"] = _tensor(np.zeros_like(b))
+        sd[f"lstm.bias_hh_l{k}"] = _tensor(b)
+    for torch_name, flax_name in model.FLAX_LAYERS:
+        mod = p[flax_name]
+        w = _arr(mod["scale"] if "scale" in mod else mod["kernel"])
+        sd[f"{torch_name}.weight"] = _tensor(w if "scale" in mod else w.T)
+        sd[f"{torch_name}.bias"] = _tensor(mod["bias"])
+    return sd
+
+
+def lstm_zoo_to_flax(model, state_dict: dict) -> dict:
+    """The port's stop-LSTM state_dict -> the flax param tree with numpy
+    leaves (the inverse of ``lstm_zoo_from_flax``; a cell's bias is
+    ``bias_ih + bias_hh``, so a reference ``.pth`` with both biases maps
+    exactly)."""
+    sd = {k: _arr(v) for k, v in state_dict.items()}
+    p = {}
+    layers = sum(1 for k in sd if k.startswith("lstm.weight_ih_l"))
+    for k in range(layers):
+        w_i = np.split(sd[f"lstm.weight_ih_l{k}"], len(_GATES))
+        w_h = np.split(sd[f"lstm.weight_hh_l{k}"], len(_GATES))
+        b = np.split(sd[f"lstm.bias_ih_l{k}"] + sd[f"lstm.bias_hh_l{k}"],
+                     len(_GATES))
+        cell = {}
+        for g, wi, wh, bg in zip(_GATES, w_i, w_h, b):
+            cell[f"i{g}"] = {"kernel": np.ascontiguousarray(wi.T)}
+            cell[f"h{g}"] = {"kernel": np.ascontiguousarray(wh.T),
+                             "bias": bg.copy()}
+        p[f"OptimizedLSTMCell_{k}"] = cell
+    for torch_name, flax_name in model.FLAX_LAYERS:
+        w, b = sd[f"{torch_name}.weight"], sd[f"{torch_name}.bias"]
+        p[flax_name] = ({"scale": w, "bias": b}
+                        if flax_name.startswith("LayerNorm_") else
+                        {"kernel": np.ascontiguousarray(w.T), "bias": b})
     return {"params": p}
 
 

@@ -9,11 +9,10 @@ from __future__ import annotations
 
 from tpu_plume_torch.core.config import EnvConfig, PPOConfig
 
-NETCDF = "ROADMAP.md Queue 1, slice 4 (NetCDF I/O)"
-STOP_LSTM = "ROADMAP.md Queue 1, slice 8 (stop-LSTM family)"
 GUIDES = "ROADMAP.md Queue 1, slice 9 (guides)"
 IMITATION = "ROADMAP.md Queue 1, slice 10 (imitation, GAIL and distilled PPO)"
 LOCALIZE = "ROADMAP.md Queue 1, slice 11 (flux and localization)"
+SCALE_OUT = "ROADMAP.md Queue 1, slice 12 (scale-out and the rest)"
 
 # The JAX package's bank gather formulations; the port samples one function
 # for all of them.

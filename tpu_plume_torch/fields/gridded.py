@@ -1,12 +1,13 @@
 """Gridded plume fields: a device-resident bank of mean-concentration grids
-(port of ``tpu_plume/fields/gridded.py`` without the NetCDF reader and
-writer).
+(port of ``tpu_plume/fields/gridded.py``).
 
 Each episode samples a row of a ``FieldBank`` and the env reads the row at
 the agent's position.  Banks are synthesized here from a
 ``torch.Generator`` (``synthesize_*``); each synthesizer's body, given its
 draws, is a function of its own (``build_*``), so the tests feed it the JAX
-package's draws.
+package's draws.  ``ingest_netcdf`` reads a bank from a NetCDF/HDF5 file
+and ``export_bank_netcdf`` writes one, through h5py, imported where a file
+is opened.
 
 Two reads:
   - ``sample_bank``: the grid cell, linear in t (4-D banks) and in t and z
@@ -334,3 +335,107 @@ def synthesize_les_bank(generator: torch.Generator, cfg: EnvConfig,
         veer=_uniform(generator, (num_fields,), -0.5, 0.5),
     )
     return build_les_bank(draws, cfg, num_frames, steps_per_frame, g, **shape)
+
+
+def ingest_netcdf(
+    path: str,
+    conc_var: str = "concentration",
+    source_x_var: str = "source_x",
+    source_y_var: str = "source_y",
+    wind_u_var: str = "wind_u",
+    wind_v_var: str = "wind_v",
+    scale_to_peak: float | None = None,
+    steps_per_frame: float | None = None,
+    z_extent: float | None = None,
+    device="cpu",
+) -> FieldBank:
+    """A bank from a NetCDF/HDF5 file on ``device``: ``conc_var`` of shape
+    [K, H, W], [K, T, H, W] or [K, T, Z, H, W] (without the leading K, K=1)
+    plus per-field source coordinates and, if present, wind components [K,
+    T] (or [K] / [T]).  Packed integers are unpacked by their
+    ``scale_factor`` / ``add_offset`` after the ``_FillValue`` cells are
+    masked; missing cells are zero.  Source coordinates come from a
+    variable, else a global attribute.  Optionally rescaled so that max ==
+    ``scale_to_peak``.  ``steps_per_frame`` / ``z_extent`` default to the
+    file attributes of those names (then 1.0 / num_levels - 1).  The file
+    is read through h5py (``tpu_plume/fields/gridded.py`` ``ingest_netcdf``);
+    the bank is built by ``convert.field_bank_from_numpy``."""
+    import h5py
+    import numpy as np
+
+    from tpu_plume_torch.convert import field_bank_from_numpy
+
+    with h5py.File(path, "r") as f:
+        var = f[conc_var]
+        conc = np.asarray(var, np.float64)
+        vattrs = dict(var.attrs)
+        if "_FillValue" in vattrs:
+            # _FillValue matches the raw (packed) value: mask before unpacking
+            fill = float(np.asarray(vattrs["_FillValue"]))
+            conc = np.where(conc == fill, np.nan, conc)
+        if "scale_factor" in vattrs or "add_offset" in vattrs:
+            conc = (conc * float(np.asarray(vattrs.get("scale_factor", 1.0)))
+                    + float(np.asarray(vattrs.get("add_offset", 0.0))))
+        conc = np.nan_to_num(conc, nan=0.0).astype(np.float32)
+        if conc.ndim == 2:            # [H, W] -> [1, H, W]
+            conc = conc[None]
+        attrs = dict(f.attrs)
+
+        def read_coord(name):
+            if name in f:
+                return np.atleast_1d(np.asarray(f[name], np.float32))
+            if name in attrs:
+                return np.atleast_1d(np.asarray(attrs[name], np.float32))
+            raise KeyError(
+                f"{name} not found in {path} (neither variable nor attribute)")
+
+        sx = read_coord(source_x_var)
+        sy = read_coord(source_y_var)
+        wind = None
+        if wind_u_var in f and wind_v_var in f:
+            wind = np.stack([np.asarray(f[wind_u_var], np.float32),
+                             np.asarray(f[wind_v_var], np.float32)], axis=-1)
+    k = sx.shape[0]
+    if conc.shape[0] != k and conc.ndim >= 3:
+        # stored without the K axis ([T, H, W] / [T, Z, H, W])
+        if k == 1:
+            conc = conc[None]
+        else:
+            raise ValueError(f"{k} sources for conc shape {conc.shape} in {path}")
+    if scale_to_peak is not None and conc.max() > 0:
+        conc = conc * (scale_to_peak / conc.max())
+    source = np.stack([sx, sy], axis=-1)
+    if source.shape[0] != conc.shape[0]:
+        raise ValueError(
+            f"{source.shape[0]} sources for {conc.shape[0]} fields in {path}")
+    if wind is not None and wind.shape[0] != conc.shape[0]:
+        if conc.shape[0] == 1:
+            wind = wind[None]           # [T, 2] -> [1, T, 2]
+        else:
+            raise ValueError(f"wind shape {wind.shape} mismatches K={conc.shape[0]}")
+    if steps_per_frame is None:
+        steps_per_frame = float(attrs.get("steps_per_frame", 1.0))
+    if z_extent is None:
+        z_extent = float(attrs.get(
+            "z_extent", conc.shape[2] - 1 if conc.ndim == 5 else 0.0))
+    return field_bank_from_numpy(conc, source, wind, steps_per_frame,
+                                 z_extent, device)
+
+
+def export_bank_netcdf(bank: FieldBank, path: str) -> None:
+    """Write a bank in ``ingest_netcdf``'s format (h5py), as the JAX
+    package's ``export_bank_netcdf`` writes it."""
+    import h5py
+
+    conc = bank.conc.detach().cpu().numpy()
+    src = bank.source.detach().cpu().numpy()
+    with h5py.File(path, "w") as f:
+        f.create_dataset("concentration", data=conc, compression="gzip")
+        f.create_dataset("source_x", data=src[:, 0])
+        f.create_dataset("source_y", data=src[:, 1])
+        if bank.wind is not None:
+            wind = bank.wind.detach().cpu().numpy()
+            f.create_dataset("wind_u", data=wind[..., 0])
+            f.create_dataset("wind_v", data=wind[..., 1])
+        f.attrs["steps_per_frame"] = float(bank.steps_per_frame)
+        f.attrs["z_extent"] = float(bank.z_extent)

@@ -12,7 +12,10 @@ One train step runs
 on the step's device.  The host loop ``train_ppo`` drains completed-episode
 records to the reference's CSV every ``sync_every`` iterations, logs
 per-iteration scalars, and writes a ``torch.save`` checkpoint and, for the
-2-layer feedforward policy, the reference-layout ``.pth`` at the end.
+2-layer feedforward policy, the reference-layout ``.pth`` at the end.  With
+a capture on (``capture_netcdf``, ``capture_conc_csv``) the drain also
+reassembles each finished episode's trajectory (``EpisodeCapture``) into
+``training_data.nc`` and ``data.csv``.
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ import torch
 from tpu_plume_torch.core.config import TrainConfig
 from tpu_plume_torch.core.device import resolve_device
 from tpu_plume_torch.core.support import check_env, check_guide, check_ppo
+from tpu_plume_torch.data.conc_csv import save_conc_rows
+from tpu_plume_torch.data.netcdf import EpisodeArrays, NetCDFWriter
 from tpu_plume_torch.models.actor_critic import ActorCritic
 from tpu_plume_torch.models.recurrent import RecurrentActorCritic
 from tpu_plume_torch.obsv.metrics import EpisodeCSVLogger, TrainLogger
@@ -355,6 +360,70 @@ class EpisodeAssembler:
                 }
 
 
+class EpisodeCapture:
+    """The trajectory capture of ``train_ppo`` (JAX's ``_drain``,
+    ``tpu_plume/train/ppo_trainer.py:549-596``): each drained window's
+    finished episodes, reassembled by ``EpisodeAssembler``, go
+
+    - with ``conc_csv``, every success to ``data.csv`` (its concentration
+      sequence and final concentration, the V1.2 format);
+    - the successes at the two smallest radii seen (``RadiusTracker``), at
+      most ``total_episodes`` of them, to ``arrays`` (``EpisodeArrays``),
+      and with ``netcdf`` to ``training_data.nc`` (V2.1's sigma and peak
+      for ``ppo_v2_1``)."""
+
+    def __init__(self, cfg: TrainConfig, out_dir: str, netcdf: bool,
+                 conc_csv: bool):
+        self.limit = cfg.total_episodes
+        self.sigma, self.peak = cfg.env.plume_sigma, cfg.env.conc_peak
+        v21 = cfg.name == "ppo_v2_1"
+        self.arrays = EpisodeArrays(cfg.env.max_steps, v21)
+        self.writer = None
+        if netcdf:
+            self.writer = NetCDFWriter(
+                os.path.join(out_dir, "training_data.nc"),
+                grid_size=cfg.env.grid_size, max_episodes=cfg.total_episodes,
+                max_steps=cfg.env.max_steps, with_gaussian_params=v21)
+        self.conc_csv = None
+        if conc_csv:
+            self.conc_csv = os.path.join(out_dir, "data.csv")
+            open(self.conc_csv, "w").close()
+        self.tracker = RadiusTracker()
+        self.assembler = EpisodeAssembler(cfg.rollout.num_envs,
+                                          cfg.env.max_steps)
+
+    def drain(self, rec: dict) -> None:
+        """Capture the finished episodes of one iteration's [T, N] host
+        arrays (``_capture_records``)."""
+        traj_np = {"pos": rec["pos"], "conc": rec["conc"],
+                   "done": rec["done"], "steps": rec["steps"],
+                   "episode": {k: rec[k] for k in (
+                       "success", "final_conc", "final_x", "final_y",
+                       "radius")}}
+        rows = []
+        for ep in self.assembler.drain(traj_np):
+            if self.conc_csv and bool(ep["success"]):
+                rows.append((ep["conc"], float(ep["final_conc"])))
+            if len(self.arrays) >= self.limit:
+                continue
+            if self.tracker.update(float(ep["radius"]), bool(ep["success"])):
+                kw = dict(episode_idx=len(self.arrays), steps=ep["steps"],
+                          x=ep["x"], y=ep["y"], conc=ep["conc"],
+                          source_x=float(ep["final_x"]),
+                          source_y=float(ep["final_y"]),
+                          source_conc=float(ep["final_conc"]),
+                          sigma=self.sigma, peak=self.peak)
+                if self.writer is not None:
+                    self.writer.write_episode_data(**kw)
+                self.arrays.write_episode_data(**kw)
+        if rows:
+            save_conc_rows(self.conc_csv, *zip(*rows), append=True)
+
+    def close(self) -> None:
+        if self.writer is not None:
+            self.writer.close()
+
+
 @dataclasses.dataclass
 class TrainResult:
     state_dict: dict
@@ -364,6 +433,8 @@ class TrainResult:
     env_steps: int
     steps_per_sec: float
     out_dir: str
+    # the captured episodes (``EpisodeCapture.arrays``) when a capture ran
+    trajectories: EpisodeArrays | None = None
 
 
 def _done_rows(traj) -> dict:
@@ -373,6 +444,34 @@ def _done_rows(traj) -> dict:
     return {"done": np.ones(int(done.sum()), bool),
             **{k: getattr(ep, k)[done].cpu().numpy()
                for k in REC_KEYS if k != "done"}}
+
+
+def _capture_records(traj) -> dict:
+    """The [T, N] device arrays a captured iteration drains: the episode
+    records of ``REC_KEYS``, the positions and concentrations, and the
+    final positions (which the capture writes as the source's)."""
+    ep = traj.episode
+    return {**{k: getattr(ep, k) for k in REC_KEYS},
+            "pos": traj.pos, "conc": traj.conc,
+            "final_x": ep.final_x, "final_y": ep.final_y}
+
+
+def _window_to_host(window: list) -> list:
+    """A window's device arrays (a list of dicts of tensors) on the host in
+    one transfer: packed as f32 (bools and the int32 step counts, at most
+    2^24, are exact there), then split and cast back."""
+    host = torch.cat([v.reshape(-1).float() for tree in window
+                      for v in tree.values()]).cpu().numpy()
+    out, at = [], 0
+    for tree in window:
+        host_tree = {}
+        for k, v in tree.items():
+            n = v.numel()
+            host_tree[k] = host[at:at + n].reshape(v.shape).astype(
+                str(v.dtype).removeprefix("torch."))
+            at += n
+        out.append(host_tree)
+    return out
 
 
 def train_ppo(
@@ -387,6 +486,8 @@ def train_ppo(
     guide=None,
     bank=None,
     init_params: dict | None = None,
+    capture_netcdf: bool = False,
+    capture_conc_csv: bool = False,
 ) -> TrainResult:
     """Train until ``cfg.total_episodes`` episodes complete (or
     ``max_iterations`` iterations).  ``device`` defaults to ``cuda`` and
@@ -401,7 +502,12 @@ def train_ppo(
     (a state_dict of the policy, as ``--pth`` and ``--ckpt`` load it)
     warm-starts the policy; the optimizer starts fresh.  The run writes
     ``checkpoint.pt`` and, for the 2-layer feedforward policy only,
-    ``model/ppo_successful_models.pth``, the reference's layout."""
+    ``model/ppo_successful_models.pth``, the reference's layout.
+    ``capture_netcdf`` writes ``training_data.nc`` (needs h5py) and
+    ``capture_conc_csv`` ``data.csv`` (``EpisodeCapture``); with either, the
+    captured episodes are also returned in ``TrainResult.trajectories``.
+    The capture adds no launch to the step: each drained window's records
+    and trajectories come to the host in one transfer."""
     device = resolve_device(device)
     check_env(cfg.env)
     check_ppo(cfg.ppo)
@@ -422,6 +528,10 @@ def train_ppo(
     pending: list = []
 
     with contextlib.ExitStack() as files:
+        capture = None
+        if capture_netcdf or capture_conc_csv:
+            capture = files.enter_context(contextlib.closing(EpisodeCapture(
+                cfg, out_dir, capture_netcdf, capture_conc_csv)))
         csv_logger = None
         if write_csv:
             csv_logger = files.enter_context(contextlib.closing(
@@ -436,6 +546,10 @@ def train_ppo(
             # iteration is logged on LOG_EVERY or once the drained count
             # reaches the target.
             nonlocal episodes, successes
+            if capture is not None:
+                host = _window_to_host([rec for _, _, rec in pending])
+                pending[:] = [(it, stats, rec) for (it, stats, _), rec in
+                              zip(pending, host)]
             for it, stats, rows in pending:
                 scalars = {k: float(v) for k, v in stats.items()}
                 # NaN tripwire: the whole-iteration loss is the canary.
@@ -443,7 +557,9 @@ def train_ppo(
                     raise RuntimeError(f"non-finite loss at iteration {it}: "
                                        f"{scalars}")
                 if csv_logger is not None:
-                    csv_logger.log_records(rows)
+                    csv_logger.log_records({k: rows[k] for k in REC_KEYS})
+                if capture is not None:
+                    capture.drain(rows)
                 episodes += stats["rollout/episodes"]
                 successes += stats["rollout/successes"]
                 if it % LOG_EVERY == 0 or episodes >= cfg.total_episodes:
@@ -478,7 +594,10 @@ def train_ppo(
                 # which builds the kernels and warms the allocator.
                 t_steady = time.perf_counter()
                 it_at_steady = iteration
-            rows = _done_rows(traj) if csv_logger is not None else None
+            if capture is not None:
+                rows = _capture_records(traj)
+            else:
+                rows = _done_rows(traj) if csv_logger is not None else None
             pending.append((iteration, stats, rows))
             if len(pending) >= sync_every:
                 consume()
@@ -513,4 +632,5 @@ def train_ppo(
         steps_per_sec=(iteration - it_at_steady) * per_iter_steps
         / max(total_dt, 1e-9),
         out_dir=out_dir,
+        trajectories=None if capture is None else capture.arrays,
     )
