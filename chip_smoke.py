@@ -19,7 +19,12 @@ outside a checkout of the repository.  Phases, each of which must pass:
    advection, three isotropic sources, 3-D flight over the isotropic and
    the anisotropic plume, and the anisotropic plume of three sources in
    3-D flight with the delta reward) at N = 4096 and 4133, with integers,
-   bools and positions bit-equal; the fused PPO gradients in
+   bools and positions bit-equal; the same kernel given a guide's executed
+   actions (a third of the envs overridden each step) against
+   ``env_step_plain(exec_action=)`` in the v1_1, v1_0, obs_memory and
+   wrf_les cases, the override rows bit-equal too and the sampled action
+   the kernel records bit-equal to the PyTorch argmax the guide saw; the
+   fused PPO gradients in
    f32 and bf16 compute, at obs widths 6 and 12, hidden widths (256, 128) and (64, 32) and
    minibatches of 65536 and 512 rows, with two calls giving bit-equal
    gradients, and in f32 also against autodiff of ``ppo_loss``; the
@@ -36,7 +41,9 @@ outside a checkout of the repository.  Phases, each of which must pass:
 4. each kernel's time, its plain version's and the least time the card
    could take for the same bytes and operations (the plume sample and the
    env step with the host cost of each piece of their wrappers; the env
-   step on ppo_v2_0's isotropic plume and on wrf_les's anisotropic one);
+   step on ppo_v2_0's isotropic plume and on wrf_les's anisotropic one, and
+   on ppo_v2_0 without and with the executed action in alternating
+   blocks);
    for the
    fused PPO
    gradients (three launches: the row kernel, the split-K dW2 kernel and
@@ -75,7 +82,12 @@ outside a checkout of the repository.  Phases, each of which must pass:
    profiled on the device alone; then one minibatch step of its update,
    forward and backward, through ``sequence`` and through a chain of
    ``step`` calls (the same loss and gradients, each one's ms and
-   launches);
+   launches); ppo_v2_0 and wrf_les with the training guide (``train
+   --train-guide fit --min-radius 50 --terminal-gate 40``: the fit guide in
+   the rollout, still one env-step launch per env step, the overridden
+   steps masked out of the update; 3 and 1 timed iterations), their share
+   of overridden steps, and a 16-step chunk profiled on the device alone
+   for the launches per env step;
 7. the evaluation harness at the reference protocol's width, 1000
    episodes x 1000 steps, each episode reset once and frozen once it ends:
    eval A, ppo_v2_0 with the heuristic stop and the params of the f32 main
@@ -99,7 +111,10 @@ outside a checkout of the repository.  Phases, each of which must pass:
    with the heuristic stop (the same summary, the reference's
    ``validation_metrics.npz`` and ``evaluation_results.csv``) and ``expert
    --episodes 100`` (the ``expert_data.npz`` contract); on the recurrent
-   run ``eval --arch lstm --ckpt`` and ``expert --arch lstm --ckpt``;
+   run ``eval --arch lstm --ckpt`` and ``expert --arch lstm --ckpt``; on
+   the f32 run ``eval --pth --guide fit`` (the npz with the ten guide
+   fields), and ``train --train-guide fit --min-radius 50 --terminal-gate
+   40``;
 9. a learning check, printed and not a gate: ppo_v2_0 f32 trained at full
    width for 20 iterations through ``train_ppo`` with the trajectory
    capture on (``capture_conc_csv``, and ``capture_netcdf`` where h5py is
@@ -114,21 +129,48 @@ outside a checkout of the repository.  Phases, each of which must pass:
    (the same init and batches, losses within rtol 1e-4); one epoch of
    each profiled (ms and launches per minibatch step); each trained at
    the JAX package's epochs (150 and 100, cut so that each phase stays
-   within 60 s, the cut printed); then eval A with the trained policy and
+   within 12 s, the cut printed); then eval A with the trained policy and
    ``--stop threshold`` and ``--stop peakstop`` gates of those nets (the
    CLI's ``lstm_gate``), each run as phase 7 runs an eval (exact
    plume-sample launches, wall, launches per eval step, busy share) and on
    the card against the CPU (at most one episode in 64 apart); then the
    CLI: ``train-lstm --variant v12`` on the captured ``data.csv`` and
    ``eval --stop threshold`` / ``--stop peakstop --lstm-ckpt`` on the
-   checkpoints the trainers wrote, each checked for its JSON line.
+   checkpoints the trainers wrote, each checked for its JSON line;
+11. ``fit_aniso`` alone on the card against the CPU over 1000 of
+   wrf_les's guide buffers [1000, 128] (noisy transects, ridge segments
+   and sparse reads: n_eff equal, at most one buffer in 64 whose gate
+   decision or validated fit parts, see ``fits_apart``); then the fit
+   guide in the protocol's evals (``eval --guide fit``, no stop),
+   1000 episodes x 1000 steps: ppo_v2_0 with the learning check's trained
+   params and wrf_les with its main path's params; each with exact
+   plume-sample launches (the guide launches none), its summary beside the
+   same eval unguided, wall, eval env-steps/s, the shares of episodes
+   ending with a validated fit, in hover and committed; the first
+   GUIDE_PROFILE_STEPS steps unprofiled and profiled (launches per eval
+   step, busy share; on wrf_les one fit's device time over every
+   episode's buffers); and the first 256 (ppo_v2_0) and 8 (wrf_les) of
+   the card's episodes on the CPU from the same draws (the CPU fits every
+   episode at every step), at most one episode in 64 apart (at least one
+   allowed).
+
+``python3 chip_smoke.py --only guide`` runs, after the build, the guide's
+phases alone (the executed-action mode, the guided training paths, the
+learning check for a trained policy, the fit check, the guided evals of
+the trained and the untrained ppo_v2_0 and wrf_les params, the guided
+CLI); ``--only stop-lstm`` runs phases 9 and 10 alone.  Each prints its
+JSON record, each phase's seconds and the card's name and power limit.
 
 Then it prints a JSON line of the eval phases, one of the recurrent main
 path and its replay, one of the capture and the stop LSTMs
-(``stop_lstm``), the ``kernels`` JSON line (each kernel's launches in
+(``stop_lstm``), one of the guide's phases (``guide``), each phase's
+seconds, the ``kernels`` JSON line (each kernel's launches in
 evals A and B under ``eval_launches``, the recurrent path's under
 ``lstm`` and ``lstm_eval_launches``, the gated evals' under
-``gated_eval_launches``, the capture run's under ``capture``), the card's
+``gated_eval_launches``, the capture run's under ``capture``, the guided
+training's under ``guided``, the executed-action mode's parity and times
+under ``exec_action``, the guided evals' under ``guided_eval_launches``),
+the card's
 name and power limit, and, last, the result line ``{"ok": true,
 "device": {...}}``.  h5py is never imported here (``find_spec`` tells
 whether it is installed): the card's machine may have none.
@@ -137,6 +179,7 @@ whether it is installed): the card's machine may have none.
 from __future__ import annotations
 
 import concurrent.futures
+import argparse
 import contextlib
 import ctypes
 import dataclasses
@@ -239,7 +282,7 @@ LEARN_EPISODE_CAP = 10**6
 # The stop-LSTM trainers: the JAX package's epochs, the wall each phase may
 # take before its epochs are cut, and the epochs of the card-vs-CPU runs.
 THRESHOLD_EPOCHS, PEAK_STOP_EPOCHS = 150, 100
-TRAINER_BUDGET_S = 60.0
+TRAINER_BUDGET_S = 12.0
 EPOCH_MARGIN = 1.5
 TRAINER_CHECK_EPOCHS = 3
 TRAINER_RTOL = 1e-4
@@ -600,7 +643,7 @@ def time_env_step_kernel(get_preset, plume, rollout,
             if n == MAIN_N and preset == "ppo_v2_0":
                 stream = plume._raw_stream(stepper.index)
                 args = (stepper.address, 0, logits.data_ptr(),
-                        value.data_ptr())
+                        value.data_ptr(), None)
                 out[preset]["split_ns"] = host_split("the env-step wrapper", {
                     "checks": lambda: stepper.takes(logits, value),
                     "stream": lambda: plume._raw_stream(stepper.index),
@@ -611,19 +654,23 @@ def time_env_step_kernel(get_preset, plume, rollout,
     return out
 
 
-def profile_rollout(rollout_chunk, loop, cfg, bank=None) -> dict:
+def profile_rollout(rollout_chunk, loop, cfg, bank=None, guide=None,
+                    cpu=True, length=None) -> dict:
     """Device launches per env step, device ms and wall ms of one rollout
-    chunk of the main path (``loop``'s carry is not modified), from
-    torch.profiler."""
+    chunk of the main path (``loop``'s carry is not modified; with
+    ``guide`` the guided chunk; of ``length`` steps, by default the
+    unroll), from torch.profiler; without ``cpu`` it records the device's
+    activity alone."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    length = cfg.rollout.unroll_length
+    length = length or cfg.rollout.unroll_length
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA] + (
+            [ProfilerActivity.CPU] if cpu else [])) as prof:
         t0 = time.perf_counter()
-        rollout_chunk(loop.model, loop.rollout, cfg.env, length, bank=bank)
+        rollout_chunk(loop.model, loop.rollout, cfg.env, length, bank=bank,
+                      guide=guide)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = device_kernels(prof)
@@ -657,12 +704,15 @@ def kernel_device_ms(fn, kernel_name: str, reps: int = 100):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    found = [e for e in prof.key_averages()
-             if kernel_name in e.key and e.count]
+    for _ in range(3):   # the profiler has kept no event in some runs
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        found = [e for e in prof.key_averages()
+                 if kernel_name in e.key and e.count]
+        if found:
+            break
     kernels = [e for e in found if e.device_type == DeviceType.CUDA]
     total_us = sum(e.self_device_time_total for e in kernels)
     first_us = found[0].self_device_time_total if found else 0
@@ -1377,7 +1427,8 @@ def check_small_iteration_against_cpu(get_preset, RolloutConfig, ttrain,
 
 
 def run_main_path(ttrain, rollout_chunk, k, label, cfg, bank=None, iters=3,
-                  profile=True, profile_cpu=True):
+                  profile=True, profile_cpu=True, guide=None,
+                  profile_steps=None):
     """The full-width train step of ``cfg`` (over ``bank``, on the card),
     driven as ``train_ppo`` drives it, with every launch count set to 0
     just before ``init_loop`` and read just after the last iteration:
@@ -1387,15 +1438,19 @@ def run_main_path(ttrain, rollout_chunk, k, label, cfg, bank=None, iters=3,
     Returns the counts (the whole run's and the timed iterations'),
     env-steps/s, phase ms, busy share (the profiled iteration's device
     time over its wall, and over the unprofiled iterations' mean wall) and
-    peak device memory."""
+    peak device memory.  With ``guide`` the guide runs in the rollout
+    (still one env-step launch per env step) and the share of overridden
+    steps of the timed iterations is returned too.  With
+    ``profile_steps`` the profiled chunk has that many steps and no
+    iteration is profiled (the busy share is then the chunk's)."""
     import torch
 
     n, t = cfg.rollout.num_envs, cfg.rollout.unroll_length
     zero_counts(k)
-    loop = ttrain.init_loop(cfg, "cuda", bank)
+    loop = ttrain.init_loop(cfg, "cuda", bank, guide=guide)
     torch.cuda.synchronize()
     after_init = read_counts(k)
-    step = ttrain.build_train_step(cfg, bank, time_phases=True)
+    step = ttrain.build_train_step(cfg, bank, time_phases=True, guide=guide)
     t0 = time.perf_counter()
     loop, stats, _ = step(loop)
     torch.cuda.synchronize()
@@ -1405,9 +1460,12 @@ def run_main_path(ttrain, rollout_chunk, k, label, cfg, bank=None, iters=3,
     phases = {"rollout": 0.0, "gae": 0.0, "update": 0.0}
     torch.cuda.reset_peak_memory_stats()
     before = read_counts(k)
+    overridden = 0
     t0 = time.perf_counter()
     for _ in range(iters):
         loop, stats, traj = step(loop)
+        if guide is not None:
+            overridden = overridden + traj.override.sum()
         for key in phases:
             phases[key] += stats[f"time/{key}_ms"]
         for key in ("loss/total", "loss/policy", "loss/value",
@@ -1441,21 +1499,30 @@ def run_main_path(ttrain, rollout_chunk, k, label, cfg, bank=None, iters=3,
         f"{ {name: c for name, c in after_init.items() if c} }, over the "
         f"whole run {total}, per timed iteration "
         f"{ {name: c // iters for name, c in counts.items()} }")
+    override_share = None
+    if guide is not None:
+        override_share = float(overridden) / (iters * n * t)
+        log(f"main path {label}: the guide overrode {override_share:.4f} of "
+            f"the timed iterations' env steps")
     busy = profiled = roll = device_ms = None
     if profile:
-        roll = profile_rollout(rollout_chunk, loop, cfg, bank)
+        roll = profile_rollout(rollout_chunk, loop, cfg, bank, guide,
+                               profile_cpu, profile_steps)
         log(f"profile of one main-path rollout chunk (profiler on): "
             f"{roll['launches']} device launches, "
             f"{roll['launches_per_step']:.2f} per env step, device "
             f"{roll['device_ms']:.2f} ms of {roll['wall_ms']:.2f} ms wall")
-        loop, busy, profiled, device_ms = profile_iteration(step, loop,
-                                                            profile_cpu)
+        if profile_steps is None:
+            loop, busy, profiled, device_ms = profile_iteration(
+                step, loop, profile_cpu)
+        else:
+            busy = roll["device_ms"] / roll["wall_ms"]
     return dict(counts=counts, total_counts=total, sps=sps, model=loop.model,
                 whole_ms=wall / iters * 1e3, busy=busy, device_ms=device_ms,
                 busy_unprofiled=(None if device_ms is None
                                  else device_ms / (wall / iters * 1e3)),
                 profiled_launches=profiled, rollout_profile=roll,
-                max_memory_allocated=max_mem,
+                max_memory_allocated=max_mem, override_share=override_share,
                 **{key: v / iters for key, v in phases.items()})
 
 
@@ -2100,6 +2167,616 @@ def check_stop_cli(cli_main, learn_dir, ckpts, tmp) -> dict:
     return out
 
 
+# --- the model-fit guide (slice 9a) ------------------------------------------
+
+# The env-step kernel's executed-action mode: the cases it is held to
+# env_step_plain in, and the share of envs a guide overrides each step.
+EXEC_CASES = ("v1_1", "v1_0", "obs_memory", "wrf_les")
+EXEC_SHARE = 1.0 / 3.0
+# The guided evals: the steps of the eval profiled for its launches and
+# device time, and the CPU's episodes in the card-vs-CPU checks (the CPU
+# runs the first episodes of the card's draws; it fits every episode at
+# every step).
+GUIDE_PROFILE_STEPS = 32
+GUIDE_CPU_EPISODES = {"ppo_v2_0": 256, "wrf_les": 8}
+# The guided training paths: timed iterations, and the steps of the
+# rollout chunk profiled for its launches per env step (the guide's
+# launches are the same at every step).
+GUIDED_ITERS = {"ppo_v2_0": 3, "wrf_les": 1}
+GUIDED_PROFILE_STEPS = 16
+# The anisotropic fit alone on the card against the CPU: one buffer per
+# eval episode, and the tolerances of the port's flights against JAX's
+# (tests/test_torch_aniso_fit.py): where both validate, the estimate in
+# px and the wind angle in rad; se relative, also the band around
+# ``max_se`` where a gate may decide the other way.
+FIT_EPISODES = 1000
+FIT_EST_ATOL, FIT_THETA_ATOL, FIT_GATE_RTOL = 0.25, 1e-2, 1e-2
+
+
+def exec_actions(logits, gumbel, g):
+    """The policy's sampled actions argmax(logits + Gumbel row) in PyTorch,
+    as a guide sees them, and executed actions: EXEC_SHARE of the envs
+    moved to another action."""
+    import torch
+
+    sampled = torch.argmax(logits + gumbel, dim=-1)
+    a = logits.shape[-1]
+    other = (sampled + torch.randint(1, a, sampled.shape, device="cuda",
+                                     generator=g)) % a
+    swap = torch.rand(sampled.shape, device="cuda", generator=g) < EXEC_SHARE
+    return sampled, torch.where(swap, other, sampled)
+
+
+def check_env_step_exec(get_preset, plume, rollout) -> dict:
+    """The env-step kernel with an executed action (a guided rollout's
+    launch) against ``env_step_plain(exec_action=)`` on the card over
+    ENV_STEPS steps of each of EXEC_CASES at N = 4096 and ENV_ODD_N,
+    teacher-forced as ``check_env_step_kernel`` is, a third of the envs
+    overridden each step: integers, bools and positions bit-equal (the
+    override rows too), floats within RTOL/ATOL, and the sampled action
+    the kernel records bit-equal to the PyTorch argmax the guide saw.
+    Returns the worst absolute float error and the overridden share."""
+    import torch
+
+    worst, overridden, total = 0.0, 0, 0
+    for case in EXEC_CASES:
+        cfg = env_cfg(get_preset, case)
+        for n in (MAIN_N, ENV_ODD_N):
+            state, accum, g = env_start(rollout, cfg, n, seed=n + 3 * len(case))
+            moved = dones = 0
+            err = 0.0
+            for _ in range(ENV_STEPS):
+                logits, value = policy_outputs(cfg, n, g)
+                draws = rollout.draw_chunk(g, cfg, 1, n)
+                sampled, executed = exec_actions(logits, draws.gumbel[0], g)
+                traj, obs = rollout.empty_trajectory(1, n, cfg, "cuda",
+                                                     guided=True)
+                k_state = rollout.own_copy(state)
+                k_acc = rollout.own_copy(accum)
+                plume.EnvStepper(k_state, k_acc, draws, traj, obs, cfg)(
+                    0, logits, value, executed)
+                want = rollout.empty_trajectory(1, n, cfg, "cuda",
+                                                guided=True)
+                state, _, accum = rollout.env_step_plain(
+                    logits, value, draws, 0, state, accum, *want, cfg,
+                    exec_action=executed)
+                torch.cuda.synchronize()
+                m, e, _ = compare_env_step(plume, cfg,
+                                           (traj, obs, k_state, k_acc),
+                                           want, state, accum)
+                assert torch.equal(traj.action[0], sampled), case
+                assert torch.equal(traj.override, want[0].override), case
+                assert torch.equal(traj.override[0], executed != sampled)
+                assert torch.equal(k_state.prev_action, executed.where(
+                    ~traj.done[0], torch.zeros_like(executed))), case
+                moved += m
+                err = max(err, e)
+                dones += int(traj.done.sum())
+                overridden += int(traj.override.sum())
+                total += n
+            log(f"parity env_step exec_action {case} N={n}: {ENV_STEPS} "
+                f"steps teacher-forced, {dones} envs finished; the recorded "
+                f"action equals the PyTorch argmax the guide saw; override "
+                f"rows, actions, dones, t, visit grids, prev_action (the "
+                f"executed action), seeds and cells equal; pos mismatches "
+                f"{moved}; max_abs_err {err:.3e}")
+            assert moved == 0, (case, n, "pos mismatches", moved)
+            assert dones > 0, (case, n, "no env finished")
+            worst = max(worst, err)
+    return dict(max_abs_err=worst, overridden_share=overridden / total)
+
+
+def time_env_step_exec(get_preset, plume, rollout) -> dict:
+    """The env-step kernel per call on ppo_v2_0 at N = 4096 and 2^20
+    without and with the executed action, in alternating blocks (without,
+    with, with, without) over one stepper of a guided chunk, beside the
+    bound of each mode's bytes; and the device time of each mode."""
+    import torch
+
+    cfg = get_preset("ppo_v2_0").env
+    out = {}
+    for n, reps in ((MAIN_N, 2000), (LARGE_N, 100)):
+        state, accum, g = env_start(rollout, cfg, n, seed=9, wide=False)
+        logits, value = policy_outputs(cfg, n, g)
+        draws = rollout.draw_chunk(g, cfg, 1, n)
+        _, executed = exec_actions(logits, draws.gumbel[0], g)
+        traj, obs = rollout.empty_trajectory(1, n, cfg, "cuda", guided=True)
+        stepper = plume.EnvStepper(rollout.own_copy(state),
+                                   rollout.own_copy(accum), draws, traj,
+                                   obs, cfg)
+        calls = {"null": lambda: stepper(0, logits, value),
+                 "exec": lambda: stepper(0, logits, value, executed)}
+        for fn in calls.values():
+            fn()
+        torch.cuda.synchronize()
+        dones = int(traj.done.sum())
+        blocks = {name: [] for name in calls}
+        for name in ("null", "exec", "exec", "null"):
+            blocks[name].append(cuda_ms(calls[name], reps))
+        row = {}
+        for name, guided in (("null", False), ("exec", True)):
+            moved = plume.env_step_bytes(cfg, n, dones, greedy=False,
+                                         guided=guided)
+            bytes_s = moved / HBM_BYTES_PER_S
+            ops_s = n * (PLUME_OPS_PER_QUERY + ENV_STEP_OPS) / F32_OPS_PER_S
+            row[name] = dict(
+                ms=min(blocks[name]), ms_blocks=blocks[name],
+                device_ms=kernel_device_ms(calls[name], "env_step_kernel"),
+                bound_ms=max(bytes_s, ops_s) * 1e3,
+                bound_by="bytes" if bytes_s >= ops_s else "operations",
+                bytes=moved)
+        out[n] = row
+        log(f"time env_step ppo_v2_0 N={n} without / with exec_action "
+            f"(blocks null, exec, exec, null): per call "
+            f"{blocks['null']} / {blocks['exec']} ms, on the device "
+            f"{row['null']['device_ms']} / {row['exec']['device_ms']} ms, "
+            f"bound {row['null']['bound_ms']:.6f} / "
+            f"{row['exec']['bound_ms']:.6f} ms ({row['exec']['bound_by']}; "
+            f"{row['null']['bytes']} / {row['exec']['bytes']} B)")
+    return out
+
+
+def guide_of(cfg):
+    """The guide of ``eval --guide fit`` / ``train --train-guide fit`` on
+    ``cfg``: the fit at the protocol's radius 50."""
+    from tpu_plume_torch.evaluation.guidance import make_guide
+
+    return make_guide(cfg.env, terminate_radius=50.0,
+                      success_radius=cfg.eval.success_distance)
+
+
+def guided_train_cfg(cfg):
+    """``train --train-guide fit --min-radius 50 --terminal-gate 40``: the
+    curriculum floor at the protocol's radius and the terminal bonus gated
+    at success@40."""
+    return cfg.replace(
+        env=dataclasses.replace(cfg.env, terminal_gate_radius=40.0),
+        curriculum=dataclasses.replace(cfg.curriculum, min_radius=50.0),
+        ppo=dataclasses.replace(cfg.ppo, minibatch_size=MAIN_MB))
+
+
+def fit_device_ms(guide_state, cfg, n_rep: int = 5):
+    """Device ms of one ``fit_aniso`` over the buffers of ``guide_state``
+    (every episode's), from torch.profiler: the fit's share of an eval
+    step's device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_plume_torch.evaluation import aniso_fit
+
+    gcfg = aniso_fit.derive_aniso_config(cfg.env, 50.0,
+                                         cfg.eval.success_distance)
+
+    def fit():
+        aniso_fit.fit_aniso(guide_state.pos_buf, guide_state.c_buf,
+                            guide_state.w_buf, cfg.env, gcfg,
+                            return_ambiguity=True)
+
+    fit()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_rep):
+            fit()
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    return (sum(e.self_device_time_total for e in kernels) / 1e3 / n_rep,
+            sum(e.count for e in kernels) / n_rep)
+
+
+def fit_buffers(cfg, gcfg, n: int, seed: int):
+    """``n`` of the anisotropic guide's sample buffers (``gcfg.buffer_size``
+    slots), filled as the guide fills them, from ``seed`` with numpy: per
+    buffer a source in the spawn box and a wind angle, 2 to 128 reads
+    (log-uniform) taken by turns on crosswind transects at four downwind
+    stations, along a ridge segment 5-60 px long, or scattered downwind;
+    each read the model (``make_model_n``) plus the turbulence noise, kept
+    where the guide accepts it (``conc_floor`` to ``conc_ceil``), the other
+    slots empty.  Returns numpy pos f32[n, K, 2], c f32[n, K] and
+    w f32[n, K]."""
+    import numpy as np
+    import torch
+
+    from tpu_plume_torch.evaluation import aniso_fit
+
+    rng = np.random.default_rng(seed)
+    k = gcfg.buffer_size
+    lo, hi = cfg.source_padding, cfg.grid_size - cfg.source_padding
+    src = rng.uniform(lo, hi, (n, 2)).astype(np.float32)
+    theta = rng.uniform(-np.pi, np.pi, n).astype(np.float32)
+    u = np.stack([np.cos(theta), np.sin(theta)], -1)
+    v = np.stack([-u[:, 1], u[:, 0]], -1)
+    kind = (np.arange(n) % 3)[:, None]
+    reads = np.exp(rng.uniform(np.log(2.0), np.log(k), n)).astype(np.int64)
+    segment = rng.uniform(5.0, 60.0, (n, 1))
+    down = np.where(
+        kind == 0, rng.choice([70.0, 120.0, 180.0, 240.0], (n, k)),
+        np.where(kind == 1,
+                 rng.uniform(80.0, 200.0, (n, 1))
+                 + segment * rng.random((n, k)),
+                 rng.uniform(20.0, 300.0, (n, k))))
+    cross = np.where(kind == 1, rng.normal(0.0, 3.0, (n, k)),
+                     rng.uniform(-30.0, 30.0, (n, k)))
+    pos = (src[:, None] + down[..., None] * u[:, None]
+           + cross[..., None] * v[:, None]).astype(np.float32)
+    noise_n = (aniso_fit._NOISE_STD_FRAC * cfg.turbulence_intensity
+               / cfg.conc_peak)
+    c = aniso_fit.make_model_n(cfg)(torch.from_numpy(pos),
+                                    torch.from_numpy(src),
+                                    torch.from_numpy(theta)).numpy()
+    c = c + noise_n * rng.standard_normal(c.shape)
+    keep = ((c >= gcfg.conc_floor) & (c <= gcfg.conc_ceil)
+            & (np.arange(k)[None] < reads[:, None]))
+    return (np.where(keep[..., None], pos, 0.0).astype(np.float32),
+            np.where(keep, c, 0.0).astype(np.float32),
+            keep.astype(np.float32))
+
+
+def fits_apart(got, want, cfg, gcfg) -> tuple:
+    """Two ``fit_aniso`` results (est, theta, se, n_eff, spread) of the
+    same buffers as numpy: the buffers whose fits part, ``want``'s gate
+    and the gaps where both validate.  The guide's gate validates where
+    n_eff >= ``min_samples``, se <= ``max_se`` and the estimate lies in
+    the domain box.  A buffer parts where its gate decides the other way
+    outside rounding of a bound (se within FIT_GATE_RTOL of ``max_se``,
+    the estimate within FIT_EST_ATOL px of the box), or where both
+    validate and the estimates lie more than FIT_EST_ATOL px, the wind
+    angles more than FIT_THETA_ATOL rad (modulo 2 pi) or se more than
+    FIT_GATE_RTOL (relative) apart: the 16 damped Gauss-Newton steps stop
+    short of the minimum on noisy reads and near-tied starts may swap, so
+    sums in another order can end a fit elsewhere."""
+    import numpy as np
+
+    lo = cfg.source_padding - gcfg.domain_slack
+    hi = cfg.grid_size - cfg.source_padding + gcfg.domain_slack
+
+    def gate(fit):
+        est, _, se, n_eff = (np.asarray(x) for x in fit[:4])
+        ok = ((n_eff >= gcfg.min_samples) & (se <= gcfg.max_se)
+              & ((est >= lo) & (est <= hi)).all(-1))
+        near = ((np.abs(se - gcfg.max_se) <= FIT_GATE_RTOL * gcfg.max_se)
+                | (np.minimum(np.abs(est - lo), np.abs(est - hi)).min(-1)
+                   <= FIT_EST_ATOL))
+        return ok, near
+
+    (ok_got, near_got), (ok_want, near_want) = gate(got), gate(want)
+    both = ok_got & ok_want
+    est = np.abs(np.asarray(got[0]) - np.asarray(want[0])).max(-1)
+    theta = np.abs((np.asarray(got[1]) - np.asarray(want[1]) + np.pi)
+                   % (2 * np.pi) - np.pi)
+    se = np.abs(np.asarray(got[2]) - np.asarray(want[2])) / np.asarray(
+        want[2])
+    apart = (((ok_got != ok_want) & ~near_got & ~near_want)
+             | (both & ((est > FIT_EST_ATOL) | (theta > FIT_THETA_ATOL)
+                        | (se > FIT_GATE_RTOL))))
+    gaps = {name: np.quantile(x[both], [0.5, 0.99, 1.0]).tolist()
+            if both.any() else None
+            for name, x in (("est", est), ("theta", theta), ("se", se))}
+    return apart, ok_want, gaps
+
+
+def check_fit_against_cpu(get_preset) -> dict:
+    """``fit_aniso`` on the card against the CPU over FIT_EPISODES of
+    wrf_les's guide buffers (``fit_buffers``), as the guide calls it
+    (radius 50, the spread returned): n_eff equal everywhere, and at most
+    one buffer in 64 whose fits part (``fits_apart``).  The buffers hold
+    identifying transects, ambiguous ridge segments and too few reads, so
+    both sides of each gate are compared."""
+    import numpy as np
+    import torch
+
+    from tpu_plume_torch.evaluation import aniso_fit
+
+    cfg = get_preset("wrf_les").env
+    gcfg = aniso_fit.derive_aniso_config(cfg, 50.0, 40.0)
+    bufs = fit_buffers(cfg, gcfg, FIT_EPISODES, seed=3)
+    fits = {}
+    for device in ("cuda", "cpu"):
+        out = aniso_fit.fit_aniso(
+            *(torch.from_numpy(x).to(device) for x in bufs), cfg, gcfg,
+            return_ambiguity=True)
+        fits[device] = [x.cpu().numpy() for x in out]
+    got, want = fits["cuda"], fits["cpu"]
+    apart, ok, gaps = fits_apart(got, want, cfg, gcfg)
+    out = dict(buffers=FIT_EPISODES, validated=int(ok.sum()),
+               unvalidated_with_samples=int(
+                   ((want[3] >= gcfg.min_samples) & ~ok).sum()),
+               apart=np.flatnonzero(apart).tolist(),
+               gaps_median_p99_max=gaps)
+    log(f"fit_aniso card vs CPU over {FIT_EPISODES} wrf_les guide buffers "
+        f"[{FIT_EPISODES}, {gcfg.buffer_size}]: {json.dumps(out)}")
+    assert (got[3] == want[3]).all()
+    assert apart.sum() <= FIT_EPISODES // 64, out
+    assert 0 < out["validated"] < FIT_EPISODES, out
+    assert out["unvalidated_with_samples"] > 0, out
+    return out
+
+
+def slice_draws(ev, draws, n: int):
+    """The draws of the first ``n`` episodes of ``draws``."""
+    def first(x, axis):
+        return None if x is None else x.narrow(axis, 0, n).contiguous()
+
+    return ev.EvalDraws(u_src=first(draws.u_src, 0),
+                        u_wind=first(draws.u_wind, 0),
+                        bits=first(draws.bits, 0),
+                        turb_noise=first(draws.turb_noise, 1),
+                        gumbel=first(draws.gumbel, 1))
+
+
+def run_guided_eval(ev, k, label, cfg, model, cpu_episodes=0,
+                    baseline=True) -> dict:
+    """Eval ``label`` at the protocol's width with the fit guide
+    (``guide_of``), no stop, from draws made on the CPU from a seed: after
+    an EVAL_WARMUP-step warm-up, the whole eval with every launch count set
+    to 0 just before it and read just after (the guide adds no kernel
+    launch: one plume sample per step plus one at the reset), its summary,
+    wall, eval env-steps/s and the shares of episodes that end with a
+    validated fit, in hover and committed; then GUIDE_PROFILE_STEPS steps
+    of the same eval unprofiled and profiled for launches per eval step
+    and the device busy share, and on the anisotropic plume one fit's
+    device time over every episode's buffers; with ``baseline`` the same
+    eval unguided, for its success@40.
+
+    With ``cpu_episodes`` the first that many episodes run on the CPU from
+    the same draws (the CPU fits each episode at every step: fewer
+    episodes than the protocol's keep the script within its time) and are
+    held to the card's: an episode agrees where its steps, deviation
+    (within the env tolerance) and guide registers (validated fit, hover,
+    committed, samples, refutations) agree; at most one in 64 (at least
+    one) may not, as a position one float ulp apart can land in another
+    cell and a fit within rounding of a gate's bound can decide the other
+    way.  The step where each such path departs is logged."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    n, length = cfg.eval.episodes, eval_length(cfg)
+    init, step_fn = guide_of(cfg)
+    last = {}
+
+    def step(*args):
+        # keeps the latest state, whose buffers time the fit alone
+        out = step_fn(*args)
+        last["state"] = out[0]
+        return out
+
+    draws = ev.draw_eval(torch.Generator().manual_seed(7), cfg.env, length,
+                         n)
+
+    def run(steps=None, with_guide=True, track=0):
+        return ev.evaluate_policy(
+            model, cfg.env, cfg.eval,
+            draws=draws if steps is None else dataclasses.replace(
+                draws, turb_noise=draws.turb_noise[:steps]),
+            max_steps=steps, device="cuda", track_trajectories=track,
+            guide=(init, step) if with_guide else None)
+
+    run(EVAL_WARMUP)
+    zero_counts(k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = run(track=cpu_episodes)
+    wall = time.perf_counter() - t0
+    counts = read_counts(k)
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    want["plume_sample"] = length + 1
+    assert counts == want, (label, counts, want)
+    check_eval_metrics(m, cfg, n, length)
+    assert np.isfinite(m.guide_est).all() and m.guide_samples.min() >= 0
+    p = GUIDE_PROFILE_STEPS
+    t0 = time.perf_counter()
+    run(p)
+    torch.cuda.synchronize()
+    short_wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run(p)
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    launches = sum(e.count for e in kernels)
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    summary = ev.summarize(m)
+    out = dict(summary=summary, wall_ms=wall * 1e3,
+               env_steps_per_s=n * length / wall,
+               active_env_steps=int(m.steps.sum()),
+               fit_ok_share=float(m.guide_fit_ok.mean()),
+               hover_share=float(m.guide_hover.mean()),
+               committed_share=float(m.guide_committed.mean()),
+               launches_per_step=launches / p,
+               device_ms_per_step=device_ms / p,
+               busy=device_ms / (short_wall * 1e3),
+               short_wall_ms=short_wall * 1e3, launches=counts)
+    if cfg.env.plume_model == "anisotropic":
+        fit_ms, fit_launches = fit_device_ms(last["state"], cfg)
+        step_ms = out["device_ms_per_step"]
+        out.update(fit_device_ms=fit_ms, fit_launches=fit_launches,
+                   fit_share=fit_ms / step_ms if step_ms else None)
+        log(f"eval {label} guided: one fit over the {n} episodes' buffers "
+            f"after {p} steps: {fit_ms:.4f} ms of device time in "
+            f"{fit_launches:.0f} launches, of {step_ms:.4f} ms per step")
+    if baseline:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = run(with_guide=False)
+        out["unguided"] = dict(summary=ev.summarize(plain),
+                               wall_ms=(time.perf_counter() - t0) * 1e3)
+    log(f"eval {label} guided: {cfg.name} {n} episodes x {length} steps, "
+        f"fit guide, no stop: success@40 {summary['success_rate']:.3f} "
+        + (f"(unguided {out['unguided']['summary']['success_rate']:.3f}) "
+           if baseline else "")
+        + f"mean deviation {summary['mean_deviation']:.2f}, mean steps "
+        f"{summary['mean_steps']:.1f}; episodes ending with a validated fit "
+        f"{out['fit_ok_share']:.3f}, in hover {out['hover_share']:.3f}, "
+        f"committed {out['committed_share']:.3f}; wall {wall * 1e3:.1f} ms "
+        f"= {out['env_steps_per_s']:.1f} eval env-steps/s; launches "
+        f"{ {name: c for name, c in counts.items() if c} }; the first {p} "
+        f"steps profiled: {launches / p:.2f} launches per eval step, "
+        f"device {device_ms / p:.4f} ms per step, busy share "
+        f"{out['busy']:.4f} of their unprofiled wall "
+        f"({short_wall * 1e3:.1f} ms)")
+    if cpu_episodes:
+        out["card_vs_cpu"] = guided_eval_against_cpu(
+            ev, label, cfg, model, m, slice_draws(ev, draws, cpu_episodes))
+    return out
+
+
+def guided_eval_against_cpu(ev, label, cfg, model, got, draws) -> dict:
+    """The first episodes of the card's guided eval ``got`` (tracked) on
+    the CPU from their ``draws`` (see ``run_guided_eval``)."""
+    import copy
+
+    import numpy as np
+
+    n, length = draws.bits.shape[0], eval_length(cfg)
+    cpu_model = copy.deepcopy(model)
+    t0 = time.perf_counter()
+    want = ev.evaluate_policy(cpu_model, cfg.env, cfg.eval, device="cpu",
+                              guide=guide_of(cfg), num_episodes=n,
+                              max_steps=length, draws=draws,
+                              track_trajectories=n)
+    cpu_s = time.perf_counter() - t0
+    agree = ((got.steps[:n] == want.steps)
+             & np.isclose(got.deviations[:n], want.deviations, rtol=RTOL,
+                          atol=ATOL))
+    for name in ("guide_fit_ok", "guide_hover", "guide_committed",
+                 "guide_samples", "guide_refutes"):
+        agree &= getattr(got, name)[:n] == getattr(want, name)
+    apart = np.flatnonzero(~agree)
+    off = ~np.isclose(got.trajectories[apart, :, :2],
+                      want.trajectories[apart, :, :2], rtol=RTOL, atol=ATOL,
+                      equal_nan=True).all(-1)
+    departs = np.where(off.any(-1), off.argmax(-1), -1)
+    log(f"eval {label} guided card vs CPU, the first {n} episodes x "
+        f"{length} steps (the CPU side {cpu_s:.1f} s): {len(apart)} of {n} "
+        f"episodes apart ({int((got.steps[:n] != want.steps).sum())} in "
+        f"steps, {int((got.guide_fit_ok[:n] != want.guide_fit_ok).sum())} "
+        f"in the validated fit); their paths depart at steps "
+        f"{departs.tolist()}; success@40 {got.success[:n].mean():.3f} on "
+        f"the card, {want.success.mean():.3f} on the CPU")
+    assert len(apart) <= max(1, n // 64), (label, apart)
+    return dict(episodes=n, apart=len(apart), departs=departs.tolist(),
+                cpu_s=cpu_s)
+
+
+def check_guide_cli(cli_main, tmp) -> dict:
+    """``eval --pth ... --guide fit`` of the ``train`` run in ``tmp`` at
+    the full protocol: the summary and the npz with the reference schema
+    and the ten guide fields, each of 1000 episodes."""
+    import numpy as np
+
+    pth = os.path.join(tmp, "model", "ppo_successful_models.pth")
+    out = os.path.join(tmp, "eval_guided")
+    summary, wall = cli_json(cli_main, ["eval", "--pth", pth, "--guide",
+                                        "fit", "--out", out])
+    metrics = np.load(os.path.join(out, "validation_metrics.npz"))
+    assert len(metrics.files) == 14 and "guide_est" in metrics.files, (
+        metrics.files)
+    assert all(metrics[f].shape[0] == 1000 for f in metrics.files)
+    assert np.isfinite(metrics["guide_est"]).all()
+    log(f"cli eval --pth ... --guide fit: {wall:.2f} s, "
+        f"{json.dumps(summary)}; validation_metrics.npz holds "
+        f"{sorted(metrics.files)}")
+    return dict(summary=summary, wall_s=wall)
+
+
+def guided_training(ttrain, rollout, k, presets) -> tuple:
+    """The training guide (``train --train-guide fit --min-radius 50
+    --terminal-gate 40``) at full width on each (preset, cfg) of
+    ``presets``: the fit guide in the rollout, still one env-step launch
+    per env step (``run_main_path(guide=)``, GUIDED_ITERS timed
+    iterations).  Returns the runs' records and their policies."""
+    import torch
+
+    runs, models = {}, {}
+    for preset, cfg in presets:
+        runs[preset] = run_main_path(
+            ttrain, rollout.rollout_chunk, k, f"{preset} guided",
+            guided_train_cfg(cfg), iters=GUIDED_ITERS[preset],
+            profile_cpu=False, guide=guide_of(cfg),
+            profile_steps=GUIDED_PROFILE_STEPS)
+        models[preset] = runs[preset].pop("model")
+        torch.cuda.empty_cache()
+    return runs, models
+
+
+def guided_evals(ev, k, get_preset, cases) -> tuple:
+    """The fit alone on the card against the CPU
+    (``check_fit_against_cpu``), then the fit guide in the protocol's evals
+    (``eval --guide fit``, no stop), one per (label, cfg, policy, CPU
+    episodes) of ``cases`` (``run_guided_eval``).  Returns the evals'
+    records and the fit check's."""
+    fit = check_fit_against_cpu(get_preset)
+    evals = {label: run_guided_eval(ev, k, label, cfg, model,
+                                    cpu_episodes=cpu)
+             for label, cfg, model, cpu in cases}
+    return evals, fit
+
+
+def stop_lstm_phases(ttrain, ev, k, cli_main, cfg, phase_done) -> tuple:
+    """Phases 9 and 10 on ``cfg`` (ppo_v2_0 at full width): the learning
+    check with the trajectory capture, then the stop LSTMs trained on its
+    captured episodes, their gated evals and their CLI.  Returns the
+    learning record, the stop LSTMs' (the capture's under ``capture``) and
+    the trained policy."""
+    with tempfile.TemporaryDirectory() as tmp:
+        learn_dir = os.path.join(tmp, "learn")
+        learning, learn_res, trained = learning_check(ttrain, ev, k, cfg,
+                                                      learn_dir)
+        phase_done("learning check")
+        stop_lstm, ckpts = stop_lstm_phase(ev, k, cfg, trained, learn_res,
+                                           tmp)
+        stop_lstm["cli"] = check_stop_cli(cli_main, learn_dir, ckpts, tmp)
+    stop_lstm["capture"] = learning["capture"]
+    phase_done("stop LSTMs")
+    return learning, stop_lstm, trained
+
+
+def run_only(only, m, v20, wl, phase_done) -> None:
+    """``--only guide``: the guide's phases alone (the executed-action
+    mode's parity and times, the guided training paths, the learning
+    check for a trained policy, the fit check and four guided evals: the
+    trained and the untrained ppo_v2_0 params, the guided wrf_les path's
+    and the untrained wrf_les params, the trained ones' first episodes
+    also on the CPU, and the guided CLI); ``--only stop-lstm``: phases 9
+    and 10.  Each prints its JSON record."""
+    if only == "stop-lstm":
+        _, stop_lstm, _ = stop_lstm_phases(m.ttrain, m.ev, m.k, m.cli_main,
+                                           v20, phase_done)
+        log(json.dumps({"stop_lstm": stop_lstm}))
+        return
+    out = {"exec_parity": check_env_step_exec(m.get_preset, m.plume,
+                                              m.rollout)}
+    out["exec_time"] = {str(n): row for n, row in time_env_step_exec(
+        m.get_preset, m.plume, m.rollout).items()}
+    phase_done("exec")
+    out["training"], models = guided_training(
+        m.ttrain, m.rollout, m.k, (("ppo_v2_0", v20), ("wrf_les", wl)))
+    phase_done("guided training")
+    with tempfile.TemporaryDirectory() as tmp:
+        _, _, trained = learning_check(m.ttrain, m.ev, m.k, v20,
+                                       os.path.join(tmp, "learn"))
+    phase_done("learning check")
+    untrained = {cfg.name: m.ttrain.make_train_state(cfg, "cuda",
+                                                     cfg.seed)[0]
+                 for cfg in (v20, wl)}
+    out["evals"], out["fit_card_vs_cpu"] = guided_evals(m.ev, m.k,
+                                                        m.get_preset, (
+        ("A trained", v20, trained, GUIDE_CPU_EPISODES["ppo_v2_0"]),
+        ("A untrained", v20, untrained["ppo_v2_0"], 0),
+        ("wrf_les guided-training policy", wl, models["wrf_les"],
+         GUIDE_CPU_EPISODES["wrf_les"]),
+        ("wrf_les untrained", wl, untrained["wrf_les"], 0)))
+    phase_done("guided evals")
+    out["cli"] = {}
+    run_cli(m.cli_main, m.ActorCritic, "ppo_v2_0", MAIN_D, MAIN_A,
+            then=lambda tmp: out["cli"].update(check_guide_cli(m.cli_main,
+                                                               tmp)))
+    run_cli(m.cli_main, m.ActorCritic, "ppo_v2_0", MAIN_D, MAIN_A,
+            "--train-guide", "fit", "--min-radius", "50", "--terminal-gate",
+            "40")
+    phase_done("cli")
+    log(json.dumps({"guide": out}, default=str))
+
+
 def build_kernels(build, names) -> None:
     """One nvcc per source, all started together."""
     t0 = time.perf_counter()
@@ -2110,7 +2787,13 @@ def build_kernels(build, names) -> None:
                 f"{time.perf_counter() - t0:.2f} s")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument(
+        "--only", choices=("guide", "stop-lstm"),
+        help="after the build, run only the guide's phases (with the "
+             "untrained policies' guided evals) or only phases 9 and 10")
+    args = parser.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -2140,12 +2823,39 @@ def main() -> int:
     log(f"card: {card}; {torch.cuda.get_device_name(0)}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
 
+    seconds = {}
+    t_phase = [time.perf_counter()]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        seconds[name] = round(now - t_phase[0], 1)
+        t_phase[0] = now
+
     build_kernels(build, ("plume", "ppo", "gather"))
+    phase_done("build")
+    k = types.SimpleNamespace(plume=plume, fused_ops=fused_ops, gather=gather,
+                              gridded=gridded)
+    v20 = get_preset("ppo_v2_0")
+    v20_main = v20.replace(ppo=dataclasses.replace(v20.ppo,
+                                                   minibatch_size=MAIN_MB))
+    wl = get_preset("wrf_les")
+    wl = wl.replace(ppo=dataclasses.replace(wl.ppo, minibatch_size=MAIN_MB))
+    if args.only:
+        run_only(args.only, types.SimpleNamespace(
+            ev=ev, k=k, ttrain=ttrain, rollout=rollout, cli_main=cli_main,
+            ActorCritic=ActorCritic, get_preset=get_preset, plume=plume),
+            v20_main, wl, phase_done)
+        log("phase seconds: " + json.dumps(seconds))
+        print(card, flush=True)
+        return 0
 
     plume_report = check_plume_kernel(get_preset, plume)
     modes_err = check_plume_modes(get_preset, plume, rollout)
     env_err = check_env_step_kernel(get_preset, plume, rollout)
+    exec_parity = check_env_step_exec(get_preset, plume, rollout)
     env_time = time_env_step_kernel(get_preset, plume, rollout)
+    exec_time = time_env_step_exec(get_preset, plume, rollout)
+    phase_done("plume kernels")
     ppo_args = (ActorCritic, PPOConfig, PPOBatch, fused_ops, ppo_loss)
     ppo_err = check_ppo_kernel(*ppo_args)
     ppo_time = time_ppo_kernel(*ppo_args)
@@ -2153,9 +2863,8 @@ def main() -> int:
     gather_time = time_gather_kernels(gather)
     sample_err = check_sample_kernels(get_preset, gridded, gather)
     sample_time = time_sample_kernels(get_preset, gridded, gather)
+    phase_done("ppo and gather kernels")
 
-    k = types.SimpleNamespace(plume=plume, fused_ops=fused_ops, gather=gather,
-                              gridded=gridded)
     small = (get_preset, RolloutConfig, ttrain, draw_chunk, k)
     check_small_iteration_against_cpu(*small)
     check_small_iteration_against_cpu(*small, fused_update=True,
@@ -2175,6 +2884,7 @@ def main() -> int:
     check_small_iteration_against_cpu(*small, arch="lstm",
                                       lstm_layer_norm=True,
                                       bf16_compute=True)
+    phase_done("small iterations")
 
     # The three ppo_v2_0 variants in turns, A B C C B A, each block on a
     # fresh loop, so that a drift of the host's speed during the run shows
@@ -2182,7 +2892,6 @@ def main() -> int:
     variants = {"f32": {}, "fused_update": dict(fused_update=True),
                 "bf16_compute": dict(bf16_compute=True)}
     runs = {name: [] for name in variants}
-    v20 = get_preset("ppo_v2_0")
     for i, name in enumerate(list(variants) + list(reversed(variants))):
         cfg = v20.replace(ppo=dataclasses.replace(
             v20.ppo, minibatch_size=MAIN_MB, **variants[name]))
@@ -2197,12 +2906,11 @@ def main() -> int:
                         for b in blocks))
     launches = runs["f32"][0]["total_counts"]
     fused_launches = runs["fused_update"][0]["total_counts"]
+    phase_done("ppo_v2_0 main paths")
 
     # Eval A: the reference protocol (1000 greedy episodes x 1000 steps,
     # heuristic stop, success@40) with the main-path ppo_v2_0 f32 params,
     # and the same params on the card against the CPU.
-    v20_main = v20.replace(ppo=dataclasses.replace(v20.ppo,
-                                                   minibatch_size=MAIN_MB))
     f32_model = runs["f32"][0]["model"]
     eval_a = run_eval(ev, k, "A", v20_main, f32_model, stop="heuristic")
     eval_a["card_vs_cpu"] = check_eval_against_cpu(
@@ -2211,6 +2919,7 @@ def main() -> int:
     stay.reset_parameters(torch.Generator().manual_seed(0))
     with torch.no_grad():
         stay.actor.bias[0] += STAY_BIAS
+    phase_done("eval A")
     eval_a["stop_card_vs_cpu"] = check_eval_against_cpu(
         ev, "ppo_v2_0 stop setting",
         v20_main.replace(env=dataclasses.replace(v20_main.env, **STOP_ENV)),
@@ -2222,10 +2931,12 @@ def main() -> int:
 
     # wrf_les at full width: the anisotropic plume in a per-episode wind,
     # one env-step launch per env step, no cuts.
-    wl = get_preset("wrf_les")
-    wl = wl.replace(ppo=dataclasses.replace(wl.ppo, minibatch_size=MAIN_MB))
     aniso = run_main_path(ttrain, rollout.rollout_chunk, k, "wrf_les", wl)
     torch.cuda.empty_cache()
+    phase_done("stop setting and wrf_les")
+    guided_train, _ = guided_training(ttrain, rollout, k,
+                                      (("ppo_v2_0", v20), ("wrf_les", wl)))
+    phase_done("guided training")
 
     # wrf_les_3d at full width: the bank of --synth-bank 3d, no cuts.
     w3 = get_preset("wrf_les_3d")
@@ -2242,6 +2953,7 @@ def main() -> int:
                                                    wrf["model"], bank)
     del bank, wrf["model"]
     torch.cuda.empty_cache()
+    phase_done("wrf_les_3d and eval B")
     # A static bank read between cells: the bilinear kernel's path.
     st = v20.replace(
         ppo=dataclasses.replace(v20.ppo, minibatch_size=MAIN_MB),
@@ -2253,6 +2965,7 @@ def main() -> int:
                            "static_subcell", st, bank, iters=2)
     del bank
     torch.cuda.empty_cache()
+    phase_done("static bank")
     # The recurrent policy at full width (ppo_v2_0 --arch lstm, f32): one
     # env-step launch per env step, the BPTT update; its replay's two
     # formulations; eval A with it as rnn=, and on the card against the
@@ -2260,6 +2973,7 @@ def main() -> int:
     lstm_cfg = v20.replace(ppo=dataclasses.replace(
         v20.ppo, minibatch_size=MAIN_MB, arch="lstm"))
     lstm = run_main_path(ttrain, rollout.rollout_chunk, k, "lstm", lstm_cfg,
+                         iters=1,
                          profile_cpu=False)
     lstm_replay = time_bptt_replay(ttrain, ppo_mod, lstm_cfg)
     eval_lstm = run_eval(ev, k, "A lstm", lstm_cfg, lstm["model"],
@@ -2279,9 +2993,18 @@ def main() -> int:
         f"{label} {run['rollout_profile']['launches_per_step']:.2f}"
         for label, run in profiled))
 
+    phase_done("lstm")
     cli_eval = {}
+
+    def eval_clis(tmp):
+        cli_eval.update(check_eval_cli(cli_main, tmp))
+        cli_eval["guided"] = check_guide_cli(cli_main, tmp)
+
     run_cli(cli_main, ActorCritic, "ppo_v2_0", MAIN_D, MAIN_A,
-            then=lambda tmp: cli_eval.update(check_eval_cli(cli_main, tmp)))
+            then=eval_clis)
+    run_cli(cli_main, ActorCritic, "ppo_v2_0", MAIN_D, MAIN_A,
+            "--train-guide", "fit", "--min-radius", "50", "--terminal-gate",
+            "40")
     run_cli(cli_main, ActorCritic, "ppo_v2_0", MAIN_D, MAIN_A, "--bf16")
     run_cli(cli_main, ActorCritic, "wrf_les", 6, 5)
     run_cli(cli_main, ActorCritic, "wrf_les_3d", 7, 7, "--synth-bank", "3d")
@@ -2289,22 +3012,28 @@ def main() -> int:
     run_cli(cli_main, ActorCritic, "ppo_v2_0", MAIN_D, MAIN_A, "--arch",
             "lstm", then=lambda tmp: cli_lstm.update(
                 check_lstm_eval_cli(cli_main, tmp)))
+    phase_done("cli")
 
-    with tempfile.TemporaryDirectory() as tmp:
-        learn_dir = os.path.join(tmp, "learn")
-        learning, learn_res, trained = learning_check(ttrain, ev, k, v20_main,
-                                                      learn_dir)
-        stop_lstm, ckpts = stop_lstm_phase(ev, k, v20_main, trained,
-                                           learn_res, tmp)
-        stop_lstm["cli"] = check_stop_cli(cli_main, learn_dir, ckpts, tmp)
-    stop_lstm["capture"] = learning["capture"]
+    learning, stop_lstm, trained = stop_lstm_phases(ttrain, ev, k, cli_main,
+                                                    v20_main, phase_done)
+    # The fit alone on the card against the CPU, and the fit guide in the
+    # protocol's evals (eval --guide fit, no stop): eval A's ppo_v2_0 with
+    # the learning check's trained params, wrf_les with its main path's
+    # params; each against the CPU (--only guide adds the untrained
+    # params').
+    guided, fit_check = guided_evals(ev, k, get_preset, (
+        ("A trained", v20_main, trained, GUIDE_CPU_EPISODES["ppo_v2_0"]),
+        ("wrf_les main-path policy", wl, aniso["model"],
+         GUIDE_CPU_EPISODES["wrf_les"])))
+    del aniso["model"]
+    phase_done("guided evals")
     for gate in STOP_GATES:
         e = stop_lstm[f"eval_{gate}"]
         log(f"eval A {gate} gate: success@40 {e['summary']['success_rate']:.3f}"
             f" (a record, not a gate), early stops "
             f"{e['summary']['early_stop_rate']:.3f}, mean steps "
             f"{e['summary']['mean_steps']:.1f}")
-    del trained, learn_res
+    del trained
     torch.cuda.empty_cache()
 
     eval_launches = {name: eval_a["launches"][name] + eval_b["launches"][name]
@@ -2319,6 +3048,16 @@ def main() -> int:
                                    "rollout_profile", "max_memory_allocated",
                                    "counts")}, "lstm_replay": lstm_replay}))
     log(json.dumps({"stop_lstm": stop_lstm}))
+    log(json.dumps({"guide": {
+        "evals": guided, "fit_card_vs_cpu": fit_check,
+        "exec_parity": exec_parity, "exec_time": {
+            str(n): row for n, row in exec_time.items()},
+        "training": {preset: {key: run[key] for key in (
+            "sps", "rollout", "gae", "update", "whole_ms", "busy",
+            "busy_unprofiled", "device_ms", "profiled_launches",
+            "rollout_profile", "override_share", "counts", "total_counts",
+            "max_memory_allocated")}
+            for preset, run in guided_train.items()}}}))
     main_t = plume_report["timing"][MAIN_N]
     env_t = env_time["ppo_v2_0"][MAIN_N]
     aniso_t = env_time["wrf_les"]
@@ -2341,6 +3080,9 @@ def main() -> int:
         "gated_eval_launches": {
             gate: stop_lstm[f"eval_{gate}"]["launches"]["plume_sample"]
             for gate in STOP_GATES},
+        "guided_eval_launches": {
+            label: e["launches"]["plume_sample"]
+            for label, e in guided.items() if "launches" in e},
     }, {
         "name": "env_step",
         "route": "cuda",
@@ -2373,6 +3115,15 @@ def main() -> int:
             "launches_timed": lstm["counts"]["env_step"],
             "rollout_launches_per_step":
                 lstm["rollout_profile"]["launches_per_step"]},
+        "guided": {
+            preset: {"launches": run["total_counts"]["env_step"],
+                     "launches_timed": run["counts"]["env_step"],
+                     "rollout_launches_per_step":
+                         run["rollout_profile"]["launches_per_step"],
+                     "override_share": run["override_share"]}
+            for preset, run in guided_train.items()},
+        "exec_action": {"max_abs_err": exec_parity["max_abs_err"],
+                        **{str(n): row for n, row in exec_time.items()}},
     }, {
         "name": "ppo_fused",
         "route": "cuda",
@@ -2431,6 +3182,7 @@ def main() -> int:
         "wrapper: " + json.dumps(gather_time["split_ns"]))
     for entry in kernels:
         entry["eval_launches"] = eval_launches[entry["name"]]
+    log("phase seconds: " + json.dumps(seconds))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

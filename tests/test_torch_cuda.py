@@ -38,7 +38,11 @@ values and carries at the env tolerance, and the carry zeroed where the
 last step ended an episode.  The stop LSTMs (cuDNN on the card, TF32
 off) are held to the CPU: a zoo forward and one minibatch step of a
 trainer at rtol 1e-4, atol 1e-5, and an eval with the threshold gate at 64
-episodes x 200 steps as the eval above.
+episodes x 200 steps as the eval above.  The env-step kernel's executed
+action (a guided rollout's launch) is held to ``env_step_plain`` as above,
+the sampled action it records equal to the PyTorch argmax a guide sees;
+the fit guide's rollout (one env-step launch a step) and eval on the card
+are held to the CPU, at most one env or episode in 64 apart.
 """
 
 import dataclasses
@@ -625,3 +629,126 @@ def test_threshold_gated_eval_on_the_card_matches_the_cpu(card):
                                torch.from_numpy(want.deviations[same]),
                                rtol=1e-5, atol=1e-4)
     assert want.stopped_early.any()
+
+
+@pytest.mark.parametrize("case", ["v1_1", "v1_0", "obs_memory", "wrf_les"])
+def test_env_step_kernel_with_an_executed_action_matches_plain(card, case):
+    """The guided rollout's launch: a third of the envs execute another
+    action than the one sampled; the record keeps the sampled action (the
+    PyTorch argmax a guide sees), the override rows mark the others, and
+    integers, bools and positions equal the plain version's."""
+    cfg = _env_cfg(case)
+    n = 4096
+    state, accum, g = _env_start(cfg, n, 11 + len(case), card)
+    for _ in range(8):
+        logits = 2.0 * torch.randn(n, cfg.num_actions, device=card,
+                                   generator=g)
+        value = torch.randn(n, device=card, generator=g)
+        draws = rollout.draw_chunk(g, cfg, 1, n)
+        sampled = torch.argmax(logits + draws.gumbel[0], dim=-1)
+        other = (sampled + torch.randint(1, cfg.num_actions, (n,),
+                                         device=card, generator=g)
+                 ) % cfg.num_actions
+        executed = torch.where(
+            torch.rand(n, device=card, generator=g) < 1 / 3, other, sampled)
+        traj, obs = rollout.empty_trajectory(1, n, cfg, card, guided=True)
+        k_state, k_acc = rollout.own_copy(state), rollout.own_copy(accum)
+        plume.EnvStepper(k_state, k_acc, draws, traj, obs, cfg)(
+            0, logits, value, executed)
+        w_traj, w_obs = rollout.empty_trajectory(1, n, cfg, card,
+                                                 guided=True)
+        state, _, accum = rollout.env_step_plain(
+            logits, value, draws, 0, state, accum, w_traj, w_obs, cfg,
+            exec_action=executed)
+        torch.cuda.synchronize()
+        assert torch.equal(traj.action[0], sampled)
+        assert torch.equal(traj.override[0], executed != sampled)
+        for a, b in ((traj.action, w_traj.action), (traj.done, w_traj.done),
+                     (traj.override, w_traj.override),
+                     (traj.pos, w_traj.pos), (k_state.pos, state.pos),
+                     (k_state.t, state.t), (k_state.visited, state.visited),
+                     (k_state.prev_action, state.prev_action)):
+            assert torch.equal(a, b)
+        for a, b in ((obs[1], w_obs[1]), (traj.reward, w_traj.reward),
+                     (traj.log_prob, w_traj.log_prob)):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)
+
+
+def test_env_stepper_refuses_an_executed_action_without_override_rows(card):
+    cfg = _env_cfg("v1_1")
+    n = 64
+    state, accum, g = _env_start(cfg, n, 0, card)
+    draws = rollout.draw_chunk(g, cfg, 1, n)
+    traj, obs = rollout.empty_trajectory(1, n, cfg, card)
+    stepper = plume.EnvStepper(state, accum, draws, traj, obs, cfg)
+    logits = torch.zeros(n, cfg.num_actions, device=card)
+    value = torch.zeros(n, device=card)
+    with pytest.raises(ValueError, match="override"):
+        stepper(0, logits, value, torch.zeros(n, dtype=torch.int64,
+                                              device=card))
+    guided, gobs = rollout.empty_trajectory(1, n, cfg, card, guided=True)
+    stepper = plume.EnvStepper(state, accum, draws, guided, gobs, cfg)
+    with pytest.raises(TypeError):
+        stepper(0, logits, value, torch.zeros(n, dtype=torch.int32,
+                                              device=card))
+
+
+@pytest.mark.parametrize("preset", ["ppo_v2_0", "wrf_les"])
+def test_guided_rollout_on_the_card_matches_the_cpu(card, preset):
+    """The fit guide in a rollout chunk of 256 envs x 24 steps on a small
+    domain: one env-step launch a step, and at most one env in 64 apart
+    from the CPU's actions, overrides or dones."""
+    from tpu_plume_torch.evaluation.guidance import make_guide
+
+    cfg = dataclasses.replace(get_preset(preset).env, grid_size=250,
+                              source_padding=25.0, move_frac=0.1,
+                              max_steps=20)
+    n, t = 256, 24
+    guide = make_guide(cfg)
+    model = ActorCritic(cfg.obs_dim, cfg.num_actions, (64, 32))
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    carry = rollout.init_rollout(cfg, n, torch.Generator().manual_seed(1),
+                                 guide=guide)
+    draws = rollout.draw_chunk(torch.Generator().manual_seed(2), cfg, t, n)
+    _, want, _ = rollout.rollout_chunk(model, carry, cfg, t, draws=draws,
+                                       guide=guide)
+    before = plume.env_step_launches
+    _, got, _ = rollout.rollout_chunk(
+        model.to(card), _moved(carry, card), cfg, t,
+        draws=_moved(draws, card), guide=guide)
+    torch.cuda.synchronize()
+    assert plume.env_step_launches == before + t
+    off = ((got.action.cpu() != want.action)
+           | (got.override.cpu() != want.override)
+           | (got.done.cpu() != want.done)).any(0)
+    assert int(off.sum()) <= n // 64
+    assert want.override.any() and want.done.any()
+
+
+@pytest.mark.parametrize("preset", ["ppo_v2_0", "wrf_les"])
+def test_guided_eval_on_the_card_matches_the_cpu(card, preset):
+    from tpu_plume_torch.evaluation.guidance import make_guide
+
+    cfg = get_preset(preset)
+    cfg = cfg.replace(env=dataclasses.replace(
+        cfg.env, grid_size=250, source_padding=25.0, move_frac=0.1))
+    n, length = 64, 200
+    model = ActorCritic(cfg.env.obs_dim, cfg.env.num_actions)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    draws = harnesses.draw_eval(torch.Generator().manual_seed(1), cfg.env,
+                                length, n)
+    kw = dict(num_episodes=n, max_steps=length, draws=draws,
+              guide=make_guide(cfg.env))
+    want = harnesses.evaluate_policy(model, cfg.env, cfg.eval, device="cpu",
+                                     **kw)
+    before = plume.launches
+    got = harnesses.evaluate_policy(model, cfg.env, cfg.eval, device=card,
+                                    **kw)
+    assert plume.launches == before + length + 1
+    same = ((got.steps == want.steps)
+            & (got.guide_fit_ok == want.guide_fit_ok)
+            & (got.guide_samples == want.guide_samples))
+    assert same.sum() >= n - 1, (got.steps, want.steps)
+    torch.testing.assert_close(torch.from_numpy(got.deviations[same]),
+                               torch.from_numpy(want.deviations[same]),
+                               rtol=1e-5, atol=1e-4)

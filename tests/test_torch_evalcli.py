@@ -257,11 +257,11 @@ def test_eval_parsers_build_jax_config(cmd, flags):
 
 
 REFUSED = {   # flags: ROADMAP.md Queue 1 slice
-    "guide_fit": (["--guide", "fit"], 9),
-    "guide_bank": (["--guide", "bank"], 9),
-    "guide_margin": (["--guide-margin", "1.5"], 9),
-    "guide_rim_guard": (["--no-guide-rim-guard"], 9),
-    "guide_ckpt": (["--guide-ckpt", "dir"], 9),
+    "guide_learned": (["--guide", "learned"], "9b"),
+    "guide_bank": (["--guide", "bank"], "9b"),
+    "guide_margin": (["--guide-margin", "1.5"], "9b"),
+    "guide_rim_guard": (["--no-guide-rim-guard"], "9b"),
+    "guide_ckpt": (["--guide-ckpt", "dir"], "9b"),
     "oracle": (["--oracle", "phase"], 10),
     "localize": (["--localize", "dir"], 11),
     "localize_window": (["--localize-window", "32"], 11),
@@ -279,7 +279,6 @@ def test_flags_of_later_slices_are_refused_before_any_work(name):
 
 
 TRAIN_REFUSED = {   # train flags: ROADMAP.md Queue 1 slice
-    "train_guide": (["--train-guide", "fit"], 9),
     "distill": (["--distill", "phase"], 10),
     "distill_coef": (["--distill-coef", "0.1"], 10),
     "distill_gate": (["--distill-gate=0.2"], 10),

@@ -402,7 +402,7 @@ def _replay_step(recorded):
     def t(x):
         return torch.from_numpy(np.array(x))
 
-    def build(cfg, bank=None, time_phases=False):
+    def build(cfg, bank=None, time_phases=False, guide=None):
         def step(loop, draws=None, shuffles=None):
             stats, traj = next(it)
             stats = {k: (int(v) if k in ("rollout/episodes",

@@ -230,7 +230,7 @@ def test_cli_train_on_cpu(tmp_path, capsys):
 
 
 def test_cli_refuses_flags_of_later_slices(tmp_path):
-    for flag in (["--train-guide", "fit"], ["--resume", "dir"]):
+    for flag in (["--distill", "phase"], ["--resume", "dir"]):
         with pytest.raises(SystemExit, match="is not ported yet"):
             cli_main(["train", "--cpu", "--out", str(tmp_path), *flag])
 
@@ -251,20 +251,14 @@ UNPORTED = {   # name: (config part, fields, ROADMAP Queue 1 slice)
 }
 
 
-@pytest.mark.parametrize("name", sorted(UNPORTED) + ["guide"])
+@pytest.mark.parametrize("name", sorted(UNPORTED))
 def test_unported_options_raise_naming_roadmap(name, tmp_path):
     cfg = _train_cfg()
-    guide = None
-    if name == "guide":
-        guide, item = object(), 9
-    else:
-        part, kw, item = UNPORTED[name]
-        cfg = cfg.replace(**{part: dataclasses.replace(getattr(cfg, part),
-                                                       **kw)})
+    part, kw, item = UNPORTED[name]
+    cfg = cfg.replace(**{part: dataclasses.replace(getattr(cfg, part), **kw)})
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP\.md Queue 1, slice {item} "):
-        ttrain.train_ppo(cfg, str(tmp_path), device="cpu", max_iterations=1,
-                         guide=guide)
+        ttrain.train_ppo(cfg, str(tmp_path), device="cpu", max_iterations=1)
 
 
 def test_gridded_without_a_bank_raises_value_error(tmp_path):

@@ -4,6 +4,8 @@
     python -m tpu_plume_torch.cli train --preset wrf_les_3d --synth-bank 3d
     python -m tpu_plume_torch.cli train --preset wrf_les_3d --bank bank.nc
     python -m tpu_plume_torch.cli eval --pth runs/torch_v20/model/ppo_successful_models.pth --stop heuristic --out runs/eval
+    python -m tpu_plume_torch.cli eval --pth runs/torch_v20/model/ppo_successful_models.pth --guide fit
+    python -m tpu_plume_torch.cli train --train-guide fit --min-radius 50 --terminal-gate 40 --pth runs/torch_v20/model/ppo_successful_models.pth
     python -m tpu_plume_torch.cli expert --ckpt runs/torch_v20/checkpoint.pt --episodes 100
     python -m tpu_plume_torch.cli train --arch lstm --ln-lstm --out runs/torch_lstm
     python -m tpu_plume_torch.cli eval --arch lstm --ln-lstm --ckpt runs/torch_lstm --stop heuristic
@@ -24,7 +26,10 @@ writes one from a JAX run) and ``--ckpt`` the port's own ``checkpoint.pt``;
 ``--ln-lstm``, the LayerNorm cell) selects the recurrent policy, whose
 weights load from ``--ckpt`` only: the ``.pth`` layout is the 2-layer MLP.
 ``--lstm-ckpt`` loads a stop LSTM's state_dict (the port's ``<name>.pt``
-or a reference ``.pth``).  The NetCDF files (``--netcdf``, ``--bank
+or a reference ``.pth``).  ``eval --guide fit`` runs the model-fit
+terminal guide (trilateration on the isotropic plume, a Gauss-Newton fit of
+the anisotropic one) and ``train --train-guide fit`` the same guide inside
+the training rollout.  The NetCDF files (``--netcdf``, ``--bank
 file.nc``, ``train-lstm --nc``, ``inspect-nc``) need h5py.  A flag of a
 path the port does not run yet is refused before any work, naming the
 ``ROADMAP.md`` slice that ports it.
@@ -192,8 +197,9 @@ def load_policy(args, cfg, device):
 # Flags of later slices, left undeclared and refused before any work: a
 # flag's name (without "--", "no-" and "=value") matched against each
 # pattern, with the ROADMAP item that ports it.
-LATER_FLAGS = ((r"guide-.+", support.GUIDES),
-               (r"train-guide", support.GUIDES),
+LATER_FLAGS = ((r"guide-(ckpt|stable-tol|min-window|check-every|margin|"
+                r"margin-until|rim-guard|rim-expire|guard-top|entry-dive|"
+                r"dive-bias|sticky-target)", support.LEARNED_GUIDES),
                (r"oracle", support.IMITATION),
                (r"distill(-coef|-gate)?", support.IMITATION),
                (r"localize(-window)?", support.LOCALIZE),
@@ -217,9 +223,9 @@ def refuse_later_flags(extra):
 def refuse_unported(args):
     """Raise ``SystemExit`` naming the ROADMAP slice of a ported flag's
     value whose path the port does not run yet."""
-    if getattr(args, "guide", "none") != "none":
+    if getattr(args, "guide", "none") in ("learned", "bank"):
         raise SystemExit(support.unported_message(f"--guide {args.guide}",
-                                                  support.GUIDES))
+                                                  support.LEARNED_GUIDES))
 
 
 def lstm_gate(args, cfg, device):
@@ -314,6 +320,19 @@ def cmd_eval(args):
         stop_gate = make_heuristic_gate(cfg.eval, cfg.env.conc_peak)
     elif args.stop in ("threshold", "peakstop"):
         stop_gate = lstm_gate(args, cfg, device)
+    guide = None
+    if args.guide == "fit":
+        from tpu_plume_torch.evaluation.guidance import make_guide
+
+        # thresholds and dive geometry derived from the env physics and the
+        # protocol; physics that cannot be guided raise
+        guide = make_guide(
+            cfg.env,
+            terminate_radius=args.goal_radius,
+            success_radius=cfg.eval.success_distance,
+            max_se=args.guide_max_se,
+            search_after=args.guide_search_after,
+        )
     n_eval = args.episodes or cfg.eval.episodes
     m = evaluate_policy(
         model, cfg.env, cfg.eval,
@@ -321,7 +340,7 @@ def cmd_eval(args):
         num_episodes=args.episodes, stop_gate=stop_gate,
         greedy=not args.sample, goal_radius=args.goal_radius, bank=bank,
         track_trajectories=n_eval if args.save_flights else 0,
-        device=device, rnn=rnn,
+        device=device, rnn=rnn, guide=guide,
     )
     if args.save_flights:
         os.makedirs(os.path.dirname(args.save_flights) or ".", exist_ok=True)
@@ -362,6 +381,14 @@ def cmd_train(args):
     init_params = None
     if args.ckpt or args.pth:
         init_params = load_policy(args, cfg, "cpu").state_dict()
+    guide = None
+    if args.train_guide == "fit":
+        from tpu_plume_torch.evaluation.guidance import make_guide
+
+        # the eval-time guide in the training rollout at the protocol's
+        # radius-50 terminator (pair with --min-radius 50 --terminal-gate 40)
+        guide = make_guide(cfg.env, terminate_radius=50.0,
+                           success_radius=cfg.eval.success_distance)
     res = train_ppo(
         cfg,
         args.out,
@@ -373,6 +400,7 @@ def cmd_train(args):
         init_params=init_params,
         capture_netcdf=args.netcdf,
         capture_conc_csv=args.conc_csv,
+        guide=guide,
     )
     print(json.dumps({
         "episodes": res.episodes,
@@ -532,6 +560,12 @@ def build_parser():
                     help="capture training_data.nc (needs h5py)")
     sp.add_argument("--conc-csv", action="store_true",
                     help="capture ragged conc sequences (V1.2 data.csv)")
+    sp.add_argument("--train-guide", choices=["fit"], default=None,
+                    help="run the eval-time terminal guide inside the "
+                         "training rollout: overridden steps drop out of "
+                         "the policy surrogate, rewards and values see the "
+                         "guided dynamics.  Pair with --min-radius 50 "
+                         "--terminal-gate 40")
     sp.set_defaults(fn=cmd_train)
 
     sp = sub.add_parser("train-lstm", help="LSTM stop-predictor training")
@@ -564,7 +598,20 @@ def build_parser():
     _common(sp, None)
     sp.add_argument("--guide", choices=["none", "fit", "learned", "bank"],
                     default="none",
-                    help="terminal guidance (only none is ported yet)")
+                    help="terminal guidance: 'fit' locates the source "
+                         "online from the agent's own samples (isotropic "
+                         "trilateration, or a Gauss-Newton fit of the "
+                         "anisotropic plume) and phase-controls the "
+                         "goal-ball crossing; learned and bank are not "
+                         "ported yet")
+    sp.add_argument("--guide-max-se", type=float, default=None,
+                    help="override the --guide fit validation gate "
+                         "(posterior worst-direction standard error, px)")
+    sp.add_argument("--guide-search-after", type=int, default=None,
+                    help="--guide fit on the anisotropic plume: with no "
+                         "readable sample for this many steps, steer a "
+                         "resuming serpentine search (default off; "
+                         "negative disables)")
     sp.add_argument("--stop",
                     choices=["none", "heuristic", "threshold", "peakstop"],
                     default="none",

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 from tpu_plume_torch.core.config import EnvConfig, PPOConfig
 
-GUIDES = "ROADMAP.md Queue 1, slice 9 (guides)"
+LEARNED_GUIDES = "ROADMAP.md Queue 1, slice 9b (the bank and learned guides)"
 IMITATION = "ROADMAP.md Queue 1, slice 10 (imitation, GAIL and distilled PPO)"
 LOCALIZE = "ROADMAP.md Queue 1, slice 11 (flux and localization)"
 SCALE_OUT = "ROADMAP.md Queue 1, slice 12 (scale-out and the rest)"
@@ -47,14 +47,7 @@ def check_ppo(cfg: PPOConfig) -> None:
         _unported("distill_oracle", IMITATION)
 
 
-def check_guide(guide) -> None:
-    if guide is not None:
-        _unported("a training guide", GUIDES)
-
-
-def check_eval(guide, oracle) -> None:
-    """The evaluation's guide and scripted oracle."""
-    if guide is not None:
-        _unported("an evaluation guide (guide=)", GUIDES)
+def check_eval(oracle) -> None:
+    """The evaluation's scripted oracle."""
     if oracle is not None:
         _unported("a scripted oracle (oracle=)", IMITATION)

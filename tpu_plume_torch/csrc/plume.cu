@@ -344,6 +344,9 @@ struct EnvStepParams {
   float* source_y;
   float* rec_radius;
   float* distance;
+  // [T, N]: the executed action differs from the sampled one (a guided
+  // chunk); null: an unguided chunk.
+  uint8_t* override;
   int n;
   int length;                // T
   int num_actions;
@@ -426,7 +429,8 @@ template <bool kAniso, bool kMulti, bool k3d, bool kWind>
 __global__ void __launch_bounds__(kEnvThreads)
     env_step_kernel(const EnvStepParams p, int step,
                     const float* __restrict__ logits,
-                    const float* __restrict__ value_in) {
+                    const float* __restrict__ value_in,
+                    const int64_t* __restrict__ exec_action) {
   constexpr int P = k3d ? 3 : 2;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.n) return;
@@ -453,6 +457,11 @@ __global__ void __launch_bounds__(kEnvThreads)
   float sum = 0.0f;
   for (int j = 0; j < na; ++j) sum += expf(l[j] - lmax);
   const float log_prob = (l[action] - lmax) - logf(sum);
+  // The executed action: a guide's where the launch gives one, else the
+  // sampled one.  The record keeps the sampled action and its log-prob;
+  // the move, prev_action and the obs one-hot take the executed one.
+  const int act =
+      exec_action == nullptr ? action : static_cast<int>(exec_action[i]);
 
   // The move: delta, the turbulence displacement from the TKE at the old
   // cell, the wind's advection (horizontal), then the clip (or v1_0's
@@ -474,7 +483,7 @@ __global__ void __launch_bounds__(kEnvThreads)
   const float conc0 = p.conc[i];
   const float tke0 = p.tke[i];
   const int t_new = p.t[i] + 1;
-  action_delta<P>(action, p.move_step, p.z_move, d);
+  action_delta<P>(act, p.move_step, p.z_move, d);
   const float delta_norm = sqrtf(dot<P>(d, d));
   for (int k = 0; k < P; ++k) {
     r[k] = (pos0[k] + d[k]) + ((p.turb_scale * nz[k]) * tke0) * p.inv_tke_norm;
@@ -625,6 +634,7 @@ __global__ void __launch_bounds__(kEnvThreads)
   }
   p.action[row] = action;
   p.log_prob[row] = log_prob;
+  if (p.override != nullptr) p.override[row] = act != action;
   p.value[row] = value;
   p.reward[row] = total;
   p.done[row] = done;
@@ -694,7 +704,7 @@ __global__ void __launch_bounds__(kEnvThreads)
     p.conc[i] = cur_conc;
     p.tke[i] = cur_tke;
     p.prev_conc[i] = conc0;
-    p.prev_action[i] = action;
+    p.prev_action[i] = act;
     ox = px * p.inv_g;
     oy = py * p.inv_g;
     oz = pz * p.inv_h;
@@ -703,7 +713,7 @@ __global__ void __launch_bounds__(kEnvThreads)
     ot = static_cast<float>(t_new) * p.inv_max_steps;
     ol = level;
     odc = (cur_conc - conc0) * p.inv_peak;
-    oa = action;
+    oa = act;
   }
   int o = 0;
   obs[o++] = ox;
@@ -743,14 +753,15 @@ constexpr SampleLaunch kSampleLaunch[8] = {
 
 template <bool A, bool M, bool Z, bool W>
 void launch_env_step(const EnvStepParams& p, int step, const float* logits,
-                     const float* value, cudaStream_t stream) {
+                     const float* value, const int64_t* exec_action,
+                     cudaStream_t stream) {
   const int blocks = (p.n + kEnvThreads - 1) / kEnvThreads;
   env_step_kernel<A, M, Z, W><<<blocks, kEnvThreads, 0, stream>>>(
-      p, step, logits, value);
+      p, step, logits, value, exec_action);
 }
 
 using EnvLaunch = void (*)(const EnvStepParams&, int, const float*,
-                           const float*, cudaStream_t);
+                           const float*, const int64_t*, cudaStream_t);
 constexpr EnvLaunch kEnvLaunch[16] = {
     launch_env_step<false, false, false, false>, nullptr,
     launch_env_step<false, false, true, false>,  nullptr,
@@ -859,19 +870,23 @@ PyObject* py_plume_sample(PyObject*, PyObject* const* a, Py_ssize_t nargs) {
   return launched("plume_sample");
 }
 
-// env_step(params, t, logits, value, stream): step t of the chunk that the
-// EnvStepParams at address ``params`` describes, after the policy's forward
-// gave ``logits`` f32[N, A] and ``value`` f32[N].
+// env_step(params, t, logits, value, exec_action, stream): step t of the
+// chunk that the EnvStepParams at address ``params`` describes, after the
+// policy's forward gave ``logits`` f32[N, A] and ``value`` f32[N];
+// ``exec_action`` i64[N] (or None) is the action each env executes in place
+// of the sampled one, in a chunk whose params record the override rows.
 PyObject* py_env_step(PyObject*, PyObject* const* a, Py_ssize_t nargs) {
-  if (nargs != 5) {
+  if (nargs != 6) {
     PyErr_SetString(PyExc_TypeError,
-                    "env_step takes (params, t, logits, value, stream)");
+                    "env_step takes (params, t, logits, value, exec_action, "
+                    "stream)");
     return nullptr;
   }
-  void *params, *logits, *value, *stream;
+  void *params, *logits, *value, *exec_action, *stream;
   int step;
   if (!parse(a[0], &params) || !parse(a[1], &step) || !parse(a[2], &logits) ||
-      !parse(a[3], &value) || !parse(a[4], &stream)) {
+      !parse(a[3], &value) || !parse(a[4], &exec_action) ||
+      !parse(a[5], &stream)) {
     return nullptr;
   }
   if (params == nullptr || logits == nullptr || value == nullptr) {
@@ -880,6 +895,12 @@ PyObject* py_env_step(PyObject*, PyObject* const* a, Py_ssize_t nargs) {
     return nullptr;
   }
   const EnvStepParams& p = *static_cast<const EnvStepParams*>(params);
+  if (exec_action != nullptr && p.override == nullptr) {
+    PyErr_SetString(PyExc_ValueError,
+                    "env_step: an executed action needs the chunk's "
+                    "override rows");
+    return nullptr;
+  }
   if (step >= p.length) {
     return PyErr_Format(PyExc_IndexError,
                         "env_step: step %d of a chunk of %d steps", step,
@@ -911,7 +932,9 @@ PyObject* py_env_step(PyObject*, PyObject* const* a, Py_ssize_t nargs) {
   }
   if (p.n == 0) Py_RETURN_NONE;
   launch(p, step, static_cast<const float*>(logits),
-         static_cast<const float*>(value), static_cast<cudaStream_t>(stream));
+         static_cast<const float*>(value),
+         static_cast<const int64_t*>(exec_action),
+         static_cast<cudaStream_t>(stream));
   return launched("env_step");
 }
 

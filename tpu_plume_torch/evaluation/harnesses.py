@@ -23,7 +23,9 @@ policy, the policy forward is its ``step`` from a carry that starts at zeros
 data, as in JAX).  The randomness (reset uniforms and
 seeds, turbulence normals, Gumbel noise) is drawn up front in one
 ``EvalDraws``; a caller may pass its own, which is how the tests feed both
-packages the same numbers.  A seed gives other episodes here than in the
+packages the same numbers.  With ``guide=`` (``evaluation.guidance``) a
+terminal guide replaces the policy's action where it steers, its state
+frozen with the episode like the env's.  A seed gives other episodes here than in the
 JAX package (Philox against threefry).
 """
 
@@ -38,6 +40,7 @@ import torch
 
 from tpu_plume_torch.core.config import EnvConfig, EvalConfig, StopConfig
 from tpu_plume_torch.core.device import resolve_device
+from tpu_plume_torch.core import support
 from tpu_plume_torch.core.support import check_env, check_eval
 from tpu_plume_torch.env.methane import reset_from_draws, select, step_noise
 from tpu_plume_torch.ops import plume
@@ -48,8 +51,8 @@ from tpu_plume_torch.stop import controllers as ctrl
 @dataclasses.dataclass
 class EvalMetrics:
     """The reference validation_metrics.npz schema
-    (PPOV2.0/evaluate_with_lstm.py:63-68, 132).  The JAX package's guide
-    diagnostics come with the guides (ROADMAP.md Queue 1, slice 9)."""
+    (PPOV2.0/evaluate_with_lstm.py:63-68, 132), with the guide diagnostics
+    of a guided eval."""
 
     deviations: np.ndarray
     steps: np.ndarray
@@ -59,6 +62,22 @@ class EvalMetrics:
     final_conc: np.ndarray | None = None
     trajectories: np.ndarray | None = None  # [K, T, 3] (x, y, conc), NaN-padded
     sources: np.ndarray | None = None       # [N, 2] true source positions
+    # guided-eval diagnostics at episode end (None when unguided): hover
+    # mode, fit validity, accepted samples, the fit's estimate [N, 2], the
+    # refutations, the closest committed approach to the estimate and the
+    # commitment latch (guides without a register report zeros); the bank
+    # guides' matched row, the episode's row and its contact count are
+    # zeros until they are ported (ROADMAP.md Queue 1, slice 9b)
+    guide_hover: np.ndarray | None = None
+    guide_fit_ok: np.ndarray | None = None
+    guide_samples: np.ndarray | None = None
+    guide_est: np.ndarray | None = None
+    guide_refutes: np.ndarray | None = None
+    guide_dmin: np.ndarray | None = None
+    guide_committed: np.ndarray | None = None
+    guide_match: np.ndarray | None = None
+    field_idx: np.ndarray | None = None
+    guide_contacts: np.ndarray | None = None
 
     def save_csv(self, path: str):
         """The V1.1 evaluator's evaluation_results.csv schema
@@ -88,7 +107,18 @@ class EvalMetrics:
         )
         if self.peak_pred is not None:
             data["peak_pred"] = self.peak_pred
+        # guide diagnostics, present only for guided runs so that plain
+        # rows keep the reference schema
+        for k in GUIDE_FIELDS:
+            v = getattr(self, k)
+            if v is not None:
+                data[k] = v
         np.savez(path, **data)
+
+
+GUIDE_FIELDS = ("guide_hover", "guide_fit_ok", "guide_samples", "guide_est",
+                "guide_refutes", "guide_dmin", "guide_committed",
+                "guide_match", "field_idx", "guide_contacts")
 
 
 # A stop gate bundles (one episode's init state, step_fn(state, conc, pos)
@@ -239,9 +269,18 @@ def evaluate_policy(
     ``model``, as in JAX, where ``model`` is then not read (the CLI passes
     the same module as both): each step is ``rnn.step`` from a carry that
     starts at zeros and is frozen, like the env state, once the episode has
-    ended.  ``guide`` and ``oracle`` are not ported yet and raise."""
+    ended.
+
+    ``guide`` is a ``(init_state, step_fn)`` terminal-guidance controller
+    (``evaluation.guidance.make_guide``): every step, after the policy's
+    action, ``step_fn(state, pos, conc, action)`` reads the pre-step
+    positions and concentrations, and the env executes the action it
+    returns; its state is frozen with the episode.  A ``step_fn`` with
+    ``needs_source`` set also receives the true sources.  The guide's
+    registers at the end fill ``EvalMetrics.guide_*``.  ``oracle`` is not
+    ported yet and raises."""
     check_env(env_cfg)
-    check_eval(guide, oracle)
+    check_eval(oracle)
     n = num_episodes or eval_cfg.episodes
     length = max_steps or min(env_cfg.max_steps, eval_cfg.max_eval_steps)
     dev, model, bank, draws, env_state, obs = _start(
@@ -259,6 +298,12 @@ def evaluate_policy(
     k = track_trajectories
     tracked = (torch.empty(length, k, 3, dtype=torch.float32, device=dev)
                if k else None)
+    if guide is not None:
+        g_init, g_fn = guide
+        if getattr(g_fn, "needs_bank", False):
+            raise NotImplementedError(support.unported_message(
+                "a bank-match guide (needs_bank)", support.LEARNED_GUIDES))
+        guide_state = ctrl.broadcast(g_init, n, dev)
 
     for t in range(length):
         if hidden is None:
@@ -269,6 +314,11 @@ def evaluate_policy(
             action = torch.argmax(logits, dim=-1)
         else:
             action = torch.argmax(logits + draws.gumbel[t], dim=-1)
+        if guide is not None:
+            g_args = (guide_state, env_state.pos, env_state.conc, action)
+            if getattr(g_fn, "needs_source", False):
+                g_args += (env_state.field.source,)
+            new_guide, action, _ = g_fn(*g_args)
         new_env, trans = step_noise(env_state, action, draws.turb_noise[t],
                                     env_cfg, bank)
         active = ~finished
@@ -284,6 +334,8 @@ def evaluate_policy(
         if hidden is not None:
             hidden = tuple(torch.where(active[:, None], new, old)
                            for new, old in zip(new_hidden, hidden))
+        if guide is not None:
+            guide_state = select(active, new_guide, guide_state)
         steps = steps + active.to(torch.int32)
         finished = finished | done
         if k:
@@ -298,6 +350,8 @@ def evaluate_policy(
     deviation = torch.sqrt((d * d).sum(-1)).cpu().numpy()
     peak_pred = (stop_state.peak_pred.cpu().numpy()
                  if isinstance(stop_state, ctrl.PeakStopState) else None)
+    gdiag = {} if guide is None else _guide_diagnostics(guide_state,
+                                                        env_state)
     return EvalMetrics(
         deviations=deviation,
         steps=steps.cpu().numpy(),
@@ -308,7 +362,31 @@ def evaluate_policy(
         trajectories=(None if tracked is None
                       else np.swapaxes(tracked.cpu().numpy(), 0, 1)),
         sources=env_state.field.source.cpu().numpy(),
+        **gdiag,
     )
+
+
+def _guide_diagnostics(gs, env_state) -> dict:
+    """``EvalMetrics``' guide fields from the final guide state, on the
+    host; a register the guide lacks reads as zeros, as in JAX."""
+    mode = gs.mode
+    zeros_i = torch.zeros_like(mode)
+    idx = env_state.field.idx
+    diag = {
+        "guide_hover": mode == 1,
+        "guide_fit_ok": gs.est_ok,
+        "guide_samples": gs.count,
+        "guide_est": gs.est,
+        "guide_refutes": getattr(gs, "refutes", zeros_i),
+        "guide_dmin": getattr(gs, "d_min", torch.zeros_like(
+            gs.est_ok, dtype=torch.float32)),
+        "guide_committed": getattr(gs, "committed",
+                                   torch.zeros_like(gs.est_ok)),
+        "guide_match": getattr(gs, "match", zeros_i),
+        "field_idx": zeros_i if idx is None else idx,
+        "guide_contacts": getattr(gs, "n_contact", zeros_i),
+    }
+    return {k: v.cpu().numpy() for k, v in diag.items()}
 
 
 def summarize(m: EvalMetrics) -> dict:
@@ -351,7 +429,7 @@ def generate_expert_data(
     carry advances at every step, also after the episode has ended, as in
     JAX.  ``oracle`` is not ported yet and raises."""
     check_env(env_cfg)
-    check_eval(None, oracle)
+    check_eval(oracle)
     n, length = num_episodes, env_cfg.max_steps
     dev, model, bank, draws, env_state, obs = _start(
         model if rnn is None else rnn, env_cfg, device, generator, draws, n,

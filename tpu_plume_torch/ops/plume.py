@@ -13,7 +13,8 @@ Two wrappers reach the kernels of ``tpu_plume_torch/csrc/plume.cu``:
   the yardstick the kernel is held against on the card.
 - ``EnvStepper`` launches ``env_step_kernel``: one analytic env step of every
   env per launch (action sample, move, plume sample, reward, auto-reset,
-  trajectory rows), the rollout's step on the card with the analytic plume.
+  trajectory rows), the rollout's step on the card with the analytic plume;
+  a guided rollout gives each launch the guide's executed actions.
   Its plain version is ``tpu_plume_torch.rollout.rollout.env_step_plain``,
   which the rollout runs on the CPU.
 
@@ -381,7 +382,7 @@ _STATE_PTRS = ("turb", "gumbel", "u_src", "u_wind", "bits", "pos", "t",
 _TRAJ_PTRS = ("obs", "action", "log_prob", "value", "reward", "done",
               "traj_pos", "traj_conc", "success", "steps")
 _RECORD_PTRS = ("final_conc", "source_x", "source_y", "rec_radius",
-                "distance")
+                "distance", "override")
 _INTS = ("n", "length", "num_actions", "obs_dim", "divisions", "max_steps",
          "variant", "elastic", "obs_memory")
 _FLOATS = (
@@ -469,7 +470,8 @@ def check_env_step(cfg: EnvConfig) -> None:
                          f"actions, got {cfg.num_actions}")
 
 
-def env_step_bytes(cfg: EnvConfig, n: int, dones: int, greedy: bool) -> int:
+def env_step_bytes(cfg: EnvConfig, n: int, dones: int, greedy: bool,
+                   guided: bool = False) -> int:
     """Bytes one env step of ``n`` envs must move, ``dones`` of them
     finishing: each input the kernel reads and each output it writes, once.
     Per env: the logits (and the Gumbel row) and the value; the
@@ -482,7 +484,8 @@ def env_step_bytes(cfg: EnvConfig, n: int, dones: int, greedy: bool) -> int:
     the next obs written.  A finished env also reads its reset draws
     (source and wind uniforms, seed), writes source, seed and wind, and
     clears its D x D visit grid in place of the visit cell.  Positions and
-    displacement normals have ``pos_dim`` floats."""
+    displacement normals have ``pos_dim`` floats.  A ``guided`` step also
+    reads the executed action (i64) and writes the override flag."""
     a, d, p = cfg.num_actions, cfg.grid_divisions, 4 * cfg.pos_dim
     wind = 8 if reads_wind(cfg) else 0
     reads = (4 * a * (1 if greedy else 2) + 4 + p + p + 4 + 4 + 8 + 4 + wind
@@ -491,20 +494,22 @@ def env_step_bytes(cfg: EnvConfig, n: int, dones: int, greedy: bool) -> int:
     traj = 8 + 4 + 4 + 4 + 1 + p + 4
     record = 1 + 4 + 6 * 4 + 4 + 8 + 4 + 4
     state = p + 4 + 4 + 4 + 4 + 8 + 6 * 4 + 4 * cfg.obs_dim
-    per_env = reads + traj + record + state
+    per_env = reads + traj + record + state + (9 if guided else 0)
     return (n * per_env + (n - dones) * 4
             + dones * (8 + 4 + 8 + 4 + 2 * wind + 4 * d * d))
 
 
 def check_env_step_inputs(state, accum, draws, traj, obs_rows, cfg,
-                          index: int) -> None:
+                          index: int, exec_action=None) -> None:
     """Raise unless the env-step kernel takes these tensors on device
     ``index`` (-1: the CPU, where only the tests call this): ``cfg``'s env
     (``check_env_step``); every tensor contiguous, of its dtype and shape,
     on the device; the float2 reads 8-byte aligned; the field's wind and
     the draws' wind uniforms present exactly where the field has a wind;
     draws of at least as many steps as ``traj``; the record's ``done`` the
-    trajectory's and its ``final_x`` / ``final_y`` views of ``traj.pos``."""
+    trajectory's and its ``final_x`` / ``final_y`` views of ``traj.pos``;
+    ``traj.override`` bool[T, N] where present, and an executed action
+    ``exec_action`` i64[N] only with it."""
     check_env_step(cfg)
     n, length = state.pos.shape[0], traj.action.shape[0]
     a, dv, od, dim = (cfg.num_actions, cfg.grid_divisions, cfg.obs_dim,
@@ -548,6 +553,12 @@ def check_env_step_inputs(state, accum, draws, traj, obs_rows, cfg,
         aligned += ["turb_noise", "pos", "traj_pos"]
     if draws.gumbel is not None:
         tensors["gumbel"] = (draws.gumbel, _F32, (steps, n, a))
+    if traj.override is not None:
+        tensors["override"] = (traj.override, _BOOL, (length, n))
+    if exec_action is not None:
+        if traj.override is None:
+            raise ValueError("an executed action needs traj.override")
+        tensors["exec_action"] = (exec_action, _I64, (n,))
     for name in ("log_prob", "value", "reward", "conc"):
         tensors["traj " + name] = (getattr(traj, name), _F32, (length, n))
     for name in ACCUM_FIELDS + ("final_conc", "source_x", "source_y",
@@ -587,7 +598,10 @@ class EnvStepper:
     checks the policy's two outputs in one expression and makes one call of
     the kernel's entry point, which raises if the launch is refused: step
     ``t`` samples the actions, steps every env, records row ``t`` and writes
-    the next obs into ``obs_rows[t + 1]``."""
+    the next obs into ``obs_rows[t + 1]``.  With ``traj.override`` (a
+    guided chunk), ``stepper(t, logits, value, exec_action)`` steps the
+    envs with the executed actions i64[N] instead of the sampled ones,
+    which the record keeps, and writes ``traj.override`` row ``t``."""
 
     def __init__(self, state, accum, draws, traj, obs_rows: torch.Tensor,
                  cfg: EnvConfig):
@@ -611,7 +625,8 @@ class EnvStepper:
             reward=traj.reward, done=traj.done, traj_pos=traj.pos,
             traj_conc=traj.conc, success=ep.success, steps=ep.steps,
             final_conc=ep.final_conc, source_x=ep.source_x,
-            source_y=ep.source_y, rec_radius=ep.radius, distance=ep.distance)
+            source_y=ep.source_y, rec_radius=ep.radius, distance=ep.distance,
+            override=traj.override)
         params = _EnvStepParams(
             **{k: None if x is None else x.data_ptr() for k, x in ptr.items()},
             acc=(_P * 6)(*(getattr(accum, f).data_ptr()
@@ -627,25 +642,39 @@ class EnvStepper:
         # keeps every pointer's storage alive while the stepper is
         self.tensors = (state, accum, draws, traj, obs_rows)
         self.index, self.n, self.num_actions = index, n, a
+        self.guided = traj.override is not None
         self.launch = _library().env_step
 
-    def takes(self, logits: torch.Tensor, value: torch.Tensor) -> bool:
+    def takes(self, logits: torch.Tensor, value: torch.Tensor,
+              exec_action: torch.Tensor | None = None) -> bool:
         """Whether the kernel takes the policy's outputs: f32 logits [N, A]
-        and value [N], contiguous, on the stepper's device."""
+        and value [N], and an executed action i64[N] (only in a guided
+        chunk), contiguous, on the stepper's device."""
         n = self.n
         return (logits.dtype is _F32 and value.dtype is _F32
                 and logits.shape == (n, self.num_actions)
                 and value.shape == (n,) and logits.is_contiguous()
                 and value.is_contiguous()
-                and logits.get_device() == self.index == value.get_device())
+                and logits.get_device() == self.index == value.get_device()
+                and (exec_action is None or (
+                    self.guided and exec_action.dtype is _I64
+                    and exec_action.shape == (n,)
+                    and exec_action.is_contiguous()
+                    and exec_action.get_device() == self.index)))
 
-    def __call__(self, t: int, logits: torch.Tensor, value: torch.Tensor):
+    def __call__(self, t: int, logits: torch.Tensor, value: torch.Tensor,
+                 exec_action: torch.Tensor | None = None):
         global env_step_launches
-        if not self.takes(logits, value):    # _expect says why
+        if not self.takes(logits, value, exec_action):    # _expect says why
             _expect("logits", logits, _F32, (self.n, self.num_actions),
                     self.index)
             _expect("value", value, _F32, (self.n,), self.index)
+            if not self.guided:
+                raise ValueError("an executed action needs a stepper over a "
+                                 "trajectory with override rows")
+            _expect("exec_action", exec_action, _I64, (self.n,), self.index)
         self.launch(self.address, t, logits.data_ptr(), value.data_ptr(),
+                    None if exec_action is None else exec_action.data_ptr(),
                     _raw_stream(self.index))
         env_step_launches += 1
 

@@ -31,9 +31,11 @@ from tpu_plume_torch.env.methane import (
     EnvState,
     auto_reset_from_draws,
     reset_from_draws,
+    select,
     step_noise,
 )
 from tpu_plume_torch.ops import plume
+from tpu_plume_torch.stop.controllers import broadcast
 
 
 @dataclass
@@ -90,6 +92,10 @@ class RolloutStep:
     pos: torch.Tensor            # f32[N, pos_dim] post-step position
     conc: torch.Tensor           # f32[N] raw conc at the new cell
     episode: EpisodeRecord
+    # bool[N]: the executed action was the guide's, not the policy's
+    # sampled one (the PPO update masks these steps out of the policy
+    # surrogate); None unless the rollout runs a guide.
+    override: torch.Tensor | None = None
 
 
 @dataclass
@@ -114,6 +120,9 @@ class RolloutCarry:
     # The recurrent policy's (c, h), each f32[N, H], zeroed at episode
     # boundaries; None for the feedforward policy.
     hidden: tuple | None = None
+    # The terminal guide's state of every env (``guidance.make_guide``),
+    # back to its initial state where an episode ended; None unguided.
+    guide_state: object | None = None
 
 
 def random_bits(shape, generator: torch.Generator) -> torch.Tensor:
@@ -152,10 +161,12 @@ def draw_chunk(generator: torch.Generator, cfg: EnvConfig, length: int,
 def init_rollout(cfg: EnvConfig, num_envs: int, generator: torch.Generator,
                  radius: float | None = None,
                  explore_bonus: float | None = None,
-                 bank=None, hidden: tuple | None = None) -> RolloutCarry:
+                 bank=None, hidden: tuple | None = None,
+                 guide=None) -> RolloutCarry:
     """Fresh episodes in every env, on the generator's device; ``hidden``
     is the recurrent policy's initial carry (None for the feedforward
-    policy)."""
+    policy); with a ``guide`` (``(init_state, step_fn)``) every env starts
+    from its initial state."""
     dev = generator.device
     u_src = torch.rand(num_envs, 2, device=dev, generator=generator)
     bits = random_bits((num_envs,), generator)
@@ -163,19 +174,24 @@ def init_rollout(cfg: EnvConfig, num_envs: int, generator: torch.Generator,
               if plume.reads_wind(cfg) else None)
     env_state, obs = reset_from_draws(u_src, u_wind, bits, cfg, radius,
                                       explore_bonus, bank)
+    guide_state = (None if guide is None
+                   else broadcast(guide[0], num_envs, dev))
     return RolloutCarry(env_state=env_state, obs=obs,
                         accum=EpisodeAccum.zeros(num_envs, dev),
-                        generator=generator, hidden=hidden)
+                        generator=generator, hidden=hidden,
+                        guide_state=guide_state)
 
 
-def empty_trajectory(length: int, num_envs: int, cfg: EnvConfig, device):
+def empty_trajectory(length: int, num_envs: int, cfg: EnvConfig, device,
+                     guided: bool = False):
     """The buffers of a chunk of ``length`` steps over ``num_envs`` envs:
     ``(traj, obs_rows)``, ``traj`` a ``RolloutStep`` of [T, N, ...] tensors
     and ``obs_rows`` f32[T + 1, N, obs_dim], whose row ``t`` is the obs the
     policy acts on at step ``t`` and whose last row is the chunk's final
     obs.  ``traj.obs`` is ``obs_rows[:T]``; the record's ``done`` is
     ``traj.done`` and its ``final_x`` / ``final_y`` are views of
-    ``traj.pos``, since they hold the same values."""
+    ``traj.pos``, since they hold the same values.  ``guided`` adds the
+    ``override`` rows."""
     t, n = length, num_envs
 
     def f32(*shape):
@@ -198,7 +214,9 @@ def empty_trajectory(length: int, num_envs: int, cfg: EnvConfig, device):
         obs=obs_rows[:t],
         action=torch.empty(t, n, dtype=torch.int64, device=device),
         log_prob=f32(), value=f32(), reward=f32(), done=done, pos=pos,
-        conc=f32(), episode=episode)
+        conc=f32(), episode=episode,
+        override=(torch.empty(t, n, dtype=torch.bool, device=device)
+                  if guided else None))
     return traj, obs_rows
 
 
@@ -224,7 +242,8 @@ def _write_rows(rows) -> None:
 def env_step_plain(logits: torch.Tensor, value: torch.Tensor,
                    draws: ChunkDraws, t: int, state: EnvState,
                    accum: EpisodeAccum, traj: RolloutStep,
-                   obs_rows: torch.Tensor, cfg: EnvConfig, bank=None):
+                   obs_rows: torch.Tensor, cfg: EnvConfig, bank=None,
+                   exec_action: torch.Tensor | None = None):
     """Step ``t`` of a chunk after the policy's forward, for every env: the
     env-step kernel's function (``tpu_plume_torch.ops.plume.EnvStepper``)
     in plain PyTorch, and the rollout's step on the CPU and over a bank.
@@ -237,15 +256,22 @@ def env_step_plain(logits: torch.Tensor, value: torch.Tensor,
     from ``draws.u_src[t]``, ``draws.u_wind[t]`` and ``draws.bits[t]`` into
     them.  Writes the
     next obs into ``obs_rows[t + 1]`` and returns ``(state', obs',
-    accum')``; ``state`` and ``accum`` are not modified."""
+    accum')``; ``state`` and ``accum`` are not modified.
+
+    ``exec_action`` i64[N] (a guide's output) is the action the envs
+    execute in place of the sampled one, which ``traj.action`` and
+    ``traj.log_prob`` still record; ``traj.override`` row ``t`` then marks
+    where the two differ (all False without it)."""
     if draws.gumbel is None:
         action = torch.argmax(logits, dim=-1)
     else:
         action = torch.argmax(logits + draws.gumbel[t], dim=-1)
     log_prob = torch.log_softmax(logits, dim=-1).gather(
         -1, action[:, None]).squeeze(-1)
+    executed = action if exec_action is None else exec_action
 
-    state, trans = step_noise(state, action, draws.turb_noise[t], cfg, bank)
+    state, trans = step_noise(state, executed, draws.turb_noise[t], cfg,
+                              bank)
     info = trans.info
     terms = (trans.reward, info.concentration_reward, info.explore_reward,
              info.move_penalty, info.tke_penalty, info.boundary_penalty)
@@ -265,6 +291,8 @@ def env_step_plain(logits: torch.Tensor, value: torch.Tensor,
         (ep.source_y, state.field.source[:, 1]), (ep.radius, state.radius),
         (ep.distance, info.distance),
     ] + list(zip(_totals(ep), _totals(acc)))
+    if traj.override is not None:
+        rows.append((traj.override, executed != action))
     rows = [(buf[t], x) for buf, x in rows]
 
     # Clear the totals of envs that finished, then auto-reset them.
@@ -281,7 +309,7 @@ def env_step_plain(logits: torch.Tensor, value: torch.Tensor,
 @torch.no_grad()
 def rollout_chunk(model: torch.nn.Module, carry: RolloutCarry, cfg: EnvConfig,
                   length: int, greedy: bool = False,
-                  draws: ChunkDraws | None = None, bank=None):
+                  draws: ChunkDraws | None = None, bank=None, guide=None):
     """Run ``length`` policy+env steps for all envs.
 
     Returns ``(carry', traj: RolloutStep[T, N, ...], bootstrap_value f32[N])``
@@ -299,17 +327,35 @@ def rollout_chunk(model: torch.nn.Module, carry: RolloutCarry, cfg: EnvConfig,
     is ``model.step(hidden, obs)``, and after the env step ``hidden`` is
     zeroed where that step's ``done`` is set (read from ``traj.done``,
     which the env step has just written).  The bootstrap value comes from
-    ``model.step`` on the final carry, which it does not advance."""
+    ``model.step`` on the final carry, which it does not advance.
+
+    ``guide`` (``(init_state, step_fn)``, the eval's terminal-guidance
+    hook) runs in the rollout with its state in ``carry.guide_state``:
+    each step samples the policy's action in PyTorch (argmax of logits +
+    Gumbel row), gives it to the guide with the pre-step positions and
+    concentrations, and the env executes the guide's action
+    (``exec_action`` of the env step; on the card still one env-step
+    launch).  ``traj.action`` and ``traj.log_prob`` stay the policy's,
+    ``traj.override`` marks the steps the guide changed, and the guide's
+    state returns to its initial state where the step ended an episode."""
     num_envs = carry.obs.shape[0]
     if draws is None:
         draws = draw_chunk(carry.generator, cfg, length, num_envs, greedy)
     elif greedy:
         draws = dataclasses.replace(draws, gumbel=None)
     traj, obs_rows = empty_trajectory(length, num_envs, cfg,
-                                      carry.obs.device)
+                                      carry.obs.device,
+                                      guided=guide is not None)
     obs_rows[0] = carry.obs
     inputs = obs_rows.unbind(0)
     hidden = carry.hidden
+    guide_state = carry.guide_state
+    if guide is not None:
+        if guide_state is None:
+            raise ValueError("a guided rollout needs carry.guide_state "
+                             "(init_rollout(guide=))")
+        guide_fn = guide[1]
+        guide_init = broadcast(guide[0], num_envs, carry.obs.device)
 
     def policy(t):
         nonlocal hidden
@@ -324,21 +370,44 @@ def rollout_chunk(model: torch.nn.Module, carry: RolloutCarry, cfg: EnvConfig,
             done = traj.done[t][:, None]
             hidden = tuple(torch.where(done, 0.0, x) for x in hidden)
 
+    def guided(t, state, logits):
+        # the guide's action given the policy's sampled one
+        nonlocal guide_state
+        if guide is None:
+            return None
+        if draws.gumbel is None:
+            action = torch.argmax(logits, dim=-1)
+        else:
+            action = torch.argmax(logits + draws.gumbel[t], dim=-1)
+        guide_state, executed, _ = guide_fn(guide_state, state.pos,
+                                            state.conc, action)
+        return executed
+
+    def reset_guide(t):
+        nonlocal guide_state
+        if guide is not None:
+            guide_state = select(traj.done[t], guide_init, guide_state)
+
     if carry.obs.is_cuda and cfg.plume_model != "gridded":
         check_env(cfg)
         env_state, acc = own_copy(carry.env_state), own_copy(carry.accum)
         stepper = plume.EnvStepper(env_state, acc, draws, traj, obs_rows,
                                    cfg)
         for t in range(length):
-            stepper(t, *policy(t))
+            logits, value = policy(t)
+            stepper(t, logits, value, guided(t, env_state, logits))
             reset_hidden(t)
+            reset_guide(t)
     else:
         env_state, acc = carry.env_state, carry.accum
         for t in range(length):
+            logits, value = policy(t)
+            executed = guided(t, env_state, logits)
             env_state, _, acc = env_step_plain(
-                *policy(t), draws, t, env_state, acc, traj, obs_rows, cfg,
-                bank)
+                logits, value, draws, t, env_state, acc, traj, obs_rows, cfg,
+                bank, exec_action=executed)
             reset_hidden(t)
+            reset_guide(t)
 
     obs = inputs[length]
     if hidden is None:
@@ -346,7 +415,8 @@ def rollout_chunk(model: torch.nn.Module, carry: RolloutCarry, cfg: EnvConfig,
     else:
         _, _, bootstrap_value = model.step(hidden, obs)
     carry = RolloutCarry(env_state=env_state, obs=obs, accum=acc,
-                         generator=carry.generator, hidden=hidden)
+                         generator=carry.generator, hidden=hidden,
+                         guide_state=guide_state)
     return carry, traj, bootstrap_value
 
 

@@ -44,12 +44,12 @@ def _push(ring: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
 
 
 def broadcast(state, n: int, device):
-    """Each of ``n`` episodes' copy of the one-episode ``state`` (a
-    dataclass of tensors) on ``device``."""
-    return type(state)(**{
-        f.name: getattr(state, f.name).to(device).expand(
-            (n,) + tuple(getattr(state, f.name).shape)).clone()
-        for f in dataclasses.fields(state)})
+    """Each of ``n`` episodes' copy of the one-episode ``state`` (a tensor
+    or a dataclass of tensors) on ``device``."""
+    if isinstance(state, torch.Tensor):
+        return state.to(device).expand((n,) + tuple(state.shape)).clone()
+    return type(state)(**{f.name: broadcast(getattr(state, f.name), n, device)
+                          for f in dataclasses.fields(state)})
 
 
 # ---------------------------------------------------------------------------

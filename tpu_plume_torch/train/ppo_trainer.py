@@ -32,7 +32,7 @@ import torch
 
 from tpu_plume_torch.core.config import TrainConfig
 from tpu_plume_torch.core.device import resolve_device
-from tpu_plume_torch.core.support import check_env, check_guide, check_ppo
+from tpu_plume_torch.core.support import check_env, check_ppo
 from tpu_plume_torch.data.conc_csv import save_conc_rows
 from tpu_plume_torch.data.netcdf import EpisodeArrays, NetCDFWriter
 from tpu_plume_torch.models.actor_critic import ActorCritic
@@ -152,7 +152,8 @@ def _sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
-def build_train_step(cfg: TrainConfig, bank=None, time_phases: bool = False):
+def build_train_step(cfg: TrainConfig, bank=None, time_phases: bool = False,
+                     guide=None):
     """One training iteration ``train_step(loop, draws=None, shuffles=None)
     -> (loop, stats, traj)``.
 
@@ -168,7 +169,14 @@ def build_train_step(cfg: TrainConfig, bank=None, time_phases: bool = False):
     epoch) replace the iteration's randomness.  With
     ``time_phases`` the device is synchronised at the phase boundaries and
     ``stats`` gets the wall ms of ``time/rollout_ms``, ``time/gae_ms`` and
-    ``time/update_ms``."""
+    ``time/update_ms``.
+
+    ``guide`` (``(init_state, step_fn)``, ``evaluation.guidance.make_guide``)
+    runs in the rollout (``rollout_chunk(guide=)``; the loop's carry needs
+    ``init_loop(guide=)``): the envs execute its actions, and the update
+    masks the overridden steps out of the policy surrogate and entropy
+    (``PPOBatch.weights = 1 - override``; a weighted batch takes autodiff
+    under ``fused_update``, as in JAX)."""
     check_env(cfg.env)
     check_ppo(cfg.ppo)
     if cfg.env.plume_model == "gridded" and bank is None:
@@ -211,7 +219,8 @@ def build_train_step(cfg: TrainConfig, bank=None, time_phases: bool = False):
 
         mark()
         carry, traj, bootstrap = rollout_chunk(loop.model, carry, env_cfg, T,
-                                               draws=draws, bank=bank)
+                                               draws=draws, bank=bank,
+                                               guide=guide)
         mark()
         advantages, returns = compute_gae(
             traj.reward, traj.value, traj.done, bootstrap,
@@ -252,6 +261,8 @@ def build_train_step(cfg: TrainConfig, bank=None, time_phases: bool = False):
                 advantages=adv_n,
                 returns=ret,
                 old_values=flat(traj.value),
+                weights=(None if guide is None else
+                         1.0 - flat(traj.override).to(torch.float32)),
             )
             loss_metrics = ppo_update(update_model, loop.optimizer, batch,
                                       ppo_cfg, generator=loop.generator,
@@ -284,12 +295,13 @@ def build_train_step(cfg: TrainConfig, bank=None, time_phases: bool = False):
 
 
 def init_loop(cfg: TrainConfig, device, bank=None,
-              init_params: dict | None = None) -> LoopCarry:
+              init_params: dict | None = None, guide=None) -> LoopCarry:
     """Fresh model, optimizer, envs and curriculum from ``cfg.seed``;
     ``bank`` (gridded model) on ``device``; the recurrent policy's carry
-    starts at zeros.  ``init_params``, a state_dict of the policy (for the
-    feedforward policy the reference ``.pth`` layout), replaces the initial
-    params (the optimizer starts fresh)."""
+    starts at zeros, and a ``guide``'s state at its initial state.
+    ``init_params``, a state_dict of the policy (for the feedforward policy
+    the reference ``.pth`` layout), replaces the initial params (the
+    optimizer starts fresh)."""
     device = torch.device(device)
     model, optimizer = make_train_state(cfg, device, cfg.seed)
     if init_params is not None:
@@ -300,7 +312,7 @@ def init_loop(cfg: TrainConfig, device, bank=None,
     rollout = init_rollout(cfg.env, cfg.rollout.num_envs, generator,
                            radius=cfg.curriculum.initial_radius,
                            explore_bonus=cfg.env.explore_bonus_init,
-                           bank=bank, hidden=hidden)
+                           bank=bank, hidden=hidden, guide=guide)
     return LoopCarry(model=model, optimizer=optimizer, rollout=rollout,
                      curriculum=curriculum_init(cfg.curriculum,
                                                 cfg.env.explore_bonus_init),
@@ -495,9 +507,10 @@ def train_ppo(
     ``sync_every`` is the number of iterations whose episode records are
     drained to the CSV in one batch (default 8); their episodes count
     toward ``cfg.total_episodes`` when the batch is drained, so training
-    runs to the end of the window that reaches it, as JAX's does.  ``guide`` (a training
-    guide) is not ported yet and raises (with the recurrent policy it is
-    refused as JAX refuses it).  ``bank`` is the ``FieldBank`` of
+    runs to the end of the window that reaches it, as JAX's does.
+    ``guide`` (``evaluation.guidance.make_guide``) runs in the training
+    rollout (``build_train_step(guide=)``): policy-in-the-loop fine-tuning,
+    the feedforward policy only, as in JAX.  ``bank`` is the ``FieldBank`` of
     ``plume_model="gridded"``; it is moved to ``device``.  ``init_params``
     (a state_dict of the policy, as ``--pth`` and ``--ckpt`` load it)
     warm-starts the policy; the optimizer starts fresh.  The run writes
@@ -514,12 +527,11 @@ def train_ppo(
     if guide is not None and cfg.ppo.arch == "lstm":
         raise ValueError(
             "guided fine-tuning (--guide) supports the feedforward arch only")
-    check_guide(guide)
     if bank is not None:
         bank = bank.to(device)
     os.makedirs(out_dir, exist_ok=True)
-    loop = init_loop(cfg, device, bank, init_params)
-    train_step = build_train_step(cfg, bank)
+    loop = init_loop(cfg, device, bank, init_params, guide=guide)
+    train_step = build_train_step(cfg, bank, guide=guide)
     per_iter_steps = cfg.rollout.num_envs * cfg.rollout.unroll_length
     sync_every = max(8 if sync_every is None else sync_every, 1)
     episodes = successes = env_steps = iteration = 0
