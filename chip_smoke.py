@@ -152,25 +152,54 @@ outside a checkout of the repository.  Phases, each of which must pass:
    episode's buffers); and the first 256 (ppo_v2_0) and 8 (wrf_les) of
    the card's episodes on the CPU from the same draws (the CPU fits every
    episode at every step), at most one episode in 64 apart (at least one
-   allowed).
+   allowed);
+12. the eval guides, each in the protocol's eval (1000 episodes x 1000
+   steps, no stop) with exact field-sample launches (the guides and
+   oracles launch none of the counted kernels), its summary beside the
+   same eval without the guide, wall, eval env-steps/s, the first
+   GUIDE_PROFILE_STEPS steps profiled for launches per eval step and busy
+   share, and its first 64 episodes on the CPU from the same draws (at
+   most one apart; the learned guide's also teacher-forced, every
+   estimate within LEARNED_EST_LIMIT px of the card's or, on a window
+   where rounding moves the localizer further, SENSITIVITY_FACTOR times
+   that, a free run's departure excused only at a decision within that
+   limit of its bound, ``learned_against_cpu``): ``eval --guide bank``
+   with JAX's defaults over wrf_les's 16-row static bank read between
+   cells (the bilinear kernel), and with guard_top / sticky_target /
+   dive_bias and with entry_dive over wrf_les_3d's [4, 8, 8, 500, 500]
+   bank (the trilinear kernel), each policy BANK_POLICY_ITERS card
+   iterations of its config; the learning check's policy's flights
+   (``eval --save-flights``) train the localizer (``train-lstm --variant
+   params``, its epochs cut to LOCALIZER_BUDGET_S), which then steers
+   (``eval --guide learned --localize``) and localizes after the fit
+   guide (``eval --guide fit --localize``, the ``hybrid_*`` errors), the
+   card's localization held to the CPU's; ``eval --oracle phase`` and
+   ``--oracle raster --guide fit``; ``expert --oracle phase`` at 1000
+   episodes with the same samples and actions as on the CPU; and the CLI's
+   ``eval --guide bank``, ``eval --guide learned --localize`` and
+   ``expert --oracle phase``.
 
 ``python3 chip_smoke.py --only guide`` runs, after the build, the guide's
 phases alone (the executed-action mode, the guided training paths, the
 learning check for a trained policy, the fit check, the guided evals of
-the trained and the untrained ppo_v2_0 and wrf_les params, the guided
-CLI); ``--only stop-lstm`` runs phases 9 and 10 alone.  Each prints its
+the trained and the untrained ppo_v2_0 and wrf_les params, phase 12, the
+guided CLI); ``--only stop-lstm`` runs phases 9 and 10 alone, and
+``--only eval-guides`` the learning check and phase 12.  Each prints its
 JSON record, each phase's seconds and the card's name and power limit.
 
 Then it prints a JSON line of the eval phases, one of the recurrent main
 path and its replay, one of the capture and the stop LSTMs
-(``stop_lstm``), one of the guide's phases (``guide``), each phase's
-seconds, the ``kernels`` JSON line (each kernel's launches in
+(``stop_lstm``), one of phase 12 (``eval_guides``), one of the guide's
+phases (``guide``), each phase's seconds, the ``kernels`` JSON line (each
+kernel's launches in
 evals A and B under ``eval_launches``, the recurrent path's under
 ``lstm`` and ``lstm_eval_launches``, the gated evals' under
 ``gated_eval_launches``, the capture run's under ``capture``, the guided
 training's under ``guided``, the executed-action mode's parity and times
-under ``exec_action``, the guided evals' under ``guided_eval_launches``),
-the card's
+under ``exec_action``, the guided evals' under ``guided_eval_launches``,
+and in every entry phase 12's under ``bank_guided_eval_launches``,
+``learned_guided_eval_launches`` and ``oracle_eval_launches``), the
+card's
 name and power limit, and, last, the result line ``{"ok": true,
 "device": {...}}``.  h5py is never imported here (``find_spec`` tells
 whether it is installed): the card's machine may have none.
@@ -2506,155 +2535,41 @@ def slice_draws(ev, draws, n: int):
 def run_guided_eval(ev, k, label, cfg, model, cpu_episodes=0,
                     baseline=True) -> dict:
     """Eval ``label`` at the protocol's width with the fit guide
-    (``guide_of``), no stop, from draws made on the CPU from a seed: after
-    an EVAL_WARMUP-step warm-up, the whole eval with every launch count set
-    to 0 just before it and read just after (the guide adds no kernel
-    launch: one plume sample per step plus one at the reset), its summary,
-    wall, eval env-steps/s and the shares of episodes that end with a
-    validated fit, in hover and committed; then GUIDE_PROFILE_STEPS steps
-    of the same eval unprofiled and profiled for launches per eval step
-    and the device busy share, and on the anisotropic plume one fit's
-    device time over every episode's buffers; with ``baseline`` the same
-    eval unguided, for its success@40.
-
-    With ``cpu_episodes`` the first that many episodes run on the CPU from
-    the same draws (the CPU fits each episode at every step: fewer
-    episodes than the protocol's keep the script within its time) and are
-    held to the card's: an episode agrees where its steps, deviation
-    (within the env tolerance) and guide registers (validated fit, hover,
-    committed, samples, refutations) agree; at most one in 64 (at least
-    one) may not, as a position one float ulp apart can land in another
-    cell and a fit within rounding of a gate's bound can decide the other
-    way.  The step where each such path departs is logged."""
-    import numpy as np
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    n, length = cfg.eval.episodes, eval_length(cfg)
-    init, step_fn = guide_of(cfg)
+    (``guide_of``), no stop (``guides_eval``: exact plume-sample launches,
+    the guide adding none, summary, wall, the shares of episodes ending
+    with a validated fit, in hover and committed, the first
+    GUIDE_PROFILE_STEPS steps profiled; with ``baseline`` the same eval
+    unguided), its first ``cpu_episodes`` episodes also on the CPU (which
+    fits each episode at every step, so fewer than the protocol's); and on
+    the anisotropic plume one fit's device time over every episode's
+    buffers after the profiled steps."""
     last = {}
 
-    def step(*args):
-        # keeps the latest state, whose buffers time the fit alone
-        out = step_fn(*args)
-        last["state"] = out[0]
-        return out
+    def make(dev):
+        init, fn = guide_of(cfg)
+        if dev != "cuda":
+            return (init, fn), None
 
-    draws = ev.draw_eval(torch.Generator().manual_seed(7), cfg.env, length,
-                         n)
+        def step(*args):
+            # keeps the card's latest state, whose buffers time the fit
+            out = fn(*args)
+            last["state"] = out[0]
+            return out
+        return (init, step), None
 
-    def run(steps=None, with_guide=True, track=0):
-        return ev.evaluate_policy(
-            model, cfg.env, cfg.eval,
-            draws=draws if steps is None else dataclasses.replace(
-                draws, turb_noise=draws.turb_noise[:steps]),
-            max_steps=steps, device="cuda", track_trajectories=track,
-            guide=(init, step) if with_guide else None)
-
-    run(EVAL_WARMUP)
-    zero_counts(k)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    m = run(track=cpu_episodes)
-    wall = time.perf_counter() - t0
-    counts = read_counts(k)
-    want = dict.fromkeys(KERNEL_NAMES, 0)
-    want["plume_sample"] = length + 1
-    assert counts == want, (label, counts, want)
-    check_eval_metrics(m, cfg, n, length)
-    assert np.isfinite(m.guide_est).all() and m.guide_samples.min() >= 0
-    p = GUIDE_PROFILE_STEPS
-    t0 = time.perf_counter()
-    run(p)
-    torch.cuda.synchronize()
-    short_wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run(p)
-        torch.cuda.synchronize()
-    kernels = device_kernels(prof)
-    launches = sum(e.count for e in kernels)
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    summary = ev.summarize(m)
-    out = dict(summary=summary, wall_ms=wall * 1e3,
-               env_steps_per_s=n * length / wall,
-               active_env_steps=int(m.steps.sum()),
-               fit_ok_share=float(m.guide_fit_ok.mean()),
-               hover_share=float(m.guide_hover.mean()),
-               committed_share=float(m.guide_committed.mean()),
-               launches_per_step=launches / p,
-               device_ms_per_step=device_ms / p,
-               busy=device_ms / (short_wall * 1e3),
-               short_wall_ms=short_wall * 1e3, launches=counts)
+    out = guides_eval(ev, k, label, cfg, model, make,
+                      baseline=(model, None) if baseline else None,
+                      cpu_episodes=cpu_episodes)
     if cfg.env.plume_model == "anisotropic":
         fit_ms, fit_launches = fit_device_ms(last["state"], cfg)
         step_ms = out["device_ms_per_step"]
         out.update(fit_device_ms=fit_ms, fit_launches=fit_launches,
                    fit_share=fit_ms / step_ms if step_ms else None)
-        log(f"eval {label} guided: one fit over the {n} episodes' buffers "
-            f"after {p} steps: {fit_ms:.4f} ms of device time in "
-            f"{fit_launches:.0f} launches, of {step_ms:.4f} ms per step")
-    if baseline:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        plain = run(with_guide=False)
-        out["unguided"] = dict(summary=ev.summarize(plain),
-                               wall_ms=(time.perf_counter() - t0) * 1e3)
-    log(f"eval {label} guided: {cfg.name} {n} episodes x {length} steps, "
-        f"fit guide, no stop: success@40 {summary['success_rate']:.3f} "
-        + (f"(unguided {out['unguided']['summary']['success_rate']:.3f}) "
-           if baseline else "")
-        + f"mean deviation {summary['mean_deviation']:.2f}, mean steps "
-        f"{summary['mean_steps']:.1f}; episodes ending with a validated fit "
-        f"{out['fit_ok_share']:.3f}, in hover {out['hover_share']:.3f}, "
-        f"committed {out['committed_share']:.3f}; wall {wall * 1e3:.1f} ms "
-        f"= {out['env_steps_per_s']:.1f} eval env-steps/s; launches "
-        f"{ {name: c for name, c in counts.items() if c} }; the first {p} "
-        f"steps profiled: {launches / p:.2f} launches per eval step, "
-        f"device {device_ms / p:.4f} ms per step, busy share "
-        f"{out['busy']:.4f} of their unprofiled wall "
-        f"({short_wall * 1e3:.1f} ms)")
-    if cpu_episodes:
-        out["card_vs_cpu"] = guided_eval_against_cpu(
-            ev, label, cfg, model, m, slice_draws(ev, draws, cpu_episodes))
+        log(f"eval {label}: one fit over the {cfg.eval.episodes} episodes' "
+            f"buffers after {GUIDE_PROFILE_STEPS} steps: {fit_ms:.4f} ms of "
+            f"device time in {fit_launches:.0f} launches, of "
+            f"{step_ms:.4f} ms per step")
     return out
-
-
-def guided_eval_against_cpu(ev, label, cfg, model, got, draws) -> dict:
-    """The first episodes of the card's guided eval ``got`` (tracked) on
-    the CPU from their ``draws`` (see ``run_guided_eval``)."""
-    import copy
-
-    import numpy as np
-
-    n, length = draws.bits.shape[0], eval_length(cfg)
-    cpu_model = copy.deepcopy(model)
-    t0 = time.perf_counter()
-    want = ev.evaluate_policy(cpu_model, cfg.env, cfg.eval, device="cpu",
-                              guide=guide_of(cfg), num_episodes=n,
-                              max_steps=length, draws=draws,
-                              track_trajectories=n)
-    cpu_s = time.perf_counter() - t0
-    agree = ((got.steps[:n] == want.steps)
-             & np.isclose(got.deviations[:n], want.deviations, rtol=RTOL,
-                          atol=ATOL))
-    for name in ("guide_fit_ok", "guide_hover", "guide_committed",
-                 "guide_samples", "guide_refutes"):
-        agree &= getattr(got, name)[:n] == getattr(want, name)
-    apart = np.flatnonzero(~agree)
-    off = ~np.isclose(got.trajectories[apart, :, :2],
-                      want.trajectories[apart, :, :2], rtol=RTOL, atol=ATOL,
-                      equal_nan=True).all(-1)
-    departs = np.where(off.any(-1), off.argmax(-1), -1)
-    log(f"eval {label} guided card vs CPU, the first {n} episodes x "
-        f"{length} steps (the CPU side {cpu_s:.1f} s): {len(apart)} of {n} "
-        f"episodes apart ({int((got.steps[:n] != want.steps).sum())} in "
-        f"steps, {int((got.guide_fit_ok[:n] != want.guide_fit_ok).sum())} "
-        f"in the validated fit); their paths depart at steps "
-        f"{departs.tolist()}; success@40 {got.success[:n].mean():.3f} on "
-        f"the card, {want.success.mean():.3f} on the CPU")
-    assert len(apart) <= max(1, n // 64), (label, apart)
-    return dict(episodes=n, apart=len(apart), departs=departs.tolist(),
-                cpu_s=cpu_s)
 
 
 def check_guide_cli(cli_main, tmp) -> dict:
@@ -2711,6 +2626,678 @@ def guided_evals(ev, k, get_preset, cases) -> tuple:
     return evals, fit
 
 
+# The eval guides phase: the bank-match and learned guides, the localizer
+# and the scripted oracles in the protocol's evals (1000 x 1000), each
+# with its first GUIDES_CPU_EPISODES episodes also on the CPU from the same
+# draws; the bank policies' card iterations; the localizer's training
+# budget in s (its epochs cut to it, at most the CLI's 150).
+GUIDES_CPU_EPISODES = 64
+BANK_POLICY_ITERS = 3
+LOCALIZER_BUDGET_S = 30.0
+LOCALIZER_MAX_EPOCHS = 150
+# each eval's bank: None (analytic), "static" (wrf_les's 16-row static
+# bank of ``--synth-bank static --bank-fields 16``, read between cells so
+# that the bilinear kernel samples it) or "3d" (``--synth-bank 3d``)
+BANK_GUIDE_FLAGS = {
+    "bank static": ("static", []),
+    "bank 3d options": ("3d", ["--guide-guard-top", "2",
+                               "--guide-sticky-target", "--guide-dive-bias"]),
+    "bank 3d entry": ("3d", ["--guide-entry-dive"]),
+}
+
+
+# the kernels line's keys of the eval guides phase's evals
+EVAL_GUIDE_GROUPS = {
+    "bank_guided_eval_launches": tuple(BANK_GUIDE_FLAGS),
+    "learned_guided_eval_launches": ("learned", "fit_localize"),
+    "oracle_eval_launches": ("oracle phase", "oracle raster fit", "expert"),
+}
+
+
+def guides_bank(gridded, env, kind):
+    """The bank of ``--synth-bank static --bank-fields 16`` or
+    ``--synth-bank 3d`` on the card, from seed 0 (the CLI's)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    if kind == "static":
+        return gridded.synthesize_bank(gen, env, num_fields=16)
+    return gridded.synthesize_3d_bank(gen, env)
+
+
+def bank_guide_cfgs(get_preset):
+    """wrf_les with ``--plume-model gridded`` (sub-cell reads), and
+    wrf_les_3d, at the main path's minibatch."""
+    wl = get_preset("wrf_les")
+    static = wl.replace(env=dataclasses.replace(
+        wl.env, plume_model="gridded", subcell_sampling=True))
+    w3 = get_preset("wrf_les_3d")
+    return {kind: c.replace(ppo=dataclasses.replace(c.ppo,
+                                                    minibatch_size=MAIN_MB))
+            for kind, c in (("static", static), ("3d", w3))}
+
+
+def bank_policy(ttrain, cfg, bank):
+    """A policy of BANK_POLICY_ITERS card iterations of ``cfg`` over
+    ``bank`` (``train_ppo``)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        res = ttrain.train_ppo(cfg, tmp, device="cuda", bank=bank,
+                               max_iterations=BANK_POLICY_ITERS,
+                               write_csv=False, verbose=False)
+    model = ttrain.make_policy_model(cfg)
+    model.load_state_dict(res.state_dict)
+    log(f"bank policy {cfg.name} ({cfg.env.plume_model}, "
+        f"{list(bank.conc.shape)}): {BANK_POLICY_ITERS} iterations, "
+        f"{res.episodes} episodes, {res.successes} successes")
+    return model.to("cuda")
+
+
+def guides_eval(ev, k, label, cfg, model, make, bank=None, baseline=None,
+                localizer=None, cpu_episodes=GUIDES_CPU_EPISODES) -> dict:
+    """Eval ``label`` at the protocol's width, no stop, from draws made on
+    the CPU from a seed, with the guide and oracle of ``make(device)``:
+    after an EVAL_WARMUP-step warm-up, the whole eval with every launch
+    count set to 0 just before it and read just after (one field sample
+    per step plus one at the reset: the guides and oracles launch none of
+    the counted kernels), its summary, wall and eval env-steps/s; then
+    GUIDE_PROFILE_STEPS steps unprofiled and profiled for the launches per
+    eval step and the device busy share; with ``baseline`` (a (model,
+    oracle) pair) the same eval without the guide, for its summary.  With
+    ``localizer`` (the model on the card and on the CPU, its window) every
+    flight is tracked and localized after the eval (``eval --localize``):
+    the ``localize_*`` errors, and ``hybrid_*`` where the guide estimates.
+
+    The first ``cpu_episodes`` episodes then run on the CPU from the same
+    draws (``make("cpu")``), held to the card's: an episode agrees where
+    its steps, deviation (within the env tolerance) and guide registers
+    agree; at most one in 64 (at least one) may not, as a position one
+    float ulp apart can land in another cell, each logged with the step
+    where its path departs."""
+    import copy
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_plume_torch.cli.main import bank_summary
+
+    n, length = cfg.eval.episodes, eval_length(cfg)
+    guide, oracle = make("cuda")
+    draws = ev.draw_eval(torch.Generator().manual_seed(7), cfg.env, length,
+                         n)
+    track = n if localizer else cpu_episodes
+
+    def run(steps=None, policy=model, with_oracle=oracle, with_guide=guide,
+            track_n=0):
+        return ev.evaluate_policy(
+            policy, cfg.env, cfg.eval,
+            draws=draws if steps is None else dataclasses.replace(
+                draws, turb_noise=draws.turb_noise[:steps]),
+            max_steps=steps, device="cuda", bank=bank,
+            track_trajectories=track_n, guide=with_guide,
+            oracle=with_oracle)
+
+    run(EVAL_WARMUP)
+    zero_counts(k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = run(track_n=track)
+    wall = time.perf_counter() - t0
+    counts = read_counts(k)
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    want[_field_sample(cfg.env, bank)] = length + 1
+    assert counts == want, (label, counts, want)
+    check_eval_metrics(m, cfg, n, length)
+    if guide is not None:
+        assert np.isfinite(m.guide_est).all() and m.guide_samples.min() >= 0
+    p = GUIDE_PROFILE_STEPS
+    t0 = time.perf_counter()
+    run(p)
+    torch.cuda.synchronize()
+    short_wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run(p)
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    launches = sum(e.count for e in kernels)
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    summary = ev.summarize(m)
+    if bank is not None and guide is not None:
+        summary.update(bank_summary(m))
+    out = dict(summary=summary, wall_ms=wall * 1e3,
+               env_steps_per_s=n * length / wall,
+               active_env_steps=int(m.steps.sum()),
+               launches_per_step=launches / p,
+               device_ms_per_step=device_ms / p,
+               busy=device_ms / (short_wall * 1e3),
+               short_wall_ms=short_wall * 1e3, launches=counts)
+    if guide is not None:
+        out.update(fit_ok_share=float(m.guide_fit_ok.mean()),
+                   hover_share=float(m.guide_hover.mean()),
+                   committed_share=float(m.guide_committed.mean()))
+    if localizer is not None:
+        out["localize"] = localize_on_card(m, cfg, localizer, summary)
+    if baseline is not None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = run(policy=baseline[0], with_oracle=baseline[1],
+                    with_guide=None)
+        out["unguided"] = dict(summary=ev.summarize(plain),
+                               wall_ms=(time.perf_counter() - t0) * 1e3)
+    log(f"eval {label}: {cfg.name} {n} episodes x {length} steps, no stop: "
+        f"success@40 {summary['success_rate']:.3f} "
+        + (f"(unguided {out['unguided']['summary']['success_rate']:.3f}) "
+           if baseline is not None else "")
+        + f"mean deviation {summary['mean_deviation']:.2f}, mean steps "
+        f"{summary['mean_steps']:.1f}"
+        + (f"; episodes ending with the gate open {out['fit_ok_share']:.3f}, "
+           f"in hover {out['hover_share']:.3f}, committed "
+           f"{out['committed_share']:.3f}" if guide is not None else "")
+        + (f", match accuracy {summary['bank_match_accuracy']:.3f}" if
+           "bank_match_accuracy" in summary else "")
+        + f"; wall {wall * 1e3:.1f} ms = {out['env_steps_per_s']:.1f} eval "
+        f"env-steps/s; launches { {a: c for a, c in counts.items() if c} }; "
+        f"the first {p} steps profiled: {launches / p:.2f} launches per eval "
+        f"step, device {device_ms / p:.4f} ms per step, busy share "
+        f"{out['busy']:.4f} of their unprofiled wall "
+        f"({short_wall * 1e3:.1f} ms)")
+
+    c = cpu_episodes
+    if not c:
+        return out
+    cpu_guide, cpu_oracle = make("cpu")
+    t0 = time.perf_counter()
+    cpu = ev.evaluate_policy(
+        None if model is None else copy.deepcopy(model).cpu(), cfg.env,
+        cfg.eval, device="cpu", num_episodes=c, max_steps=length,
+        draws=slice_draws(ev, draws, c), track_trajectories=c,
+        bank=None if bank is None else bank.to("cpu"), guide=cpu_guide,
+        oracle=cpu_oracle)
+    cpu_s = time.perf_counter() - t0
+    agree = ((m.steps[:c] == cpu.steps)
+             & np.isclose(m.deviations[:c], cpu.deviations, rtol=RTOL,
+                          atol=ATOL))
+    if cpu.guide_fit_ok is not None:
+        for name in ("guide_fit_ok", "guide_hover", "guide_committed",
+                     "guide_samples", "guide_refutes", "guide_match",
+                     "guide_contacts"):
+            agree &= getattr(m, name)[:c] == getattr(cpu, name)
+    apart = np.flatnonzero(~agree)
+    off = ~np.isclose(m.trajectories[apart, :, :2],
+                      cpu.trajectories[apart, :, :2], rtol=RTOL, atol=ATOL,
+                      equal_nan=True).all(-1)
+    departs = np.where(off.any(-1), off.argmax(-1), -1)
+    log(f"eval {label} card vs CPU, the first {c} episodes x {length} steps "
+        f"(the CPU side {cpu_s:.1f} s): {len(apart)} of {c} episodes apart "
+        f"({int((m.steps[:c] != cpu.steps).sum())} in steps); their paths "
+        f"depart at steps {departs.tolist()}; success@40 "
+        f"{m.success[:c].mean():.3f} on the card, {cpu.success.mean():.3f} "
+        f"on the CPU")
+    assert len(apart) <= max(1, c // 64), (label, apart)
+    out["card_vs_cpu"] = dict(episodes=c, apart=len(apart),
+                              departs=departs.tolist(), cpu_s=cpu_s)
+    return out
+
+
+# The learned guide's card-against-CPU limit on its estimate, px: above
+# the gap of the localizer's cuDNN forward to the CPU's on the same
+# windows (the localize pass, at most 0.0408 px over 1000 flights' tail
+# windows on an NVIDIA H100 80GB HBM3, 700.00 W), far below a wrong
+# localizer's pixels.  On a window where rounding alone moves the
+# localizer's estimate further (``sensitivity``), the limit is
+# SENSITIVITY_FACTOR times that: the card's estimate parted from the
+# CPU's by 7.5-29 times it there, and by 2.54 px on a window where it is
+# 0.0875 px (the same card).
+LEARNED_EST_LIMIT = 0.05
+SENSITIVITY_FACTOR = 64.0
+# the relative noise on the localizer's weights that measures a window's
+# sensitivity (fp32's machine epsilon), and its draws
+FP32_EPS = 2.0 ** -23
+SENSITIVITY_DRAWS = 8
+# steps of the card's records the CPU's teacher-forced guide takes at once
+FORCED_CHUNK = 125
+
+
+def recording(guide, c: int):
+    """The learned ``guide`` keeping, on its device, each step's inputs
+    (window, count, checked estimate, gate, position, concentration,
+    policy action) and outputs (estimate, gate, action) of the first ``c``
+    episodes; returns (guide, records), the records [T] lists."""
+    init, fn = guide
+    rec = []
+
+    def step(gs, pos, conc, act):
+        out = fn(gs, pos, conc, act)
+        rec.append([x[:c].clone() for x in (
+            gs.window, gs.count, gs.est_prev, gs.est_ok, pos, conc, act,
+            out[0].est, out[0].est_ok, out[1])])
+        return out
+    return (init, step), rec
+
+
+def forced_step(cpu_step, parts):
+    """The CPU's learned-guide step from the recorded inputs ``parts``
+    (window, count, checked estimate, gate, position, concentration,
+    policy action; [M, ...]): (state, action)."""
+    import torch
+
+    from tpu_plume_torch.evaluation.learned_guide import LearnedGuideState
+
+    win, count, est_prev, ok, *inputs = parts
+    gs = LearnedGuideState(window=win, count=count,
+                           est=torch.zeros_like(est_prev), est_prev=est_prev,
+                           est_ok=ok, mode=torch.zeros_like(count))
+    with torch.no_grad():
+        g, a, _ = cpu_step(gs, *inputs)
+    return g, a
+
+
+def limits(cfg, model64, g, gap):
+    """Each step's estimate limit, px: LEARNED_EST_LIMIT, or where ``gap``
+    exceeds it SENSITIVITY_FACTOR times the localizer's sensitivity on the
+    step's window (the CPU's state ``g``): the largest per-axis spread of
+    its f64 estimate over SENSITIVITY_DRAWS draws of relative noise
+    FP32_EPS on its weights, a property of the model and the window
+    alone."""
+    import copy
+
+    import torch
+
+    lim = torch.full_like(gap, LEARNED_EST_LIMIT)
+    over = gap > LEARNED_EST_LIMIT
+    if not over.any():
+        return lim
+    x = g.window[over].double()
+    lengths = torch.clamp(g.count[over], max=x.shape[1])
+    gen = torch.Generator().manual_seed(0)
+    draws = []
+    with torch.no_grad():
+        for _ in range(SENSITIVITY_DRAWS):
+            m = copy.deepcopy(model64)
+            for p in m.parameters():
+                p.mul_(1.0 + FP32_EPS * torch.randn(
+                    p.shape, generator=gen, dtype=torch.float64))
+            draws.append(m(x, lengths)[:, :2] * cfg.env.grid_size)
+    spread = torch.stack(draws).std(0).amax(-1).float()
+    lim[over] = torch.clamp(SENSITIVITY_FACTOR * spread,
+                            min=LEARNED_EST_LIMIT)
+    return lim
+
+
+def near_bound(cfg, knobs, pos, est, est_prev, count, lim) -> tuple:
+    """Where the learned guide's decisions at ``est`` lie within ``lim``
+    (px, per row) of their bounds: the gate, where ``count`` is a check
+    and the move from ``est_prev`` is within twice ``lim`` of
+    ``stable_tol``; the action, where ``phase_action`` changes with the
+    estimate moved by ``lim`` on either axis or both.  ``knobs`` is
+    ``learned_knobs``'.  Returns (gate near, action near), bool[N]."""
+    import torch
+
+    from tpu_plume_torch.evaluation.guidance import norm2, phase_action
+
+    tol, every, min_window, geometry = knobs
+    check = (count % every == 0) & (count >= min_window)
+    gate = check & ((norm2(est - est_prev) - tol).abs() <= 2 * lim)
+    unit = torch.tensor([[0.0, 0.0]] + [[a, b] for a in (-1.0, 0.0, 1.0)
+                                         for b in (-1.0, 0.0, 1.0) if a or b])
+    k = len(unit)
+    acts = phase_action(
+        pos[:, None, :2].expand(-1, k, -1).reshape(-1, 2),
+        (est[:, None] + unit * lim[:, None, None]).reshape(-1, 2), cfg.env,
+        *geometry).view(-1, k)
+    return gate, (acts != acts[:, :1]).any(-1)
+
+
+def learned_teacher_forced(cfg, cpu_step, model64, knobs, card) -> dict:
+    """The CPU's learned-guide step on every step the card recorded
+    (``card``, ``recording``'s records stacked [T, c, ...] on the CPU):
+    every estimate within its ``limits`` of the card's, the gate and the
+    action equal but where ``near_bound`` (logged).  Returns the gaps,
+    the steps over LEARNED_EST_LIMIT with their limits, the flips near
+    their bounds and the episodes apart otherwise."""
+    import numpy as np
+    import torch
+
+    est_c, ok_c, act_c = card[7:]
+    steps, c = card[1].shape
+    outs = []
+    for s in range(0, steps, FORCED_CHUNK):
+        g, a = forced_step(cpu_step, [x[s:s + FORCED_CHUNK].flatten(0, 1)
+                                      for x in card[:7]])
+        outs.append((g, a))
+    g = dataclasses.replace(outs[0][0], **{
+        f.name: torch.cat([getattr(o[0], f.name) for o in outs])
+        for f in dataclasses.fields(outs[0][0])})
+    est = g.est.view(steps, c, 2)
+    ok = g.est_ok.view(steps, c)
+    a = torch.cat([o[1] for o in outs]).view(steps, c)
+    gap = (est - est_c).abs().amax(-1)
+    lim = limits(cfg, model64, g, gap.flatten()).view(steps, c)
+    gate_near, act_near = (x.view(steps, c) for x in near_bound(
+        cfg, knobs, card[4].flatten(0, 1), g.est, card[2].flatten(0, 1),
+        g.count, lim.flatten()))
+    gate_flip = ok != ok_c
+    act_flip = (a != act_c) & ~gate_flip
+    near = (gate_flip & gate_near | act_flip & ok & act_near) & (gap <= lim)
+    flips = (gate_flip | act_flip) & ~near
+    gp = gap.numpy()
+    over = np.nonzero(gp > LEARNED_EST_LIMIT)
+    return dict(
+        steps=steps * c,
+        gap_median_p99_max=[float(np.median(gp)),
+                            float(np.quantile(gp, 0.99)), float(gp.max())],
+        over_small_limit=[(int(i), int(t), float(gp[t, i]),
+                           float(lim[t, i])) for t, i in zip(*over)],
+        over_limit=int((gap > lim).sum()),
+        near_bound=[(int(i), int(t), "gate" if gate_flip[t, i] else
+                     "action", float(gp[t, i]), float(lim[t, i]))
+                    for t, i in zip(*np.nonzero(near.numpy()))],
+        apart=np.flatnonzero(flips.any(0).numpy()).tolist())
+
+
+def learned_against_cpu(ev, cfg, model, make, model64, knobs,
+                        draws) -> dict:
+    """The learned guide on the card against the CPU over the episodes of
+    ``draws``, both recorded (``recording``): the card's steps teacher-
+    forced on the CPU (``learned_teacher_forced``: every estimate within
+    its limit, at most one episode in 64 (at least one) with a decision
+    apart but near its bound), then the two free runs, held as
+    ``guides_eval`` holds them.  A free run's departure is excused where
+    its first departing step is a guide decision whose two estimates lie
+    within the step's limit (``limits``) and that lies within it of its
+    bound; the rest (also the policy's own departures and the env's), at
+    most one in 64 (at least one).  ``model64`` is the localizer in f64
+    on the CPU."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    c = draws.bits.shape[0]
+    length = draws.turb_noise.shape[0]
+    cpu_step = make("cpu")[0][1]
+    runs, recs = {}, {}
+    t0 = time.perf_counter()
+    for dev in ("cuda", "cpu"):
+        guide, rec = recording(make(dev)[0], c)
+        runs[dev] = ev.evaluate_policy(
+            copy.deepcopy(model).to(dev), cfg.env, cfg.eval, device=dev,
+            num_episodes=c, max_steps=length, draws=draws, guide=guide)
+        recs[dev] = [torch.stack([r[j] for r in rec]).cpu()
+                     for j in range(len(rec[0]))]
+    forced = learned_teacher_forced(cfg, cpu_step, model64, knobs,
+                                    recs["cuda"])
+    card, cpu = runs["cuda"], runs["cpu"]
+    agree = ((card.steps == cpu.steps)
+             & np.isclose(card.deviations, cpu.deviations, rtol=RTOL,
+                          atol=ATOL)
+             & (card.guide_fit_ok == cpu.guide_fit_ok))
+    mine, theirs = recs["cpu"], recs["cuda"]
+    excused, counted = {}, {}
+    for i in np.flatnonzero(~agree):
+        ok, ok_g = mine[8][:, i], theirs[8][:, i]
+        differ = ((mine[9][:, i] != theirs[9][:, i]) | (ok != ok_g)).numpy()
+        if not differ.any():
+            counted[int(i)] = (-1, "env")
+            continue
+        t = int(differ.argmax())
+        if not (ok[t] or ok_g[t]):
+            counted[int(i)] = (t, "policy")
+            continue
+        at = [x[t, i][None] for x in mine]
+        g, _ = forced_step(cpu_step, at[:7])
+        gap = (at[7] - theirs[7][t, i][None]).abs().amax(-1)
+        lim = limits(cfg, model64, g, gap)
+        gate_near, act_near = near_bound(cfg, knobs, at[4], at[7], at[2],
+                                         at[1] + 1, lim)
+        kind = "gate" if ok[t] != ok_g[t] else "action"
+        near = bool(gate_near if kind == "gate" else act_near)
+        (excused if near and gap <= lim else counted)[int(i)] = (
+            t, kind, float(gap), float(lim))
+    budget = max(1, c // 64)
+    out = dict(episodes=c, teacher_forced=forced,
+               apart=int((~agree).sum()), excused=excused, counted=counted,
+               seconds=time.perf_counter() - t0)
+    log(f"eval learned card vs CPU, the first {c} episodes x {length} "
+        f"steps: teacher-forced over {forced['steps']} steps, estimate gap "
+        f"median/p99/max {forced['gap_median_p99_max']} px; (episode, "
+        f"step, gap, limit) over {LEARNED_EST_LIMIT} px: "
+        f"{forced['over_small_limit']}, {forced['over_limit']} over their "
+        f"limit; decisions apart near their bounds {forced['near_bound']}, "
+        f"otherwise in episodes {forced['apart']}; free runs: "
+        f"{out['apart']} of {c} episodes apart, excused (a guide decision "
+        f"within the step's limit of its bound) {excused}, counted "
+        f"{counted}; success@40 {card.success.mean():.3f} on the card, "
+        f"{cpu.success.mean():.3f} on the CPU ({out['seconds']:.1f} s)")
+    assert forced["over_limit"] == 0, forced
+    assert len(forced["apart"]) <= budget, forced
+    assert len(counted) <= budget, counted
+    return out
+
+
+def localize_on_card(m, cfg, localizer, summary) -> dict:
+    """``eval --localize``: every flight of ``m`` localized by the model on
+    the card (its errors and, where the guide estimates, the hybrid's into
+    ``summary``), and by the same model on the CPU (the largest gap, px)."""
+    import numpy as np
+
+    from tpu_plume_torch.cli.main import location_errors
+    from tpu_plume_torch.evaluation.localize import (
+        localize_from_trajectories,
+    )
+
+    card_model, cpu_model, window = localizer
+    kw = dict(window=window, grid_size=cfg.env.grid_size,
+              conc_peak=cfg.env.conc_peak)
+    t0 = time.perf_counter()
+    pred = localize_from_trajectories(m.trajectories, card_model, **kw)
+    wall = time.perf_counter() - t0
+    gap = float(np.abs(pred - localize_from_trajectories(
+        m.trajectories, cpu_model, **kw)).max())
+    summary.update(location_errors("localize", pred, m.sources))
+    if m.guide_est is not None:
+        summary.update(location_errors("hybrid", np.where(
+            m.guide_fit_ok[:, None], m.guide_est, pred), m.sources))
+    log(f"localize {len(pred)} flights (window {window}): {wall * 1e3:.1f} "
+        f"ms on the card, largest gap to the CPU's estimate {gap:.3e} px; "
+        f"median error {summary['localize_median_err']:.2f} px")
+    assert gap <= LEARNED_EST_LIMIT, gap
+    return dict(wall_ms=wall * 1e3, card_vs_cpu_max_px=gap)
+
+
+def train_localizer(cli_main, lt, flights, out) -> dict:
+    """``train-lstm --variant params --flights`` on the card, its epochs
+    cut so that it takes about LOCALIZER_BUDGET_S (timed from a 1-epoch
+    and a 3-epoch run of ``train_source_lstm``), at most
+    LOCALIZER_MAX_EPOCHS."""
+    walls = {}
+    for epochs in (1, 3):
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            lt.train_source_lstm(None, tmp, flights_path=flights,
+                                 epochs=epochs, device="cuda")
+            walls[epochs] = time.perf_counter() - t0
+    per_epoch = max((walls[3] - walls[1]) / 2, 1e-3)
+    epochs = int(min(LOCALIZER_MAX_EPOCHS,
+                     max(3, LOCALIZER_BUDGET_S / per_epoch)))
+    res, wall = cli_json(cli_main, ["train-lstm", "--variant", "params",
+                                    "--flights", flights, "--epochs",
+                                    str(epochs), "--out", out])
+    log(f"localizer: {per_epoch * 1e3:.1f} ms an epoch on the card, "
+        f"{epochs} epochs (of the CLI's {LOCALIZER_MAX_EPOCHS}) in "
+        f"{wall:.1f} s: {json.dumps(res)}")
+    return dict(epochs=epochs, epoch_ms=per_epoch * 1e3, wall_s=wall, **res)
+
+
+def learned_knobs(cli, loc, cfg) -> tuple:
+    """The learned guide's gate (stable_tol, check_every, min_window) as
+    ``eval --guide learned --guide-ckpt loc`` derives it, and its dive
+    geometry (terminate radius, deep target, setup distance) at the
+    protocol's radius 50."""
+    from tpu_plume_torch.evaluation.learned_guide import (
+        derive_learned_guide_config,
+        load_localizer_meta,
+    )
+
+    meta = load_localizer_meta(loc)
+    d = derive_learned_guide_config(meta["val_median_err_px"],
+                                    window=int(meta["window"]))
+    deep_target = min(cfg.eval.success_distance - 10.0, 0.8 * 50.0)
+    setup = deep_target + cfg.env.grid_size * cfg.env.move_frac - 1.0
+    return (d["stable_tol"], d["check_every"], d["min_window"],
+            (50.0, deep_target, setup))
+
+
+def expert_oracle(ev, k, cfg, oracle_of) -> dict:
+    """``expert --oracle phase`` at 1000 episodes on the card against the
+    CPU from the same draws: exact plume-sample launches, the same sample
+    count and actions."""
+    import numpy as np
+    import torch
+
+    n, length = 1000, cfg.env.max_steps
+    draws = ev.draw_eval(torch.Generator().manual_seed(9), cfg.env, length,
+                         n)
+    zero_counts(k)
+    t0 = time.perf_counter()
+    states, actions = ev.generate_expert_data(
+        None, cfg.env, num_episodes=n, draws=draws, device="cuda",
+        oracle=oracle_of("phase", cfg.env))
+    wall = time.perf_counter() - t0
+    counts = read_counts(k)
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    want["plume_sample"] = length + 1
+    assert counts == want, (counts, want)
+    cpu_states, cpu_actions = ev.generate_expert_data(
+        None, cfg.env, num_episodes=n, draws=draws, device="cpu",
+        oracle=oracle_of("phase", cfg.env))
+    assert len(actions) == len(cpu_actions) > 0, (len(actions),
+                                                  len(cpu_actions))
+    assert (actions == cpu_actions).all()
+    gap = float(np.abs(states - cpu_states).max())
+    log(f"expert --oracle phase: {n} episodes x {length} steps, "
+        f"{len(actions)} samples on the card and on the CPU, actions equal, "
+        f"states within {gap:.3e}; wall {wall * 1e3:.1f} ms; launches "
+        f"{ {a: c for a, c in counts.items() if c} }")
+    assert gap <= ATOL, gap
+    return dict(samples=len(actions), wall_ms=wall * 1e3, launches=counts,
+                states_max_gap=gap)
+
+
+def eval_guides(ev, k, ttrain, gridded, get_preset, cli_main, v20,
+                trained) -> dict:
+    """The eval guides phase (see the module docstring, phase 12): the
+    bank guide over wrf_les's static bank and wrf_les_3d's 3-D bank, the
+    learned guide and the localizer of ``trained``'s own flights, the
+    fit guide with the localizer, the phase oracle and the raster oracle
+    under the fit guide, ``expert --oracle phase``, and the CLI's
+    ``eval --guide bank``, ``eval --guide learned --localize`` and
+    ``expert --oracle phase``."""
+    import copy
+    import importlib
+
+    import torch
+
+    from tpu_plume_torch.evaluation.oracle import make_oracle
+    from tpu_plume_torch.train import lstm_trainer as lt
+
+    cli = importlib.import_module("tpu_plume_torch.cli.main")
+    out = {}
+    cfgs = bank_guide_cfgs(get_preset)
+    for kind in ("static", "3d"):
+        cfg = cfgs[kind]
+        bank = guides_bank(gridded, cfg.env, kind)
+        model = bank_policy(ttrain, cfg, bank)
+        for label, (bank_kind, flags) in BANK_GUIDE_FLAGS.items():
+            if bank_kind != kind:
+                continue
+            args = cli.build_parser().parse_args(["eval", "--guide", "bank",
+                                                  *flags])
+            out[label] = guides_eval(
+                ev, k, label, cfg, model,
+                lambda dev, a=args, b=bank: (
+                    cli.bank_guide(a, cfg, b if dev == "cuda"
+                                   else b.to("cpu")), None),
+                bank=bank, baseline=(model, None))
+        if kind == "static":
+            with tempfile.TemporaryDirectory() as tmp:
+                pth = os.path.join(tmp, "policy.pth")
+                torch.save(model.state_dict(), pth)
+                summary, wall = cli_json(cli_main, [
+                    "eval", "--preset", "wrf_les", "--plume-model",
+                    "gridded", "--synth-bank", "static", "--bank-fields",
+                    "16", "--pth", pth, "--guide", "bank"])
+            assert {"bank_gate_rate", "bank_match_accuracy"} <= set(summary)
+            out["cli_bank"] = dict(summary=summary, wall_s=wall)
+            log(f"cli eval --preset wrf_les --plume-model gridded "
+                f"--synth-bank static --bank-fields 16 --guide bank: "
+                f"{wall:.2f} s, {json.dumps(summary)}")
+        del bank, model
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        pth = os.path.join(tmp, "policy.pth")
+        torch.save(trained.state_dict(), pth)
+        flights = os.path.join(tmp, "flights.npz")
+        summary, wall = cli_json(cli_main, ["eval", "--pth", pth,
+                                            "--save-flights", flights])
+        log(f"cli eval --save-flights: {wall:.2f} s, {json.dumps(summary)}")
+        loc = os.path.join(tmp, "loc")
+        out["localizer"] = train_localizer(cli_main, lt, flights, loc)
+        args = cli.build_parser().parse_args([
+            "eval", "--guide", "learned", "--guide-ckpt", loc, "--localize",
+            loc])
+        models = {dev: cli.load_localizer(loc, dev)[0]
+                  for dev in ("cuda", "cpu")}
+        localizer = (models["cuda"], models["cpu"], args.localize_window)
+        knobs = learned_knobs(cli, loc, v20)
+
+        def make_learned(dev):
+            return cli.learned_guide(args, v20, dev), None
+
+        out["learned"] = guides_eval(
+            ev, k, "learned", v20, trained, make_learned,
+            baseline=(trained, None), localizer=localizer, cpu_episodes=0)
+        # the first episodes of the eval's own draws (``guides_eval``'s)
+        out["learned"]["card_vs_cpu"] = learned_against_cpu(
+            ev, v20, trained, make_learned,
+            copy.deepcopy(models["cpu"]).double(), knobs, slice_draws(
+                ev, ev.draw_eval(torch.Generator().manual_seed(7), v20.env,
+                                 eval_length(v20), v20.eval.episodes),
+                GUIDES_CPU_EPISODES))
+        out["fit_localize"] = guides_eval(
+            ev, k, "fit localize", v20, trained,
+            lambda dev: (guide_of(v20), None), localizer=localizer)
+        summary, wall = cli_json(cli_main, [
+            "eval", "--pth", pth, "--guide", "learned", "--guide-ckpt", loc,
+            "--localize", loc])
+        assert {"localize_median_err", "hybrid_median_err"} <= set(summary)
+        out["cli_learned"] = dict(summary=summary, wall_s=wall)
+        log(f"cli eval --guide learned --localize: {wall:.2f} s, "
+            f"{json.dumps(summary)}")
+    del models, localizer
+    torch.cuda.empty_cache()
+
+    out["oracle phase"] = guides_eval(
+        ev, k, "oracle phase", v20, None,
+        lambda dev: (None, make_oracle("phase", v20.env)))
+    out["oracle raster fit"] = guides_eval(
+        ev, k, "oracle raster fit", v20, None,
+        lambda dev: (guide_of(v20), make_oracle("raster", v20.env)),
+        baseline=(None, make_oracle("raster", v20.env)))
+    out["expert"] = expert_oracle(ev, k, v20, make_oracle)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "expert_data.npz")
+        summary, wall = cli_json(cli_main, ["expert", "--oracle", "phase",
+                                            "--episodes", "1000", "--out",
+                                            path])
+        assert summary["samples"] > 0 and os.path.isfile(path), summary
+    out["cli_expert"] = dict(summary=summary, wall_s=wall)
+    log(f"cli expert --oracle phase --episodes 1000: {wall:.2f} s, "
+        f"{json.dumps(summary)}")
+    return out
+
+
 def stop_lstm_phases(ttrain, ev, k, cli_main, cfg, phase_done) -> tuple:
     """Phases 9 and 10 on ``cfg`` (ppo_v2_0 at full width): the learning
     check with the trajectory capture, then the stop LSTMs trained on its
@@ -2743,6 +3330,16 @@ def run_only(only, m, v20, wl, phase_done) -> None:
                                            v20, phase_done)
         log(json.dumps({"stop_lstm": stop_lstm}))
         return
+    if only == "eval-guides":
+        with tempfile.TemporaryDirectory() as tmp:
+            _, _, trained = learning_check(m.ttrain, m.ev, m.k, v20,
+                                           os.path.join(tmp, "learn"))
+        phase_done("learning check")
+        out = eval_guides(m.ev, m.k, m.ttrain, m.gridded, m.get_preset,
+                          m.cli_main, v20, trained)
+        phase_done("eval guides")
+        log(json.dumps({"eval_guides": out}, default=str))
+        return
     out = {"exec_parity": check_env_step_exec(m.get_preset, m.plume,
                                               m.rollout)}
     out["exec_time"] = {str(n): row for n, row in time_env_step_exec(
@@ -2766,6 +3363,9 @@ def run_only(only, m, v20, wl, phase_done) -> None:
          GUIDE_CPU_EPISODES["wrf_les"]),
         ("wrf_les untrained", wl, untrained["wrf_les"], 0)))
     phase_done("guided evals")
+    out["eval_guides"] = eval_guides(m.ev, m.k, m.ttrain, m.gridded,
+                                     m.get_preset, m.cli_main, v20, trained)
+    phase_done("eval guides")
     out["cli"] = {}
     run_cli(m.cli_main, m.ActorCritic, "ppo_v2_0", MAIN_D, MAIN_A,
             then=lambda tmp: out["cli"].update(check_guide_cli(m.cli_main,
@@ -2790,9 +3390,10 @@ def build_kernels(build, names) -> None:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
-        "--only", choices=("guide", "stop-lstm"),
+        "--only", choices=("guide", "stop-lstm", "eval-guides"),
         help="after the build, run only the guide's phases (with the "
-             "untrained policies' guided evals) or only phases 9 and 10")
+             "untrained policies' guided evals), only phases 9 and 10, or "
+             "only the learning check and phase 12")
     args = parser.parse_args(argv)
     import torch
 
@@ -2843,7 +3444,8 @@ def main(argv=None) -> int:
     if args.only:
         run_only(args.only, types.SimpleNamespace(
             ev=ev, k=k, ttrain=ttrain, rollout=rollout, cli_main=cli_main,
-            ActorCritic=ActorCritic, get_preset=get_preset, plume=plume),
+            ActorCritic=ActorCritic, get_preset=get_preset, plume=plume,
+            gridded=gridded),
             v20_main, wl, phase_done)
         log("phase seconds: " + json.dumps(seconds))
         print(card, flush=True)
@@ -3027,6 +3629,11 @@ def main(argv=None) -> int:
          GUIDE_CPU_EPISODES["wrf_les"])))
     del aniso["model"]
     phase_done("guided evals")
+    # The bank-match and learned guides, the localizer and the oracles in
+    # the protocol's evals (phase 12).
+    eval_guides_out = eval_guides(ev, k, ttrain, gridded, get_preset,
+                                  cli_main, v20_main, trained)
+    phase_done("eval guides")
     for gate in STOP_GATES:
         e = stop_lstm[f"eval_{gate}"]
         log(f"eval A {gate} gate: success@40 {e['summary']['success_rate']:.3f}"
@@ -3048,6 +3655,7 @@ def main(argv=None) -> int:
                                    "rollout_profile", "max_memory_allocated",
                                    "counts")}, "lstm_replay": lstm_replay}))
     log(json.dumps({"stop_lstm": stop_lstm}))
+    log(json.dumps({"eval_guides": eval_guides_out}, default=str))
     log(json.dumps({"guide": {
         "evals": guided, "fit_card_vs_cpu": fit_check,
         "exec_parity": exec_parity, "exec_time": {
@@ -3182,6 +3790,9 @@ def main(argv=None) -> int:
         "wrapper: " + json.dumps(gather_time["split_ns"]))
     for entry in kernels:
         entry["eval_launches"] = eval_launches[entry["name"]]
+        for key, labels in EVAL_GUIDE_GROUPS.items():
+            entry[key] = {label: eval_guides_out[label]["launches"][
+                entry["name"]] for label in labels}
     log("phase seconds: " + json.dumps(seconds))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -42,11 +42,16 @@ episodes x 200 steps as the eval above.  The env-step kernel's executed
 action (a guided rollout's launch) is held to ``env_step_plain`` as above,
 the sampled action it records equal to the PyTorch argmax a guide sees;
 the fit guide's rollout (one env-step launch a step) and eval on the card
-are held to the CPU, at most one env or episode in 64 apart.
+are held to the CPU, at most one env or episode in 64 apart; so are the
+bank guide's evals (one bank-sample launch a step) and the learned
+guide's (its localizer cuDNN, TF32 off; the post-hoc localization within
+1e-2 px), and the phase oracle's eval and expert data agree in every
+episode.
 """
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -751,4 +756,142 @@ def test_guided_eval_on_the_card_matches_the_cpu(card, preset):
     assert same.sum() >= n - 1, (got.steps, want.steps)
     torch.testing.assert_close(torch.from_numpy(got.deviations[same]),
                                torch.from_numpy(want.deviations[same]),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("kind", ["static", "3d"])
+def test_bank_guided_eval_on_the_card_matches_the_cpu(card, kind):
+    """The bank guide over a small bank (a static [3, 64, 64] one read
+    between cells, a 3-D [2, 3, 4, 64, 64] one in 3-D flight with
+    guard_top, sticky_target and dive_bias), 64 episodes x 150 steps: one
+    bank-sample launch a step plus one at the reset, and at most one
+    episode in 64 apart from the CPU in steps, gate or matched row."""
+    from tpu_plume_torch.evaluation.bank_guide import make_bank_guide
+    from tpu_plume_torch.fields import gridded
+
+    preset, kw = (("ppo_v2_0", {}) if kind == "static" else
+                  ("wrf_les_3d", dict(guard_top=1, sticky_target=True,
+                                      dive_bias=True)))
+    cfg = get_preset(preset)
+    env = dataclasses.replace(cfg.env, grid_size=64, source_padding=8.0,
+                              move_frac=0.0625, plume_model="gridded",
+                              subcell_sampling=True, initial_radius=12.0,
+                              domain_height=24.0)
+    cfg = cfg.replace(env=env)
+    gen = torch.Generator().manual_seed(0)
+    if kind == "static":
+        bank = gridded.synthesize_bank(gen, env, num_fields=3)
+        name = "bilinear"
+    else:
+        bank = gridded.synthesize_3d_bank(gen, env, num_fields=2,
+                                          num_frames=3, num_levels=4,
+                                          steps_per_frame=8.0)
+        name = "trilinear_zyx"
+    n, length = 64, 150
+    model = ActorCritic(env.obs_dim, env.num_actions)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    draws = harnesses.draw_eval(torch.Generator().manual_seed(1), env,
+                                length, n)
+    guide = make_bank_guide(env, len(bank.source), terminate_radius=12.0,
+                            success_radius=18.0, search_after=20, **kw)
+    args = dict(num_episodes=n, max_steps=length, draws=draws, guide=guide)
+    want = harnesses.evaluate_policy(model, env, cfg.eval, device="cpu",
+                                     bank=bank, **args)
+    kernel = getattr(gather, name)
+    before = kernel.launches
+    got = harnesses.evaluate_policy(model, env, cfg.eval, device=card,
+                                    bank=bank.to(card), **args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + length + 1
+    same = ((got.steps == want.steps)
+            & (got.guide_fit_ok == want.guide_fit_ok)
+            & (got.guide_match == want.guide_match)
+            & np.isclose(got.deviations, want.deviations, rtol=1e-5,
+                         atol=1e-4))
+    assert same.sum() >= n - 1, (got.steps, want.steps)
+    assert want.guide_fit_ok.any()
+
+
+@pytest.mark.parametrize("features", ["xyc", "xycd"])
+def test_learned_guided_eval_on_the_card_matches_the_cpu(card, features):
+    """The learned guide (a localizer of its init, window 16) in ppo_v2_0's
+    eval on a small domain, 64 episodes x 200 steps: one plume-sample
+    launch a step plus one, at most one episode in 64 apart from the CPU;
+    ``localize_from_trajectories`` on the card within 1e-2 px of the
+    CPU's."""
+    from tpu_plume_torch.evaluation.learned_guide import make_learned_guide
+    from tpu_plume_torch.evaluation.localize import (
+        localize_from_trajectories,
+    )
+
+    cfg = get_preset("ppo_v2_0")
+    cfg = cfg.replace(env=dataclasses.replace(
+        cfg.env, grid_size=250, source_padding=25.0, move_frac=0.1))
+    n, length = 64, 200
+    model = ActorCritic(cfg.env.obs_dim, cfg.env.num_actions)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    loc = lstm_zoo.GaussianParamPredictor(
+        hidden_size=16, input_size=6 if features == "xycd" else 3)
+    loc.reset_parameters(torch.Generator().manual_seed(2)).eval()
+    draws = harnesses.draw_eval(torch.Generator().manual_seed(1), cfg.env,
+                                length, n)
+    out, preds = {}, {}
+    for device in ("cpu", card):
+        loc.to(device)
+        guide = make_learned_guide(cfg.env, loc, window=16, min_window=4,
+                                   check_every=2, stable_tol=4.0,
+                                   features=features)
+        before = plume.launches
+        out[str(device)] = harnesses.evaluate_policy(
+            model, cfg.env, cfg.eval, device=device, num_episodes=n,
+            max_steps=length, draws=draws, guide=guide,
+            track_trajectories=n)
+        if device != "cpu":
+            torch.cuda.synchronize()
+            assert plume.launches == before + length + 1
+        if features == "xyc":
+            preds[str(device)] = localize_from_trajectories(
+                out["cpu"].trajectories, loc, window=16,
+                grid_size=cfg.env.grid_size)
+    want, got = out["cpu"], out[str(card)]
+    same = ((got.steps == want.steps)
+            & (got.guide_fit_ok == want.guide_fit_ok)
+            & np.isclose(got.deviations, want.deviations, rtol=1e-5,
+                         atol=1e-4))
+    assert same.sum() >= n - 1, (got.steps, want.steps)
+    if preds:
+        gap = abs(preds[str(card)] - preds["cpu"]).max()
+        assert gap < 1e-2, gap
+
+
+def test_oracle_eval_on_the_card_matches_the_cpu(card):
+    """The phase oracle in place of the policy, 256 episodes x 200 steps,
+    and its expert data: the same steps, deviations at the env tolerance,
+    the same samples and actions."""
+    from tpu_plume_torch.evaluation.oracle import make_oracle
+
+    cfg = get_preset("ppo_v2_0")
+    n, length = 256, 200
+    draws = harnesses.draw_eval(torch.Generator().manual_seed(3), cfg.env,
+                                length, n)
+    oracle = make_oracle("phase", cfg.env)
+    kw = dict(num_episodes=n, max_steps=length, draws=draws, oracle=oracle)
+    want = harnesses.evaluate_policy(None, cfg.env, cfg.eval, device="cpu",
+                                     **kw)
+    got = harnesses.evaluate_policy(None, cfg.env, cfg.eval, device=card,
+                                    **kw)
+    assert (got.steps == want.steps).all()
+    torch.testing.assert_close(torch.from_numpy(got.deviations),
+                               torch.from_numpy(want.deviations),
+                               rtol=1e-5, atol=1e-4)
+    assert want.success.mean() > 0.5
+    env = dataclasses.replace(cfg.env, max_steps=length)
+    expert = {}
+    for device in ("cpu", card):
+        expert[str(device)] = harnesses.generate_expert_data(
+            None, env, num_episodes=n, draws=draws, device=device,
+            oracle=oracle)
+    (ws, wa), (gs, ga) = expert["cpu"], expert[str(card)]
+    assert (ga == wa).all() and len(wa) > 0
+    torch.testing.assert_close(torch.from_numpy(gs), torch.from_numpy(ws),
                                rtol=1e-5, atol=1e-4)

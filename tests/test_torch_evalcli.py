@@ -11,7 +11,8 @@ commands of the port's CLI, on the CPU.
   one iteration from them matches JAX's ``build_train_step`` from the same
   params (``tests/test_torch_train.py``'s harness and tolerances).
 - Both ``eval`` parsers build the same config from the flags they share;
-  each flag of a later slice is refused before any work, naming its slice.
+  the flags slices 9b, 10 and 11 ported parse as in JAX and reach the
+  work.
 
 Tolerances are ``tests/test_torch_eval.py``'s: steps, stop flags and
 success equal, deviations rtol 1e-5 / atol 1e-4.
@@ -256,26 +257,45 @@ def test_eval_parsers_build_jax_config(cmd, flags):
         assert build_parser().parse_args(argv).out == "expert_data.npz"
 
 
-REFUSED = {   # flags: ROADMAP.md Queue 1 slice
-    "guide_learned": (["--guide", "learned"], "9b"),
-    "guide_bank": (["--guide", "bank"], "9b"),
-    "guide_margin": (["--guide-margin", "1.5"], "9b"),
-    "guide_rim_guard": (["--no-guide-rim-guard"], "9b"),
-    "guide_ckpt": (["--guide-ckpt", "dir"], "9b"),
-    "oracle": (["--oracle", "phase"], 10),
-    "localize": (["--localize", "dir"], 11),
-    "localize_window": (["--localize-window", "32"], 11),
-    "expert_oracle": (["--oracle", "naive"], 10),
+# The flags of slices 9b (the bank and learned guides), 10 (the oracles)
+# and 11 (the localizer) that once were refused here, and what a command
+# given a policy file that does not exist does with each now: fail to load
+# that policy, or, where an oracle replaces the policy, run without it.
+REFUSED = {   # flags: what the command does
+    "guide_learned": (["--guide", "learned"], "policy"),
+    "guide_bank": (["--guide", "bank"], "policy"),
+    "guide_margin": (["--guide-margin", "1.5"], "policy"),
+    "guide_rim_guard": (["--no-guide-rim-guard"], "policy"),
+    "guide_ckpt": (["--guide-ckpt", "dir"], "policy"),
+    "oracle": (["--oracle", "phase"], "runs"),
+    "localize": (["--localize", "dir"], "policy"),
+    "localize_window": (["--localize-window", "32"], "policy"),
+    "expert_oracle": (["--oracle", "naive"], "runs"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
-def test_flags_of_later_slices_are_refused_before_any_work(name):
-    flags, item = REFUSED[name]
+def test_flags_of_later_slices_are_refused_before_any_work(name, tmp_path):
+    """Each flag that slices 9b, 10 and 11 refused until they were ported
+    parses to the value JAX's parser gives it and reaches the work: with a
+    missing ``--pth`` the command fails to load that policy, or flies the
+    oracle, which loads none (as in JAX)."""
+    flags, outcome = REFUSED[name]
     cmd = "expert" if name.startswith("expert") else "eval"
-    # a policy file that does not exist: loading it would fail otherwise
-    with pytest.raises(SystemExit, match=rf"ROADMAP\.md Queue 1, slice {item} "):
-        cli_main([cmd, "--cpu", "--pth", "/nonexistent.pth", *flags])
+    want = vars(j_build_parser().parse_args([cmd, *flags]))
+    got = vars(build_parser().parse_args([cmd, *flags]))
+    for key, value in got.items():
+        if key != "fn":
+            assert value == want[key], key
+    argv = [cmd, "--cpu", "--pth", "/nonexistent.pth", "--episodes", "4",
+            "--out", str(tmp_path / ("x.npz" if cmd == "expert" else "x")),
+            *flags]
+    if outcome == "policy":
+        with pytest.raises(FileNotFoundError, match="nonexistent"):
+            cli_main(argv)
+    else:
+        out = _run(cli_main, argv)
+        assert ("samples" if cmd == "expert" else "success_rate") in out
 
 
 TRAIN_REFUSED = {   # train flags: ROADMAP.md Queue 1 slice

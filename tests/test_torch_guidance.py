@@ -458,15 +458,29 @@ def test_guided_eval_passes_the_true_source_as_jax_does():
 
 
 def test_eval_refuses_a_bank_guide_naming_slice_9b():
-    _, tcfg = _configs("ppo_v2_0", SMALL)
+    """Refused until slice 9b was ported: a ``needs_bank`` step now
+    receives the bank, shared by the episodes, and each episode's step
+    count before the move (``tests/test_torch_bankguide.py`` holds the
+    bank guide itself to JAX's)."""
+    _, tcfg = _configs("ppo_v2_0", dict(SMALL, plume_model="gridded"))
     _, _, tm = models(tcfg.env)
+    from tpu_plume_torch.evaluation.bank_guide import make_bank_guide
+    from tpu_plume_torch.fields.gridded import synthesize_bank
 
-    def fn(*a):
-        raise AssertionError("not stepped")
+    bank = synthesize_bank(torch.Generator().manual_seed(0), tcfg.env,
+                           num_fields=3)
+    init, step = make_bank_guide(tcfg.env, 3)
+    seen = []
+
+    def fn(gs, pos, conc, act, b, t):
+        seen.append((b, t.clone()))
+        return step(gs, pos, conc, act, b, t)
     fn.needs_bank = True
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md Queue 1, slice 9b "):
-        th.evaluate_policy(tm, tcfg.env, tcfg.eval,
+    m = th.evaluate_policy(tm, tcfg.env, tcfg.eval,
                            torch.Generator().manual_seed(0), num_episodes=4,
-                           max_steps=5, device="cpu",
-                           guide=(torch.zeros(()), fn))
+                           max_steps=5, device="cpu", bank=bank,
+                           guide=(init, fn))
+    assert all(b is bank for b, _ in seen)
+    assert [t.tolist() for _, t in seen[:2]] == [[0] * 4, [1] * 4]
+    assert (m.guide_samples == m.steps).all()
+    assert (m.field_idx >= 0).all() and (m.field_idx < 3).all()

@@ -5,6 +5,12 @@
     python -m tpu_plume_torch.cli train --preset wrf_les_3d --bank bank.nc
     python -m tpu_plume_torch.cli eval --pth runs/torch_v20/model/ppo_successful_models.pth --stop heuristic --out runs/eval
     python -m tpu_plume_torch.cli eval --pth runs/torch_v20/model/ppo_successful_models.pth --guide fit
+    python -m tpu_plume_torch.cli eval --preset wrf_les --plume-model gridded --synth-bank static --bank-fields 16 --ckpt runs/torch_bank --guide bank
+    python -m tpu_plume_torch.cli eval --pth ... --save-flights runs/flights.npz
+    python -m tpu_plume_torch.cli train-lstm --variant params --flights runs/flights.npz --out runs/loc
+    python -m tpu_plume_torch.cli eval --pth ... --guide learned --guide-ckpt runs/loc --localize runs/loc
+    python -m tpu_plume_torch.cli eval --oracle raster --guide fit
+    python -m tpu_plume_torch.cli expert --oracle phase --episodes 1000
     python -m tpu_plume_torch.cli train --train-guide fit --min-radius 50 --terminal-gate 40 --pth runs/torch_v20/model/ppo_successful_models.pth
     python -m tpu_plume_torch.cli expert --ckpt runs/torch_v20/checkpoint.pt --episodes 100
     python -m tpu_plume_torch.cli train --arch lstm --ln-lstm --out runs/torch_lstm
@@ -29,10 +35,15 @@ weights load from ``--ckpt`` only: the ``.pth`` layout is the 2-layer MLP.
 or a reference ``.pth``).  ``eval --guide fit`` runs the model-fit
 terminal guide (trilateration on the isotropic plume, a Gauss-Newton fit of
 the anisotropic one) and ``train --train-guide fit`` the same guide inside
-the training rollout.  The NetCDF files (``--netcdf``, ``--bank
-file.nc``, ``train-lstm --nc``, ``inspect-nc``) need h5py.  A flag of a
-path the port does not run yet is refused before any work, naming the
-``ROADMAP.md`` slice that ports it.
+the training rollout; ``eval --guide bank`` identifies the episode's row
+of a gridded bank and ``eval --guide learned`` steers by a trained source
+localizer (``train-lstm --variant params``, loaded by ``--guide-ckpt``
+from its run directory or its ``gaussian_params.pt``), which ``eval
+--localize`` also runs post hoc on every flight.  ``eval --oracle`` and
+``expert --oracle`` fly a scripted policy and load none.  The NetCDF files
+(``--netcdf``, ``--bank file.nc``, ``train-lstm --nc``, ``inspect-nc``)
+need h5py.  A command or flag of a path the port does not run yet is
+refused before any work, naming the ``ROADMAP.md`` slice that ports it.
 """
 
 from __future__ import annotations
@@ -195,14 +206,9 @@ def load_policy(args, cfg, device):
 
 
 # Flags of later slices, left undeclared and refused before any work: a
-# flag's name (without "--", "no-" and "=value") matched against each
+# flag by its name (without "--", "no-" and "=value") matched against each
 # pattern, with the ROADMAP item that ports it.
-LATER_FLAGS = ((r"guide-(ckpt|stable-tol|min-window|check-every|margin|"
-                r"margin-until|rim-guard|rim-expire|guard-top|entry-dive|"
-                r"dive-bias|sticky-target)", support.LEARNED_GUIDES),
-               (r"oracle", support.IMITATION),
-               (r"distill(-coef|-gate)?", support.IMITATION),
-               (r"localize(-window)?", support.LOCALIZE),
+LATER_FLAGS = ((r"distill(-coef|-gate)?", support.IMITATION),
                (r"resume|snapshot-every|tensorboard|profile-steps|debug-nans",
                 support.SCALE_OUT))
 
@@ -218,14 +224,6 @@ def refuse_later_flags(extra):
             if re.fullmatch(pattern, name):
                 raise SystemExit(support.unported_message(token.split("=")[0],
                                                           item))
-
-
-def refuse_unported(args):
-    """Raise ``SystemExit`` naming the ROADMAP slice of a ported flag's
-    value whose path the port does not run yet."""
-    if getattr(args, "guide", "none") in ("learned", "bank"):
-        raise SystemExit(support.unported_message(f"--guide {args.guide}",
-                                                  support.LEARNED_GUIDES))
 
 
 def lstm_gate(args, cfg, device):
@@ -291,14 +289,122 @@ def lstm_gate(args, cfg, device):
     return make_peak_stop_gate(predict, cfg.stop)
 
 
+def load_localizer(path, device):
+    """The source localizer of ``train-lstm --variant params`` from
+    ``path``, its run directory or the ``gaussian_params.pt`` in it: a
+    ``GaussianParamPredictor`` in eval mode on ``device``, its input width
+    and hidden size read from the state_dict, and the
+    ``localizer_meta.npz`` beside it (None when there is none)."""
+    import os
+
+    import torch
+
+    from tpu_plume_torch.evaluation.learned_guide import load_localizer_meta
+    from tpu_plume_torch.models.lstm_zoo import GaussianParamPredictor
+
+    file = (os.path.join(path, "gaussian_params.pt") if os.path.isdir(path)
+            else path)
+    if not os.path.isfile(file):
+        raise SystemExit(
+            f"{path}: no gaussian_params.pt there.  The port reads the "
+            f"state_dict that its train-lstm --variant params writes, not "
+            f"an Orbax directory of the JAX package")
+    state_dict = torch.load(file, map_location="cpu", weights_only=True)
+    w_ih = state_dict["lstm.weight_ih_l0"]
+    model = GaussianParamPredictor(hidden_size=w_ih.shape[0] // 4,
+                                   input_size=w_ih.shape[1])
+    model.load_state_dict(state_dict)
+    return model.to(device).eval(), load_localizer_meta(path)
+
+
+def learned_guide(args, cfg, device):
+    """``--guide learned``: the localizer of ``--guide-ckpt`` in the eval
+    loop, its gate derived from the validation error in
+    ``localizer_meta.npz`` unless a knob is given (JAX's ``cmd_eval``)."""
+    from tpu_plume_torch.evaluation.learned_guide import (
+        derive_learned_guide_config,
+        make_learned_guide,
+    )
+
+    if not args.guide_ckpt:
+        raise SystemExit("--guide learned requires --guide-ckpt "
+                         "(train-lstm --variant params checkpoint)")
+    model, meta = load_localizer(args.guide_ckpt, device)
+    window = int(meta["window"]) if meta else 64
+    if meta:
+        derived = derive_learned_guide_config(meta["val_median_err_px"],
+                                              window=window)
+        print(f"learned-guide gate derived from localizer val error "
+              f"{meta['val_median_err_px']:.1f} px: "
+              f"stable_tol={derived['stable_tol']:.1f} "
+              f"check_every={derived['check_every']} "
+              f"min_window={derived['min_window']}")
+    else:
+        derived = {"stable_tol": 6.0, "check_every": 8, "min_window": 16}
+    width = model.lstm.input_size
+    features = (str(meta.get("features", "xyc")) if meta
+                else "xycd" if width == 6 else "xyc")
+    if width != (6 if features == "xycd" else 3):
+        raise SystemExit(f"--guide-ckpt {args.guide_ckpt}: a localizer of "
+                         f"input width {width} for features {features!r}")
+
+    def knob(name):
+        value = getattr(args, f"guide_{name}")
+        return derived[name] if value is None else value
+
+    return make_learned_guide(
+        cfg.env, model, features=features, window=window,
+        terminate_radius=(50.0 if args.goal_radius is None
+                          else args.goal_radius),
+        success_radius=cfg.eval.success_distance,
+        stable_tol=knob("stable_tol"), min_window=knob("min_window"),
+        check_every=knob("check_every"))
+
+
+def bank_guide(args, cfg, bank):
+    """``--guide bank`` with JAX's defaults: commit on 2 reads checked
+    every step, margin 1.5 until step 400, search after 50 steps (a
+    negative ``--guide-search-after`` disables it), rim guard on."""
+    from tpu_plume_torch.evaluation.bank_guide import make_bank_guide
+
+    if bank is None:
+        raise SystemExit("--guide bank requires a gridded bank "
+                         "(--bank / --synthesize-bank)")
+
+    def knob(value, default):
+        return default if value is None else value
+
+    search = knob(args.guide_search_after, 50)
+    return make_bank_guide(
+        cfg.env, int(bank.conc.shape[0]),
+        terminate_radius=(50.0 if args.goal_radius is None
+                          else args.goal_radius),
+        success_radius=cfg.eval.success_distance,
+        min_contact=knob(args.guide_min_window, 2),
+        check_every=knob(args.guide_check_every, 1),
+        margin=knob(args.guide_margin, 1.5),
+        margin_until=knob(args.guide_margin_until, 400),
+        search_after=None if search < 0 else search,
+        rim_guard=args.guide_rim_guard,
+        rim_expire=args.guide_rim_expire,
+        guard_top=args.guide_guard_top,
+        entry_dive=args.guide_entry_dive,
+        dive_bias=args.guide_dive_bias,
+        sticky_target=args.guide_sticky_target)
+
+
 def _eval_setup(args):
-    """(cfg, device, model, bank) of an ``eval`` or ``expert`` command,
-    after its refusals."""
-    refuse_unported(args)
+    """(cfg, device, model, bank, oracle) of an ``eval`` or ``expert``
+    command: with ``--oracle`` the scripted policy and no model."""
     cfg = apply_overrides(get_preset(args.preset), args)
     device = resolve_device("cpu" if args.cpu else None)
-    model = load_policy(args, cfg, device)
-    return cfg, device, model, make_bank(args, cfg, device)
+    if args.oracle:
+        from tpu_plume_torch.evaluation.oracle import make_oracle
+
+        model, oracle = None, make_oracle(args.oracle, cfg.env)
+    else:
+        model, oracle = load_policy(args, cfg, device), None
+    return cfg, device, model, make_bank(args, cfg, device), oracle
 
 
 def cmd_eval(args):
@@ -313,7 +419,7 @@ def cmd_eval(args):
         summarize,
     )
 
-    cfg, device, model, bank = _eval_setup(args)
+    cfg, device, model, bank, oracle = _eval_setup(args)
     rnn = model if cfg.ppo.arch == "lstm" else None
     stop_gate = None
     if args.stop == "heuristic":
@@ -333,25 +439,47 @@ def cmd_eval(args):
             max_se=args.guide_max_se,
             search_after=args.guide_search_after,
         )
+    elif args.guide == "learned":
+        guide = learned_guide(args, cfg, device)
+    elif args.guide == "bank":
+        guide = bank_guide(args, cfg, bank)
     n_eval = args.episodes or cfg.eval.episodes
     m = evaluate_policy(
         model, cfg.env, cfg.eval,
         torch.Generator(device=device).manual_seed(args.seed or 0),
         num_episodes=args.episodes, stop_gate=stop_gate,
         greedy=not args.sample, goal_radius=args.goal_radius, bank=bank,
-        track_trajectories=n_eval if args.save_flights else 0,
-        device=device, rnn=rnn, guide=guide,
+        track_trajectories=(n_eval if args.localize or args.save_flights
+                            else 0),
+        device=device, rnn=rnn, guide=guide, oracle=oracle,
     )
     if args.save_flights:
         os.makedirs(os.path.dirname(args.save_flights) or ".", exist_ok=True)
         np.savez_compressed(args.save_flights, trajectories=m.trajectories,
                             sources=m.sources)
     summary = summarize(m)
+    if args.guide == "bank":
+        summary.update(bank_summary(m))
     if args.goal_radius is not None:
         # precision protocol: the bullseye rate (deviation within the
         # terminator itself) is the headline, not success@success_distance
         summary["bullseye_rate"] = float(
             (np.asarray(m.deviations) <= args.goal_radius).mean())
+    if args.localize:
+        from tpu_plume_torch.evaluation.localize import (
+            localize_from_trajectories,
+        )
+
+        pred = localize_from_trajectories(
+            m.trajectories, load_localizer(args.localize, device)[0],
+            window=args.localize_window, grid_size=cfg.env.grid_size,
+            conc_peak=cfg.env.conc_peak)
+        summary.update(location_errors("localize", pred, m.sources))
+        if m.guide_est is not None:
+            # the guide's estimate where it validated, the localizer's
+            # elsewhere
+            summary.update(location_errors("hybrid", np.where(
+                m.guide_fit_ok[:, None], m.guide_est, pred), m.sources))
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         m.save_npz(os.path.join(args.out, "validation_metrics.npz"))
@@ -359,17 +487,40 @@ def cmd_eval(args):
     print(json.dumps(summary))
 
 
+def bank_summary(m) -> dict:
+    """The bank guide's share of episodes ending with its identity gate
+    open, and the share of those whose matched row is the episode's."""
+    gated = m.guide_fit_ok
+    return {"bank_gate_rate": float(gated.mean()),
+            "bank_match_accuracy": (
+                float((m.guide_match == m.field_idx)[gated].mean())
+                if gated.any() else 0.0)}
+
+
+def location_errors(name, pred, sources) -> dict:
+    """The mean, median and within-5 / within-40 shares of the distances
+    of ``pred`` [N, 2] from ``sources``, as ``{name}_*``."""
+    import numpy as np
+
+    err = np.linalg.norm(pred - sources, axis=-1)
+    return {f"{name}_mean_err": float(err.mean()),
+            f"{name}_median_err": float(np.median(err)),
+            f"{name}_within_5": float((err <= 5.0).mean()),
+            f"{name}_within_40": float((err <= 40.0).mean())}
+
+
 def cmd_expert(args):
     import torch
 
     from tpu_plume_torch.evaluation import generate_expert_data
 
-    cfg, device, model, bank = _eval_setup(args)
+    cfg, device, model, bank, oracle = _eval_setup(args)
     states, _ = generate_expert_data(
         model, cfg.env,
         torch.Generator(device=device).manual_seed(args.seed or 0),
         num_episodes=args.episodes or 100, path=args.out, bank=bank,
-        device=device, rnn=model if cfg.ppo.arch == "lstm" else None)
+        device=device, rnn=model if cfg.ppo.arch == "lstm" else None,
+        oracle=oracle)
     print(json.dumps({"samples": int(states.shape[0]), "path": args.out}))
 
 
@@ -544,6 +695,13 @@ def _common(sp, out_default):
                          "lstm (the recurrent PPO+LSTM policy)")
     sp.add_argument("--ln-lstm", action="store_true",
                     help="LayerNorm-LSTM cell for --arch lstm")
+    sp.add_argument("--train-guide", choices=["fit"], default=None,
+                    help="train: run the eval-time terminal guide inside "
+                         "the training rollout: overridden steps drop out "
+                         "of the policy surrogate, rewards and values see "
+                         "the guided dynamics.  Pair with --min-radius 50 "
+                         "--terminal-gate 40 (declared on every command, "
+                         "as in JAX; eval and expert ignore it)")
 
 
 def build_parser():
@@ -560,12 +718,6 @@ def build_parser():
                     help="capture training_data.nc (needs h5py)")
     sp.add_argument("--conc-csv", action="store_true",
                     help="capture ragged conc sequences (V1.2 data.csv)")
-    sp.add_argument("--train-guide", choices=["fit"], default=None,
-                    help="run the eval-time terminal guide inside the "
-                         "training rollout: overridden steps drop out of "
-                         "the policy surrogate, rewards and values see the "
-                         "guided dynamics.  Pair with --min-radius 50 "
-                         "--terminal-gate 40")
     sp.set_defaults(fn=cmd_train)
 
     sp = sub.add_parser("train-lstm", help="LSTM stop-predictor training")
@@ -596,22 +748,77 @@ def build_parser():
     sp = sub.add_parser("eval", help="greedy evaluation harness",
                         allow_abbrev=False)
     _common(sp, None)
+    sp.add_argument("--oracle", choices=["naive", "look1", "phase", "raster"],
+                    help="fly a scripted policy instead of a checkpoint: "
+                         "naive, look1 and phase read the true source; "
+                         "raster is the non-privileged boustrophedon "
+                         "surveyor (compose with --guide fit)")
     sp.add_argument("--guide", choices=["none", "fit", "learned", "bank"],
                     default="none",
                     help="terminal guidance: 'fit' locates the source "
                          "online from the agent's own samples (isotropic "
                          "trilateration, or a Gauss-Newton fit of the "
-                         "anisotropic plume) and phase-controls the "
-                         "goal-ball crossing; learned and bank are not "
-                         "ported yet")
+                         "anisotropic plume); 'learned' runs the source "
+                         "localizer of --guide-ckpt in the eval loop; "
+                         "'bank' identifies the episode's gridded-bank row "
+                         "from its samples and dives at the row's source. "
+                         "Each phase-controls the goal-ball crossing")
     sp.add_argument("--guide-max-se", type=float, default=None,
                     help="override the --guide fit validation gate "
                          "(posterior worst-direction standard error, px)")
     sp.add_argument("--guide-search-after", type=int, default=None,
-                    help="--guide fit on the anisotropic plume: with no "
-                         "readable sample for this many steps, steer a "
-                         "resuming serpentine search (default off; "
-                         "negative disables)")
+                    help="contact search: with no in-plume sample for this "
+                         "many steps, steer a resuming serpentine survey.  "
+                         "--guide bank: default 50; --guide fit "
+                         "(anisotropic only): default off.  Negative "
+                         "disables")
+    sp.add_argument("--guide-ckpt",
+                    help="--guide learned: the localizer's run directory "
+                         "(train-lstm --variant params) or its "
+                         "gaussian_params.pt")
+    sp.add_argument("--guide-stable-tol", type=float, default=None,
+                    help="--guide learned: px agreement of consecutive "
+                         "estimates that opens the gate (default: derived "
+                         "from localizer_meta.npz)")
+    sp.add_argument("--guide-min-window", type=int, default=None,
+                    help="--guide learned: steps before the first "
+                         "stability check (default: derived); --guide "
+                         "bank: in-plume reads before the gate may open "
+                         "(default 2)")
+    sp.add_argument("--guide-check-every", type=int, default=None,
+                    help="steps between checks (--guide learned default: "
+                         "derived; --guide bank: 1)")
+    sp.add_argument("--guide-margin", type=float, default=None,
+                    help="--guide bank: commit only when the runner-up "
+                         "row's score exceeds the best's by this ratio "
+                         "(default 1.5; 1.0 = identity stability only)")
+    sp.add_argument("--guide-margin-until", type=int, default=None,
+                    help="--guide bank: require the margin only before "
+                         "this flight step (0 = always; default 400)")
+    sp.add_argument("--guide-rim-guard",
+                    action=argparse.BooleanOptionalAction, default=True,
+                    help="--guide bank: while unidentified, deflect steps "
+                         "landing inside any candidate row's ball and "
+                         "steer to the top-2 rows' disagreement (default "
+                         "on)")
+    sp.add_argument("--guide-guard-top", type=int, default=0,
+                    help="--guide bank: guard only the top-N scored rows' "
+                         "balls once contact exists (0 = all rows)")
+    sp.add_argument("--guide-entry-dive",
+                    action=argparse.BooleanOptionalAction, default=False,
+                    help="--guide bank: forbid only shallow-chord landings "
+                         "and turn ball entries into deep dives")
+    sp.add_argument("--guide-dive-bias",
+                    action=argparse.BooleanOptionalAction, default=False,
+                    help="--guide bank: a move entering the nearest "
+                         "candidate ball takes the deepest landing")
+    sp.add_argument("--guide-sticky-target",
+                    action=argparse.BooleanOptionalAction, default=False,
+                    help="--guide bank: seat the dive row at gate-open, "
+                         "reseat on a 1.3x score margin only")
+    sp.add_argument("--guide-rim-expire", type=int, default=400,
+                    help="--guide bank: steps after which an unidentified "
+                         "episode's rim guard fails open (default 400)")
     sp.add_argument("--stop",
                     choices=["none", "heuristic", "threshold", "peakstop"],
                     default="none",
@@ -629,11 +836,20 @@ def build_parser():
                          "for the precision metric)")
     sp.add_argument("--save-flights",
                     help="write flights.npz (trajectories + true sources)")
+    sp.add_argument("--localize",
+                    help="a source localizer (train-lstm --variant params: "
+                         "its run directory or gaussian_params.pt): predict "
+                         "each flight's source from its own (x, y, conc) "
+                         "history and report the error")
+    sp.add_argument("--localize-window", type=int, default=64)
     sp.set_defaults(fn=cmd_eval)
 
     sp = sub.add_parser("expert", help="generate expert demonstrations",
                         allow_abbrev=False)
     _common(sp, "expert_data.npz")
+    sp.add_argument("--oracle", choices=["naive", "look1", "phase"],
+                    help="a privileged scripted teacher (true source "
+                         "known) instead of a checkpoint")
     sp.set_defaults(fn=cmd_expert)
 
     sp = sub.add_parser("inspect-nc", help="dump NetCDF dataset schema")
@@ -643,6 +859,9 @@ def build_parser():
 
 
 def main(argv=None):
+    import sys
+
+    argv = sys.argv[1:] if argv is None else list(argv)
     parser = build_parser()
     args, extra = parser.parse_known_args(argv)
     if extra:

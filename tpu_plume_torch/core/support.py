@@ -9,9 +9,7 @@ from __future__ import annotations
 
 from tpu_plume_torch.core.config import EnvConfig, PPOConfig
 
-LEARNED_GUIDES = "ROADMAP.md Queue 1, slice 9b (the bank and learned guides)"
-IMITATION = "ROADMAP.md Queue 1, slice 10 (imitation, GAIL and distilled PPO)"
-LOCALIZE = "ROADMAP.md Queue 1, slice 11 (flux and localization)"
+IMITATION = "ROADMAP.md Queue 1, slice 10 (distill, BC, DAgger and GAIL)"
 SCALE_OUT = "ROADMAP.md Queue 1, slice 12 (scale-out and the rest)"
 
 # The JAX package's bank gather formulations; the port samples one function
@@ -45,9 +43,3 @@ def check_ppo(cfg: PPOConfig) -> None:
         raise ValueError(f"arch must be one of {ARCHS}, got {cfg.arch!r}")
     if cfg.distill_oracle is not None:
         _unported("distill_oracle", IMITATION)
-
-
-def check_eval(oracle) -> None:
-    """The evaluation's scripted oracle."""
-    if oracle is not None:
-        _unported("a scripted oracle (oracle=)", IMITATION)

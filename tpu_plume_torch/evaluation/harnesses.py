@@ -25,8 +25,11 @@ seeds, turbulence normals, Gumbel noise) is drawn up front in one
 ``EvalDraws``; a caller may pass its own, which is how the tests feed both
 packages the same numbers.  With ``guide=`` (``evaluation.guidance``) a
 terminal guide replaces the policy's action where it steers, its state
-frozen with the episode like the env's.  A seed gives other episodes here than in the
-JAX package (Philox against threefry).
+frozen with the episode like the env's; a bank-match guide
+(``evaluation.bank_guide``) also reads the shared bank and each episode's
+step count.  With ``oracle=`` (``evaluation.oracle``) a scripted policy
+replaces the policy's forward.  A seed gives other episodes here than in
+the JAX package (Philox against threefry).
 """
 
 from __future__ import annotations
@@ -40,8 +43,7 @@ import torch
 
 from tpu_plume_torch.core.config import EnvConfig, EvalConfig, StopConfig
 from tpu_plume_torch.core.device import resolve_device
-from tpu_plume_torch.core import support
-from tpu_plume_torch.core.support import check_env, check_eval
+from tpu_plume_torch.core.support import check_env
 from tpu_plume_torch.env.methane import reset_from_draws, select, step_noise
 from tpu_plume_torch.ops import plume
 from tpu_plume_torch.rollout.rollout import gumbel_noise, random_bits
@@ -65,9 +67,9 @@ class EvalMetrics:
     # guided-eval diagnostics at episode end (None when unguided): hover
     # mode, fit validity, accepted samples, the fit's estimate [N, 2], the
     # refutations, the closest committed approach to the estimate and the
-    # commitment latch (guides without a register report zeros); the bank
-    # guides' matched row, the episode's row and its contact count are
-    # zeros until they are ported (ROADMAP.md Queue 1, slice 9b)
+    # commitment latch, the bank guide's matched row, the episode's bank
+    # row and the in-plume contact count (a guide without a register
+    # reports zeros)
     guide_hover: np.ndarray | None = None
     guide_fit_ok: np.ndarray | None = None
     guide_samples: np.ndarray | None = None
@@ -207,11 +209,13 @@ def _check_draws(draws: EvalDraws, cfg: EnvConfig, length: int, n: int,
 def _start(model, env_cfg, device, generator, draws, n, length, greedy,
            goal_radius, bank):
     """The eval's device (``device`` resolved as ``train_ppo`` resolves
-    it), the model, bank and draws moved there, and freshly reset
-    episodes.  A ``generator`` must lie on that device.  A bank there
-    already stays the same object, keeping its cached launch."""
+    it), the model (None under an oracle), bank and draws moved there, and
+    freshly reset episodes.  A ``generator`` must lie on that device.  A
+    bank there already stays the same object, keeping its cached
+    launch."""
     dev = resolve_device(device)
-    model = model.to(dev)
+    if model is not None:
+        model = model.to(dev)
     if bank is not None and bank.conc.device.type != dev.type:
         bank = bank.to(dev)
     if draws is None:
@@ -230,7 +234,7 @@ def _start(model, env_cfg, device, generator, draws, n, length, greedy,
 
 @torch.no_grad()
 def evaluate_policy(
-    model: torch.nn.Module,
+    model: torch.nn.Module | None,
     env_cfg: EnvConfig,
     eval_cfg: EvalConfig,
     generator: torch.Generator | None = None,
@@ -276,13 +280,19 @@ def evaluate_policy(
     action, ``step_fn(state, pos, conc, action)`` reads the pre-step
     positions and concentrations, and the env executes the action it
     returns; its state is frozen with the episode.  A ``step_fn`` with
-    ``needs_source`` set also receives the true sources.  The guide's
-    registers at the end fill ``EvalMetrics.guide_*``.  ``oracle`` is not
-    ported yet and raises."""
+    ``needs_source`` set also receives the true sources, one with
+    ``needs_bank`` (``evaluation.bank_guide``) the bank, shared by the
+    episodes, and each episode's step count before the move.  The guide's
+    registers at the end fill ``EvalMetrics.guide_*``.
+
+    ``oracle`` (``evaluation.oracle.make_oracle``), ``fn(env_state) ->
+    i64[N]``, replaces the policy: ``model`` and ``rnn`` are then not read
+    and may be None, and a guide may still override its action."""
     check_env(env_cfg)
-    check_eval(oracle)
     n = num_episodes or eval_cfg.episodes
     length = max_steps or min(env_cfg.max_steps, eval_cfg.max_eval_steps)
+    if oracle is not None:
+        model = rnn = None
     dev, model, bank, draws, env_state, obs = _start(
         model if rnn is None else rnn, env_cfg, device, generator, draws, n,
         length, greedy, goal_radius, bank)
@@ -300,24 +310,26 @@ def evaluate_policy(
                if k else None)
     if guide is not None:
         g_init, g_fn = guide
-        if getattr(g_fn, "needs_bank", False):
-            raise NotImplementedError(support.unported_message(
-                "a bank-match guide (needs_bank)", support.LEARNED_GUIDES))
         guide_state = ctrl.broadcast(g_init, n, dev)
 
     for t in range(length):
-        if hidden is None:
-            logits, _ = model(obs)
+        if oracle is not None:
+            action = oracle(env_state)
         else:
-            new_hidden, logits, _ = model.step(hidden, obs)
-        if greedy:
-            action = torch.argmax(logits, dim=-1)
-        else:
-            action = torch.argmax(logits + draws.gumbel[t], dim=-1)
+            if hidden is None:
+                logits, _ = model(obs)
+            else:
+                new_hidden, logits, _ = model.step(hidden, obs)
+            if greedy:
+                action = torch.argmax(logits, dim=-1)
+            else:
+                action = torch.argmax(logits + draws.gumbel[t], dim=-1)
         if guide is not None:
             g_args = (guide_state, env_state.pos, env_state.conc, action)
             if getattr(g_fn, "needs_source", False):
                 g_args += (env_state.field.source,)
+            elif getattr(g_fn, "needs_bank", False):
+                g_args += (bank, env_state.t)
             new_guide, action, _ = g_fn(*g_args)
         new_env, trans = step_noise(env_state, action, draws.turb_noise[t],
                                     env_cfg, bank)
@@ -406,7 +418,7 @@ def summarize(m: EvalMetrics) -> dict:
 
 @torch.no_grad()
 def generate_expert_data(
-    model: torch.nn.Module,
+    model: torch.nn.Module | None,
     env_cfg: EnvConfig,
     generator: torch.Generator | None = None,
     num_episodes: int = 100,
@@ -427,9 +439,12 @@ def generate_expert_data(
 
     ``rnn`` is the recurrent policy, as in ``evaluate_policy``, but its
     carry advances at every step, also after the episode has ended, as in
-    JAX.  ``oracle`` is not ported yet and raises."""
+    JAX.  ``oracle`` (``evaluation.oracle.make_oracle``) replaces the
+    policy, as in ``evaluate_policy``: privileged-teacher demonstrations,
+    with ``model`` and ``rnn`` unread."""
     check_env(env_cfg)
-    check_eval(oracle)
+    if oracle is not None:
+        model = rnn = None
     n, length = num_episodes, env_cfg.max_steps
     dev, model, bank, draws, env_state, obs = _start(
         model if rnn is None else rnn, env_cfg, device, generator, draws, n,
@@ -441,11 +456,14 @@ def generate_expert_data(
     actions = torch.empty(length, n, dtype=torch.int64, device=dev)
     valid = torch.empty(length, n, dtype=torch.bool, device=dev)
     for t in range(length):
-        if hidden is None:
-            logits, _ = model(obs)
+        if oracle is not None:
+            action = oracle(env_state)
         else:
-            hidden, logits, _ = model.step(hidden, obs)
-        action = torch.argmax(logits, dim=-1)
+            if hidden is None:
+                logits, _ = model(obs)
+            else:
+                hidden, logits, _ = model.step(hidden, obs)
+            action = torch.argmax(logits, dim=-1)
         new_env, trans = step_noise(env_state, action, draws.turb_noise[t],
                                     env_cfg, bank)
         active = ~finished
