@@ -96,9 +96,10 @@ outside a checkout of the repository.  Phases, each of which must pass:
    sample, the trilinear kernel, per step plus one), and eval A with the
    recurrent main path's policy as ``rnn=``; each with the launch
    counts set to 0 just before it and read just after, its summary, wall
-   ms and eval env-steps/s, then the same eval again under the profiler
-   for its launches per eval step and device busy share (device kernel
-   time over the unprofiled eval's wall); and each at that width on the
+   ms and eval env-steps/s, then its first EVAL_PROFILE_STEPS steps again
+   unprofiled and under the profiler for their launches per eval step and
+   device busy share (device kernel time over the unprofiled wall of the
+   same steps); and each at that width on the
    card against the CPU from the same draws (at most one episode in 64
    may differ in steps, stop flag or deviation beyond the env tolerance;
    where each such path departs is logged), with a third such check of
@@ -177,19 +178,44 @@ outside a checkout of the repository.  Phases, each of which must pass:
    ``--oracle raster --guide fit``; ``expert --oracle phase`` at 1000
    episodes with the same samples and actions as on the CPU; and the CLI's
    ``eval --guide bank``, ``eval --guide learned --localize`` and
-   ``expert --oracle phase``.
+   ``expert --oracle phase``;
+13. imitation (slice 10) at ppo_v2_0's full width on phase 12's expert
+   file (1000 phase-oracle episodes): distilled PPO (``distill_oracle=
+   "phase"``) in f32 and with ``fused_update`` (which takes autodiff: no
+   fused launch), exact launch counts (one env-step launch per env step,
+   the oracle launching none of the counted kernels), ms by phase,
+   ``loss/distill``, the labelled chunk profiled for its launches per
+   env step, and one labelled chunk on the card against the CPU (at most
+   one env in 64 whose labels, actions or dones part, each logged);
+   closed-loop GAIL with ``fused_update`` off and on (``train_ppo_gail``
+   for 2 iterations with exact launch counts, then its step timed: ms by
+   phase with the discriminator's step split out, its loss and accuracy,
+   128 env-step launches per iteration and 40 of each fused kernel under
+   ``fused_update``) and one small GAIL iteration on the card against the
+   CPU (phase 5's check); DAgger against the phase oracle, 512 episodes x
+   1000 steps, 3 of JAX's 8 rounds (each collection one plume
+   sample per step plus the reset's, and its fit, timed), one
+   student-driven round's collection on the card against the CPU (at most
+   one episode in 64 whose labels or ``valid`` rows part), and sequence
+   DAgger (``--arch lstm --ln-lstm``) 2 rounds cut to 64 episodes of 250
+   steps and one epoch a round; then the CLI: ``train-bc`` at JAX's
+   defaults and ``eval --ckpt`` of its checkpoint, ``train-dagger
+   --rounds 2``, ``train-gail --closed-loop --iterations 2`` and ``train
+   --distill phase --iterations 1`` with exact launch counts.
 
 ``python3 chip_smoke.py --only guide`` runs, after the build, the guide's
 phases alone (the executed-action mode, the guided training paths, the
 learning check for a trained policy, the fit check, the guided evals of
 the trained and the untrained ppo_v2_0 and wrf_les params, phase 12, the
 guided CLI); ``--only stop-lstm`` runs phases 9 and 10 alone, and
-``--only eval-guides`` the learning check and phase 12.  Each prints its
-JSON record, each phase's seconds and the card's name and power limit.
+``--only eval-guides`` the learning check and phase 12, and ``--only
+imitation`` phase 13 on an expert file of its own.  Each prints its JSON
+record, each phase's seconds and the card's name and power limit.
 
 Then it prints a JSON line of the eval phases, one of the recurrent main
 path and its replay, one of the capture and the stop LSTMs
-(``stop_lstm``), one of phase 12 (``eval_guides``), one of the guide's
+(``stop_lstm``), one of phase 12 (``eval_guides``), one of phase 13
+(``imitation``), one of the guide's
 phases (``guide``), each phase's seconds, the ``kernels`` JSON line (each
 kernel's launches in
 evals A and B under ``eval_launches``, the recurrent path's under
@@ -198,7 +224,8 @@ evals A and B under ``eval_launches``, the recurrent path's under
 training's under ``guided``, the executed-action mode's parity and times
 under ``exec_action``, the guided evals' under ``guided_eval_launches``,
 and in every entry phase 12's under ``bank_guided_eval_launches``,
-``learned_guided_eval_launches`` and ``oracle_eval_launches``), the
+``learned_guided_eval_launches`` and ``oracle_eval_launches``; phase
+13's under ``imitation``), the
 card's
 name and power limit, and, last, the result line ``{"ok": true,
 "device": {...}}``.  h5py is never imported here (``find_spec`` tells
@@ -303,6 +330,9 @@ LSTM_MB_ENVS, LSTM_RESET_RATE = 512, 1.0 / 200.0
 # The eval phases: the warm-up's steps and the learning check's
 # iterations.
 EVAL_WARMUP = 16
+# The steps of an eval of phases 7 and 10 run again under the profiler (the
+# whole eval profiled took 25-40 s each).
+EVAL_PROFILE_STEPS = 100
 LEARN_ITERS = 20
 # Iterations of the same run without the capture, for its iteration time,
 # and the learning check's episode target (the NetCDF capture's rows).
@@ -331,8 +361,11 @@ STAY_BIAS = 1.0
 ANISO_OPS_PER_SOURCE = 35
 
 
+T_START = time.perf_counter()
+
+
 def log(*parts):
-    print(*parts, flush=True)
+    print(f"[{time.perf_counter() - T_START:7.1f} s]", *parts, flush=True)
 
 
 def card_line() -> str:
@@ -684,12 +717,13 @@ def time_env_step_kernel(get_preset, plume, rollout,
 
 
 def profile_rollout(rollout_chunk, loop, cfg, bank=None, guide=None,
-                    cpu=True, length=None) -> dict:
+                    cpu=True, length=None, oracle=None) -> dict:
     """Device launches per env step, device ms and wall ms of one rollout
     chunk of the main path (``loop``'s carry is not modified; with
-    ``guide`` the guided chunk; of ``length`` steps, by default the
-    unroll), from torch.profiler; without ``cpu`` it records the device's
-    activity alone."""
+    ``guide`` the guided chunk, with ``oracle`` the labelled one of
+    distilled PPO; of ``length`` steps, by default the unroll), from
+    torch.profiler; without ``cpu`` it records the device's activity
+    alone."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -699,7 +733,7 @@ def profile_rollout(rollout_chunk, loop, cfg, bank=None, guide=None,
             [ProfilerActivity.CPU] if cpu else [])) as prof:
         t0 = time.perf_counter()
         rollout_chunk(loop.model, loop.rollout, cfg.env, length, bank=bank,
-                      guide=guide)
+                      guide=guide, oracle=oracle)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = device_kernels(prof)
@@ -1337,7 +1371,8 @@ def expected_counts(cfg, bank, iters: int) -> dict:
     the branchless reset), a sub-cell sample one launch of the sample
     kernel (bilinear for a static bank, trilinear for a time-varying or 3-D
     one); each minibatch step of the fused update one launch each of the
-    row kernel, the dW2 kernel and the reduction."""
+    row kernel, the dW2 kernel and the reduction (none under distilled
+    PPO: a labelled batch takes autodiff, as in JAX)."""
     env, ppo = cfg.env, cfg.ppo
     n, t = cfg.rollout.num_envs, cfg.rollout.unroll_length
     want = dict.fromkeys(KERNEL_NAMES, 0)
@@ -1346,7 +1381,7 @@ def expected_counts(cfg, bank, iters: int) -> dict:
         want["env_step"] = iters * t
     elif kernel is not None:
         want[kernel] = iters * 2 * t
-    if ppo.fused_update:
+    if ppo.fused_update and ppo.distill_oracle is None:
         want["ppo_fused"] = want["ppo_dw2"] = want["ppo_reduce"] = (
             iters * ppo.epochs * (n * t // ppo.minibatch_size))
     return want
@@ -1367,12 +1402,16 @@ def small_bank(gridded, kind, env):
 
 def check_small_iteration_against_cpu(get_preset, RolloutConfig, ttrain,
                                       draw_chunk, k, preset="ppo_v2_0",
-                                      bank_kind=None, env=None, **ppo):
+                                      bank_kind=None, env=None, gail=False,
+                                      **ppo):
     """One small train iteration on the card and on the CPU from the same
     start, draws and shuffles, with the PPO config fields ``ppo`` and the
     env fields ``env`` set; with ``bank_kind`` on a 64-cell grid over a
-    small bank of that kind.  Actions and dones are equal, rewards and obs
-    within the env tolerance, losses within rtol 1e-4 / atol 1e-5.  With
+    small bank of that kind; with ``gail`` a closed-loop GAIL iteration
+    (``build_gail_train_step``) from the same discriminator, expert pairs
+    and discriminator rows.  Actions and dones are equal, rewards and obs
+    within the env tolerance, losses (and the discriminator's) within rtol
+    1e-4 / atol 1e-5.  With
     the recurrent policy the carry takes rounding from step to step, so an
     env's sampled action may flip late in the chunk: at most
     SMALL_LSTM_APART of its 16 envs may part from the CPU's actions or
@@ -1416,10 +1455,12 @@ def check_small_iteration_against_cpu(get_preset, RolloutConfig, ttrain,
     gpu = dataclasses.replace(
         gpu, rollout=dataclasses.replace(
             gpu.rollout, generator=torch.Generator(device="cuda")))
-    _, cstats, ctraj = ttrain.build_train_step(cfg, bank)(
-        cpu, draws=draws, shuffles=shuffles)
     gpu_bank = None if bank is None else bank.to("cuda")
+    cstep = ttrain.build_train_step(cfg, bank)
     gstep = ttrain.build_train_step(cfg, gpu_bank)
+    if gail:
+        cstep, gstep, cpu, gpu = small_gail_steps(ttrain, cfg, cpu, gpu)
+    _, cstats, ctraj = cstep(cpu, draws=draws, shuffles=shuffles)
     zero_counts(k)
     _, gstats, gtraj = gstep(gpu, draws=to_device(draws, "cuda"),
                              shuffles=shuffles)
@@ -1427,13 +1468,15 @@ def check_small_iteration_against_cpu(get_preset, RolloutConfig, ttrain,
     counts = read_counts(k)
     want = expected_counts(cfg, bank, 1)
     assert counts == want, f"launches {counts} != {want}"
-    label = {"preset": preset, "bank": bank_kind, **(env or {}), **ppo}
+    label = {"preset": preset, "bank": bank_kind, **(env or {}), **ppo,
+             **({"gail": "closed loop"} if gail else {})}
     off = ((gtraj.action.cpu() != ctraj.action)
            | (gtraj.done.cpu() != ctraj.done))
     apart = torch.nonzero(off.any(0)).flatten().tolist()
     departs = [int(off[:, e].nonzero()[0]) for e in apart]
     gaps = {key: abs(float(gstats[key]) - float(cstats[key]))
-            for key in ("loss/total", "loss/value", "loss/entropy")}
+            for key in ("loss/total", "loss/value", "loss/entropy")
+            + (("gail/disc_loss",) if gail else ())}
     log(f"small iteration {label}, card vs CPU: {len(apart)} of 16 envs "
         f"apart in actions or dones (at steps {departs}), "
         f"{int(ctraj.done.sum())} episodes ended, launches "
@@ -1455,6 +1498,35 @@ def check_small_iteration_against_cpu(get_preset, RolloutConfig, ttrain,
                 key, gstats[key], cstats[key])
 
 
+def small_gail_steps(ttrain, cfg, cpu, gpu):
+    """The closed-loop GAIL steps of the CPU's and the card's loops of
+    ``check_small_iteration_against_cpu``: the same discriminator, 64
+    expert pairs and discriminator rows on each, the imitation weight 0.1;
+    ``(cpu step, card step, cpu carry, card carry)``, each step called as
+    the PPO step is."""
+    import torch
+
+    from tpu_plume_torch.train import gail_trainer as tgail
+
+    g = torch.Generator().manual_seed(4)
+    expert = (torch.randn(64, cfg.env.obs_dim, generator=g),
+              torch.randint(0, cfg.env.num_actions, (64,), generator=g))
+    rows = (torch.randint(0, 64, (32,), generator=g),
+            torch.randint(0, cfg.rollout.num_envs * cfg.rollout.unroll_length,
+                          (32,), generator=g))
+    out = []
+    for loop, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        disc, opt = tgail.make_disc_state(cfg, dev, 1)
+        step = tgail.build_gail_train_step(
+            cfg, *(x.to(dev) for x in expert), closed_loop=True,
+            disc_batch=32)
+        carry = tgail.GAILCarry(ppo=loop, disc=disc, disc_optimizer=opt)
+        out.append((lambda c, draws, shuffles, step=step, dev=dev: step(
+            c, 0.1, draws=draws, shuffles=shuffles,
+            disc_idx=tuple(x.to(dev) for x in rows)), carry))
+    return out[0][0], out[1][0], out[0][1], out[1][1]
+
+
 def run_main_path(ttrain, rollout_chunk, k, label, cfg, bank=None, iters=3,
                   profile=True, profile_cpu=True, guide=None,
                   profile_steps=None):
@@ -1471,8 +1543,12 @@ def run_main_path(ttrain, rollout_chunk, k, label, cfg, bank=None, iters=3,
     (still one env-step launch per env step) and the share of overridden
     steps of the timed iterations is returned too.  With
     ``profile_steps`` the profiled chunk has that many steps and no
-    iteration is profiled (the busy share is then the chunk's)."""
+    iteration is profiled (the busy share is then the chunk's).  Under
+    distilled PPO (``distill_oracle``) the profiled chunk runs the
+    teacher too, and the last iteration's ``loss/*`` are returned."""
     import torch
+
+    from tpu_plume_torch.evaluation.oracle import make_oracle
 
     n, t = cfg.rollout.num_envs, cfg.rollout.unroll_length
     zero_counts(k)
@@ -1535,8 +1611,10 @@ def run_main_path(ttrain, rollout_chunk, k, label, cfg, bank=None, iters=3,
             f"the timed iterations' env steps")
     busy = profiled = roll = device_ms = None
     if profile:
+        oracle = (None if cfg.ppo.distill_oracle is None
+                  else make_oracle(cfg.ppo.distill_oracle, cfg.env))
         roll = profile_rollout(rollout_chunk, loop, cfg, bank, guide,
-                               profile_cpu, profile_steps)
+                               profile_cpu, profile_steps, oracle)
         log(f"profile of one main-path rollout chunk (profiler on): "
             f"{roll['launches']} device launches, "
             f"{roll['launches_per_step']:.2f} per env step, device "
@@ -1552,6 +1630,8 @@ def run_main_path(ttrain, rollout_chunk, k, label, cfg, bank=None, iters=3,
                                  else device_ms / (wall / iters * 1e3)),
                 profiled_launches=profiled, rollout_profile=roll,
                 max_memory_allocated=max_mem, override_share=override_share,
+                losses={key: float(v) for key, v in stats.items()
+                        if key.startswith("loss/")},
                 **{key: v / iters for key, v in phases.items()})
 
 
@@ -1648,10 +1728,11 @@ def run_eval(ev, k, label, cfg, model, bank=None, stop=None,
     episodes, each reset once, over ``min(max_steps, max_eval_steps)``
     steps) on the card: after an EVAL_WARMUP-step warm-up, the whole eval
     with every launch count set to 0 just before it and read just after
-    (one field-sample launch per step plus one at the reset); then the same
-    eval, from the same seed, under the profiler: its device launches per
-    eval step (the reset and the draws included) and its device kernel time
-    over the unprofiled eval's wall, the device's busy share."""
+    (one field-sample launch per step plus one at the reset); then its
+    first EVAL_PROFILE_STEPS steps, from the same seed, unprofiled and
+    under the profiler: their device launches per eval step (the reset and
+    the draws included) and their device kernel time over the unprofiled
+    wall of the same steps, the device's busy share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1676,9 +1757,14 @@ def run_eval(ev, k, label, cfg, model, bank=None, stop=None,
     want[_field_sample(cfg.env, bank)] = length + 1
     assert counts == want, (label, counts, want)
     check_eval_metrics(m, cfg, n, length)
+    steps = min(EVAL_PROFILE_STEPS, length)
+    t0 = time.perf_counter()
+    run(0, steps)
+    torch.cuda.synchronize()
+    short_wall = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run(0)
+        run(0, steps)
         torch.cuda.synchronize()
         profiled_wall = time.perf_counter() - t0
     kernels = device_kernels(prof)
@@ -1687,18 +1773,19 @@ def run_eval(ev, k, label, cfg, model, bank=None, stop=None,
     summary = ev.summarize(m)
     out = dict(summary=summary, wall_ms=wall * 1e3,
                env_steps_per_s=n * length / wall,
-               active_env_steps=int(m.steps.sum()),
-               launches_per_step=launches / length, device_ms=device_ms,
-               busy=device_ms / (wall * 1e3),
+               active_env_steps=int(m.steps.sum()), profiled_steps=steps,
+               launches_per_step=launches / steps, device_ms=device_ms,
+               busy=device_ms / (short_wall * 1e3),
                profiled_wall_ms=profiled_wall * 1e3, launches=counts)
     log(f"eval {label}: {cfg.name} {n} episodes x {length} steps, stop "
         f"{stop}: wall {wall * 1e3:.1f} ms = {n * length / wall:.1f} eval "
         f"env-steps/s ({out['active_env_steps']} steps of active "
-        f"episodes); the same eval profiled: {launches} device launches = "
-        f"{launches / length:.2f} per eval step, device kernels "
+        f"episodes); its first {steps} steps profiled: {launches} device "
+        f"launches = {launches / steps:.2f} per eval step, device kernels "
         f"{device_ms:.2f} ms = busy share {out['busy']:.4f} of the "
-        f"unprofiled wall ({device_ms / (profiled_wall * 1e3):.4f} of the "
-        f"profiled wall, {profiled_wall * 1e3:.1f} ms); launches "
+        f"unprofiled wall of those steps ({short_wall * 1e3:.1f} ms; "
+        f"{device_ms / (profiled_wall * 1e3):.4f} of the profiled wall, "
+        f"{profiled_wall * 1e3:.1f} ms); launches "
         f"{ {name: c for name, c in counts.items() if c} }")
     log(f"eval {label} summary: " + json.dumps(summary))
     return out
@@ -3185,14 +3272,15 @@ def expert_oracle(ev, k, cfg, oracle_of) -> dict:
 
 
 def eval_guides(ev, k, ttrain, gridded, get_preset, cli_main, v20,
-                trained) -> dict:
+                trained, expert_dir) -> dict:
     """The eval guides phase (see the module docstring, phase 12): the
     bank guide over wrf_les's static bank and wrf_les_3d's 3-D bank, the
     learned guide and the localizer of ``trained``'s own flights, the
     fit guide with the localizer, the phase oracle and the raster oracle
     under the fit guide, ``expert --oracle phase``, and the CLI's
     ``eval --guide bank``, ``eval --guide learned --localize`` and
-    ``expert --oracle phase``."""
+    ``expert --oracle phase`` (its ``expert_data.npz`` written into
+    ``expert_dir``, the imitation phase's expert file)."""
     import copy
     import importlib
 
@@ -3286,15 +3374,367 @@ def eval_guides(ev, k, ttrain, gridded, get_preset, cli_main, v20,
         lambda dev: (guide_of(v20), make_oracle("raster", v20.env)),
         baseline=(None, make_oracle("raster", v20.env)))
     out["expert"] = expert_oracle(ev, k, v20, make_oracle)
+    out["cli_expert"] = expert_file(cli_main, expert_dir)
+    return out
+
+
+def expert_file(cli_main, expert_dir) -> dict:
+    """``expert --oracle phase --episodes EXPERT_EPISODES`` into
+    ``expert_dir/expert_data.npz``."""
+    path = os.path.join(expert_dir, "expert_data.npz")
+    summary, wall = cli_json(cli_main, [
+        "expert", "--oracle", "phase", "--episodes", str(EXPERT_EPISODES),
+        "--out", path])
+    assert summary["samples"] > 0 and os.path.isfile(path), summary
+    log(f"cli expert --oracle phase --episodes {EXPERT_EPISODES}: "
+        f"{wall:.2f} s, {json.dumps(summary)}")
+    return dict(summary=summary, wall_s=wall)
+
+
+IMIT_ITERS = 2            # timed iterations of the distill and GAIL paths
+DAGGER_ROUNDS = 3         # of JAX's 8 default rounds
+DAGGER_EPISODES = 512     # JAX's default episodes a round
+# sequence DAgger, cut: BPTT over whole episodes is one launch chain a step
+SEQ_DAGGER = dict(rounds=2, episodes_per_round=64, epochs_per_round=1)
+SEQ_DAGGER_STEPS = 250
+EXPERT_EPISODES = 1000
+
+
+def imitation_cfg(v20, **ppo):
+    """ppo_v2_0 at the main path's width with the PPO fields ``ppo``."""
+    return v20.replace(ppo=dataclasses.replace(v20.ppo,
+                                               minibatch_size=MAIN_MB, **ppo))
+
+
+def labels_against_cpu(ttrain, rollout, cfg, model) -> dict:
+    """One labelled rollout chunk of distilled PPO at full width on the
+    card and on the CPU, from the same params, start and draws: an env is
+    apart where its teacher labels, actions or dones differ at any step (a
+    position one ulp apart can land in another cell, and another path
+    follows); at most one env in 64, each logged with the step where it
+    parts."""
+    import copy
+
+    import torch
+
+    from tpu_plume_torch.evaluation.oracle import make_oracle
+
+    n, t = cfg.rollout.num_envs, cfg.rollout.unroll_length
+    oracle = make_oracle(cfg.ppo.distill_oracle, cfg.env)
+    start = ttrain.init_loop(cfg, "cpu").rollout
+    draws = rollout.draw_chunk(torch.Generator().manual_seed(5), cfg.env, t,
+                               n)
+    _, ctraj, _ = rollout.rollout_chunk(copy.deepcopy(model).cpu(), start,
+                                        cfg.env, t, draws=draws,
+                                        oracle=oracle)
+    card = dataclasses.replace(to_device(start, "cuda"),
+                               generator=torch.Generator(device="cuda"))
+    _, gtraj, _ = rollout.rollout_chunk(model, card, cfg.env, t,
+                                        draws=to_device(draws, "cuda"),
+                                        oracle=oracle)
+    label_off = gtraj.oracle_action.cpu() != ctraj.oracle_action
+    path_off = ((gtraj.action.cpu() != ctraj.action)
+                | (gtraj.done.cpu() != ctraj.done))
+    apart = torch.nonzero((label_off | path_off).any(0)).flatten().tolist()
+    for e in apart:
+        first = [int(x[:, e].nonzero()[0]) if x[:, e].any() else None
+                 for x in (label_off, path_off)]
+        log(f"distill labels card vs CPU: env {e} parts, labels first at "
+            f"step {first[0]}, actions or dones first at step {first[1]}")
+    share = float((ctraj.oracle_action[:, None] == torch.arange(
+        cfg.env.num_actions)[None, :, None]).float().mean((0, 2)).max())
+    log(f"distill labels card vs CPU: {n} envs x {t} steps, {len(apart)} "
+        f"envs apart (labels equal at "
+        f"{float((~label_off).float().mean()):.6f} of the steps; the most "
+        f"frequent teacher action {share:.3f} of the labels)")
+    assert len(apart) <= n // 64, apart
+    return dict(apart=len(apart), label_agreement=float(
+        (~label_off).float().mean()))
+
+
+def run_gail_path(k, ttrain, tgail, label, cfg, expert, expert_path,
+                  iters=IMIT_ITERS) -> dict:
+    """Closed-loop GAIL at full width on the card: ``train_ppo_gail`` on
+    ``expert_path`` for ``iters`` iterations with the launch counts set to
+    0 just before it and read just after (one plume sample at the reset,
+    one env-step launch per env step; under ``fused_update`` three fused
+    launches per minibatch step); then its parts as it drives them
+    (``init_loop``, the discriminator, ``build_gail_train_step`` with the
+    phases timed), a warm-up and ``iters`` timed iterations, each
+    stretch's launches checked; ms per iteration by phase, the
+    discriminator's step split out, and its loss and accuracy."""
+    import torch
+
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "expert_data.npz")
-        summary, wall = cli_json(cli_main, ["expert", "--oracle", "phase",
-                                            "--episodes", "1000", "--out",
-                                            path])
-        assert summary["samples"] > 0 and os.path.isfile(path), summary
-    out["cli_expert"] = dict(summary=summary, wall_s=wall)
-    log(f"cli expert --oracle phase --episodes 1000: {wall:.2f} s, "
+        zero_counts(k)
+        res = tgail.train_ppo_gail(cfg, tmp, expert_path, closed_loop=True,
+                                   max_iterations=iters, device="cuda",
+                                   verbose=False)
+        torch.cuda.synchronize()
+        entry = read_counts(k)
+    want = {name: a + b for (name, a), b in zip(
+        expected_init_counts(cfg, None).items(),
+        expected_counts(cfg, None, iters).values())}
+    assert entry == want, (label, "train_ppo_gail", entry, want)
+    log(f"GAIL {label}: train_ppo_gail, {iters} iterations, {res.episodes} "
+        f"episodes, launches {entry}")
+    zero_counts(k)
+    loop = ttrain.init_loop(cfg, "cuda")
+    disc, opt = tgail.make_disc_state(cfg, "cuda", cfg.seed + 1)
+    carry = tgail.GAILCarry(ppo=loop, disc=disc, disc_optimizer=opt)
+    torch.cuda.synchronize()
+    after_init = read_counts(k)
+    step = tgail.build_gail_train_step(cfg, *expert, closed_loop=True,
+                                       time_phases=True)
+    carry, stats, _ = step(carry, 0.1)
+    torch.cuda.synchronize()
+    before = read_counts(k)
+    phases = dict.fromkeys(("rollout", "gae", "update", "disc"), 0.0)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        carry, stats, _ = step(carry, 0.1)
+        for key in phases:
+            phases[key] += stats[f"time/{key}_ms"]
+        assert math.isfinite(float(stats["loss/total"])), stats
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = count_diff(read_counts(k), before)
+    for got, want, stretch in (
+            (after_init, expected_init_counts(cfg, None), "init_loop"),
+            (count_diff(before, after_init), expected_counts(cfg, None, 1),
+             "warm-up"),
+            (counts, expected_counts(cfg, None, iters), "timed")):
+        assert got == want, (label, stretch, got, want)
+    out = dict(counts=counts, entry_launches=entry,
+               whole_ms=wall / iters * 1e3,
+               sps=iters * cfg.rollout.num_envs * cfg.rollout.unroll_length
+               / wall,
+               disc_loss=float(stats["gail/disc_loss"]),
+               disc_acc=float(stats["gail/disc_acc"]),
+               **{key: v / iters for key, v in phases.items()})
+    log(f"GAIL {label}: {iters} iterations, ms per iteration " + ", ".join(
+        f"{key} {out[key]:.2f}" for key in (*phases, "whole_ms"))
+        + f", {out['sps']:.1f} env-steps/s; disc_loss "
+        f"{out['disc_loss']:.4f}, disc_acc {out['disc_acc']:.4f}; launches "
+        f"per timed iteration "
+        f"{ {n: c // iters for n, c in counts.items() if c} }")
+    return out
+
+
+@contextlib.contextmanager
+def dagger_rounds(k, dagger, bc, record: list):
+    """``train_dagger`` with each round timed: the collection (its launch
+    counts set to 0 just before it and read just after) and the fit, each
+    between device synchronisations, appended to ``record``."""
+    import torch
+
+    real_collect = dagger._collect
+    fitters = {name: getattr(bc, name)
+               for name in ("make_bc_fitter", "make_seq_bc_fitter")}
+
+    def collect(*a, **kw):
+        torch.cuda.synchronize()
+        zero_counts(k)
+        t0 = time.perf_counter()
+        out = real_collect(*a, **kw)
+        torch.cuda.synchronize()
+        record.append(dict(collect_ms=(time.perf_counter() - t0) * 1e3,
+                           launches=read_counts(k)))
+        return out
+
+    def timed(make):
+        def make_timed(*a, **kw):
+            fit = make(*a, **kw)
+
+            def fit_timed(*args, **fkw):
+                t0 = time.perf_counter()
+                out = fit(*args, **fkw)
+                torch.cuda.synchronize()
+                record[-1]["fit_ms"] = (time.perf_counter() - t0) * 1e3
+                record[-1]["rows"] = int(args[0].shape[0 if args[0].dim() == 2
+                                                        else 1])
+                return out
+            return fit_timed
+        return make_timed
+
+    dagger._collect = collect
+    for name, make in fitters.items():
+        setattr(bc, name, timed(make))
+    try:
+        yield
+    finally:
+        dagger._collect = real_collect
+        for name, make in fitters.items():
+            setattr(bc, name, make)
+
+
+def run_dagger(k, dagger, bc, label, cfg, rounds, episodes, **kw) -> dict:
+    """``train_dagger`` on the card, each round's collection and fit timed
+    (``dagger_rounds``); a collection launches one plume sample per step
+    plus the reset's, and no other counted kernel."""
+    record = []
+    with tempfile.TemporaryDirectory() as tmp, \
+            dagger_rounds(k, dagger, bc, record):
+        t0 = time.perf_counter()
+        res = dagger.train_dagger(cfg, tmp, rounds=rounds,
+                                  episodes_per_round=episodes, device="cuda",
+                                  **kw)
+        wall = time.perf_counter() - t0
+        assert os.path.isfile(os.path.join(tmp, "checkpoint.pt"))
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    want["plume_sample"] = cfg.env.max_steps + 1
+    for r, rec in enumerate(record):
+        assert rec["launches"] == want, (label, r, rec["launches"], want)
+        log(f"DAgger {label} round {r}: collection {episodes} episodes x "
+            f"{cfg.env.max_steps} steps {rec['collect_ms']:.1f} ms, "
+            f"launches {rec['launches']['plume_sample']} plume samples; fit "
+            f"of {rec['rows']} {'episodes' if cfg.ppo.arch == 'lstm' else 'rows'}"
+            f" {rec['fit_ms']:.1f} ms; rollout s@40 "
+            f"{res.eval_success[r]:.3f}")
+    log(f"DAgger {label}: {rounds} rounds in {wall:.1f} s, {res.samples} "
+        f"samples, val accuracy {res.val_accuracy:.4f}")
+    return dict(rounds=record, wall_s=wall, samples=res.samples,
+                val_accuracy=res.val_accuracy,
+                rollout_success=res.eval_success), res
+
+
+def collection_against_cpu(dagger, cfg, state_dict, n) -> dict:
+    """One student-driven DAgger round's collection (the greedy student of
+    ``state_dict``, the phase oracle labelling) of ``n`` episodes on the
+    card and on the CPU from the same draws: at most one episode in 64
+    whose labels or ``valid`` rows differ, each logged with its first
+    differing step."""
+    import torch
+
+    from tpu_plume_torch.evaluation import harnesses as ev
+    from tpu_plume_torch.evaluation.oracle import make_oracle
+    from tpu_plume_torch.train.ppo_trainer import make_policy_model
+
+    draws = ev.draw_eval(torch.Generator().manual_seed(11), cfg.env,
+                         cfg.env.max_steps, n)
+    out = []
+    for dev in ("cpu", "cuda"):
+        model = make_policy_model(cfg)
+        model.load_state_dict(state_dict)
+        out.append([x.cpu() for x in dagger._collect(
+            model.to(dev), make_oracle("phase", cfg.env), cfg.env, n, 0.0,
+            draws=draws, device=dev)])
+    (_, c_labels, c_valid, c_succ, _), (_, g_labels, g_valid, g_succ, _) = out
+    off = (c_labels != g_labels) | (c_valid != g_valid)
+    apart = torch.nonzero(off.any(0)).flatten().tolist()
+    for e in apart:
+        log(f"DAgger collection card vs CPU: episode {e} parts at step "
+            f"{int(off[:, e].nonzero()[0])}")
+    log(f"DAgger collection card vs CPU: {n} episodes x {cfg.env.max_steps} "
+        f"steps, {len(apart)} apart in labels or valid; success "
+        f"{float(g_succ.float().mean()):.3f} on the card, "
+        f"{float(c_succ.float().mean()):.3f} on the CPU")
+    assert len(apart) <= n // 64, apart
+    return dict(apart=len(apart))
+
+
+def imitation_cli(cli_main, k, expert_path, tmp) -> dict:
+    """The imitation commands at full width, each checked for its JSON
+    line and files: ``train-bc`` (JAX's defaults) and ``eval --ckpt`` of
+    its checkpoint, ``train-dagger --rounds 2``, ``train-gail
+    --closed-loop --iterations 2`` and ``train --distill phase
+    --iterations 1`` with their exact launch counts."""
+    import torch
+
+    out = {}
+    bc_dir = os.path.join(tmp, "bc")
+    out["train_bc"], wall = cli_json(cli_main, [
+        "train-bc", "--expert", expert_path, "--out", bc_dir])
+    log(f"cli train-bc: {wall:.2f} s, {json.dumps(out['train_bc'])}")
+    summary, wall = cli_json(cli_main, ["eval", "--ckpt", bc_dir])
+    out["eval_bc"] = dict(summary=summary, wall_s=wall)
+    log(f"cli eval --ckpt (the BC checkpoint): {wall:.2f} s, "
         f"{json.dumps(summary)}")
+    summary, wall = cli_json(cli_main, [
+        "train-dagger", "--rounds", "2", "--out", os.path.join(tmp, "dag")])
+    assert len(summary["rollout_success"]) == 2, summary
+    out["train_dagger"] = dict(summary=summary, wall_s=wall)
+    log(f"cli train-dagger --rounds 2: {wall:.2f} s, {json.dumps(summary)}")
+    for name, argv, iters in (
+            ("train_gail", ["train-gail", "--closed-loop", "--expert",
+                            expert_path], 2),
+            ("train_distill", ["train", "--distill", "phase"], 1)):
+        run_dir = os.path.join(tmp, name)
+        zero_counts(k)
+        summary, wall = cli_json(cli_main, [
+            *argv, "--iterations", str(iters), "--minibatch", str(MAIN_MB),
+            "--out", run_dir])
+        counts = read_counts(k)
+        want = dict.fromkeys(KERNEL_NAMES, 0)
+        want.update(plume_sample=1, env_step=iters * 128)
+        assert counts == want, (name, counts, want)
+        out[name] = dict(summary=summary, wall_s=wall, launches=counts)
+        log(f"cli {' '.join(argv[:2])} --iterations {iters}: {wall:.2f} s, "
+            f"launches {counts}, {json.dumps(summary)}")
+    ckpt = torch.load(os.path.join(tmp, "train_gail", "checkpoint.pt"),
+                      weights_only=True)
+    assert {"model", "disc_model", "curriculum", "config"} == set(ckpt)
+    for name in ("ppo_gail.pth", "discriminator.pth"):
+        assert os.path.isfile(os.path.join(tmp, "train_gail", "model", name))
+    return out
+
+
+def imitation(m, v20, expert_path) -> dict:
+    """The imitation phase (slice 10) at full width: distilled PPO (f32,
+    and with ``fused_update``, which takes autodiff), its labels on the
+    card against the CPU; closed-loop GAIL with the fused update off and
+    on, a small GAIL iteration against the CPU; BC and DAgger on the
+    phase oracle's expert file ``expert_path``, 3 DAgger rounds and one
+    round's collection against the CPU, 2 rounds of sequence DAgger; the
+    imitation CLI."""
+    import torch
+
+    from tpu_plume_torch.train import bc, dagger
+    from tpu_plume_torch.train import gail_trainer as tgail
+    from tpu_plume_torch.data.expert import load_expert_data
+
+    ttrain, k = m.ttrain, m.k
+    out = {}
+    for label, kw in (("distill", {}),
+                      ("distill fused_update", dict(fused_update=True))):
+        cfg = imitation_cfg(v20, distill_oracle="phase", **kw)
+        run = run_main_path(ttrain, m.rollout.rollout_chunk, k, label, cfg,
+                            iters=IMIT_ITERS, profile=not kw)
+        log(f"main path {label}: loss/distill "
+            f"{run['losses']['loss/distill']:.5f}, loss/total "
+            f"{run['losses']['loss/total']:.5f}")
+        if not kw:
+            run["card_vs_cpu"] = labels_against_cpu(ttrain, m.rollout, cfg,
+                                                    run["model"])
+        del run["model"]
+        out[label] = run
+        torch.cuda.empty_cache()
+    check_small_iteration_against_cpu(m.get_preset, m.RolloutConfig, ttrain,
+                                      m.draw_chunk, k, gail=True)
+    states, actions = load_expert_data(expert_path)
+    expert = (torch.from_numpy(states).cuda(),
+              torch.from_numpy(actions).cuda())
+    for label, kw in (("f32", {}), ("fused_update",
+                                    dict(fused_update=True))):
+        out[f"gail {label}"] = run_gail_path(k, ttrain, tgail, label,
+                                             imitation_cfg(v20, **kw), expert,
+                                             expert_path)
+        torch.cuda.empty_cache()
+    del expert
+    out["dagger"], res = run_dagger(k, dagger, bc, "mlp", v20,
+                                    DAGGER_ROUNDS, DAGGER_EPISODES)
+    out["dagger"]["card_vs_cpu"] = collection_against_cpu(
+        dagger, v20, res.state_dict, DAGGER_EPISODES)
+    seq = v20.replace(
+        env=dataclasses.replace(v20.env, max_steps=SEQ_DAGGER_STEPS),
+        ppo=dataclasses.replace(v20.ppo, arch="lstm", lstm_layer_norm=True))
+    out["dagger lstm"], _ = run_dagger(
+        k, dagger, bc, "lstm (LayerNorm cell)", seq,
+        SEQ_DAGGER["rounds"], SEQ_DAGGER["episodes_per_round"],
+        epochs_per_round=SEQ_DAGGER["epochs_per_round"])
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out["cli"] = imitation_cli(m.cli_main, k, expert_path, tmp)
     return out
 
 
@@ -3324,7 +3764,9 @@ def run_only(only, m, v20, wl, phase_done) -> None:
     trained and the untrained ppo_v2_0 params, the guided wrf_les path's
     and the untrained wrf_les params, the trained ones' first episodes
     also on the CPU, and the guided CLI); ``--only stop-lstm``: phases 9
-    and 10.  Each prints its JSON record."""
+    and 10; ``--only eval-guides``: the learning check and phase 12;
+    ``--only imitation``: phase 13 on an expert file of its own.  Each
+    prints its JSON record."""
     if only == "stop-lstm":
         _, stop_lstm, _ = stop_lstm_phases(m.ttrain, m.ev, m.k, m.cli_main,
                                            v20, phase_done)
@@ -3334,11 +3776,18 @@ def run_only(only, m, v20, wl, phase_done) -> None:
         with tempfile.TemporaryDirectory() as tmp:
             _, _, trained = learning_check(m.ttrain, m.ev, m.k, v20,
                                            os.path.join(tmp, "learn"))
-        phase_done("learning check")
-        out = eval_guides(m.ev, m.k, m.ttrain, m.gridded, m.get_preset,
-                          m.cli_main, v20, trained)
+            phase_done("learning check")
+            out = eval_guides(m.ev, m.k, m.ttrain, m.gridded, m.get_preset,
+                              m.cli_main, v20, trained, tmp)
         phase_done("eval guides")
         log(json.dumps({"eval_guides": out}, default=str))
+        return
+    if only == "imitation":
+        with tempfile.TemporaryDirectory() as tmp:
+            expert_file(m.cli_main, tmp)
+            out = imitation(m, v20, os.path.join(tmp, "expert_data.npz"))
+        phase_done("imitation")
+        log(json.dumps({"imitation": out}, default=str))
         return
     out = {"exec_parity": check_env_step_exec(m.get_preset, m.plume,
                                               m.rollout)}
@@ -3363,8 +3812,10 @@ def run_only(only, m, v20, wl, phase_done) -> None:
          GUIDE_CPU_EPISODES["wrf_les"]),
         ("wrf_les untrained", wl, untrained["wrf_les"], 0)))
     phase_done("guided evals")
-    out["eval_guides"] = eval_guides(m.ev, m.k, m.ttrain, m.gridded,
-                                     m.get_preset, m.cli_main, v20, trained)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["eval_guides"] = eval_guides(m.ev, m.k, m.ttrain, m.gridded,
+                                         m.get_preset, m.cli_main, v20,
+                                         trained, tmp)
     phase_done("eval guides")
     out["cli"] = {}
     run_cli(m.cli_main, m.ActorCritic, "ppo_v2_0", MAIN_D, MAIN_A,
@@ -3390,10 +3841,12 @@ def build_kernels(build, names) -> None:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
-        "--only", choices=("guide", "stop-lstm", "eval-guides"),
+        "--only", choices=("guide", "stop-lstm", "eval-guides",
+                           "imitation"),
         help="after the build, run only the guide's phases (with the "
-             "untrained policies' guided evals), only phases 9 and 10, or "
-             "only the learning check and phase 12")
+             "untrained policies' guided evals), only phases 9 and 10, "
+             "only the learning check and phase 12, or only phase 13, the "
+             "imitation phase")
     args = parser.parse_args(argv)
     import torch
 
@@ -3441,12 +3894,12 @@ def main(argv=None) -> int:
                                                    minibatch_size=MAIN_MB))
     wl = get_preset("wrf_les")
     wl = wl.replace(ppo=dataclasses.replace(wl.ppo, minibatch_size=MAIN_MB))
+    m = types.SimpleNamespace(
+        ev=ev, k=k, ttrain=ttrain, rollout=rollout, cli_main=cli_main,
+        ActorCritic=ActorCritic, get_preset=get_preset, plume=plume,
+        gridded=gridded, RolloutConfig=RolloutConfig, draw_chunk=draw_chunk)
     if args.only:
-        run_only(args.only, types.SimpleNamespace(
-            ev=ev, k=k, ttrain=ttrain, rollout=rollout, cli_main=cli_main,
-            ActorCritic=ActorCritic, get_preset=get_preset, plume=plume,
-            gridded=gridded),
-            v20_main, wl, phase_done)
+        run_only(args.only, m, v20_main, wl, phase_done)
         log("phase seconds: " + json.dumps(seconds))
         print(card, flush=True)
         return 0
@@ -3630,10 +4083,16 @@ def main(argv=None) -> int:
     del aniso["model"]
     phase_done("guided evals")
     # The bank-match and learned guides, the localizer and the oracles in
-    # the protocol's evals (phase 12).
-    eval_guides_out = eval_guides(ev, k, ttrain, gridded, get_preset,
-                                  cli_main, v20_main, trained)
-    phase_done("eval guides")
+    # the protocol's evals (phase 12), then imitation (phase 13) on phase
+    # 12's expert file.
+    with tempfile.TemporaryDirectory() as expert_dir:
+        eval_guides_out = eval_guides(ev, k, ttrain, gridded, get_preset,
+                                      cli_main, v20_main, trained,
+                                      expert_dir)
+        phase_done("eval guides")
+        imit = imitation(m, v20, os.path.join(expert_dir,
+                                              "expert_data.npz"))
+        phase_done("imitation")
     for gate in STOP_GATES:
         e = stop_lstm[f"eval_{gate}"]
         log(f"eval A {gate} gate: success@40 {e['summary']['success_rate']:.3f}"
@@ -3656,6 +4115,7 @@ def main(argv=None) -> int:
                                    "counts")}, "lstm_replay": lstm_replay}))
     log(json.dumps({"stop_lstm": stop_lstm}))
     log(json.dumps({"eval_guides": eval_guides_out}, default=str))
+    log(json.dumps({"imitation": imit}, default=str))
     log(json.dumps({"guide": {
         "evals": guided, "fit_card_vs_cpu": fit_check,
         "exec_parity": exec_parity, "exec_time": {
@@ -3691,6 +4151,11 @@ def main(argv=None) -> int:
         "guided_eval_launches": {
             label: e["launches"]["plume_sample"]
             for label, e in guided.items() if "launches" in e},
+        "imitation": {
+            f"dagger {arch} collections": [
+                r["launches"]["plume_sample"]
+                for r in imit[key]["rounds"]]
+            for arch, key in (("mlp", "dagger"), ("lstm", "dagger lstm"))},
     }, {
         "name": "env_step",
         "route": "cuda",
@@ -3732,6 +4197,16 @@ def main(argv=None) -> int:
             for preset, run in guided_train.items()},
         "exec_action": {"max_abs_err": exec_parity["max_abs_err"],
                         **{str(n): row for n, row in exec_time.items()}},
+        "imitation": {
+            **{label: {"launches": imit[label]["total_counts"]["env_step"],
+                       "launches_timed": imit[label]["counts"]["env_step"]}
+               for label in ("distill", "distill fused_update")},
+            "distill rollout_launches_per_step":
+                imit["distill"]["rollout_profile"]["launches_per_step"],
+            **{label: {"launches_timed": imit[label]["counts"]["env_step"]}
+               for label in ("gail f32", "gail fused_update")},
+            **{f"cli {name}": imit["cli"][name]["launches"]["env_step"]
+               for name in ("train_gail", "train_distill")}},
     }, {
         "name": "ppo_fused",
         "route": "cuda",
@@ -3754,6 +4229,10 @@ def main(argv=None) -> int:
         "reduce_device_ms": ppo_t["reduce_device_ms"],
         "autodiff_ms": ppo_t["autodiff_ms"],
         "bf16": ppo_time["bf16"],
+        "imitation": {
+            label: {name: imit[label]["counts"][name]
+                    for name in ("ppo_fused", "ppo_dw2", "ppo_reduce")}
+            for label in ("gail fused_update", "distill fused_update")},
     }]
     for name, replaces, run in (
             ("bilinear", "tpu_plume/ops/pallas_gather.py:31", static),

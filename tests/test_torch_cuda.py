@@ -46,7 +46,10 @@ are held to the CPU, at most one env or episode in 64 apart; so are the
 bank guide's evals (one bank-sample launch a step) and the learned
 guide's (its localizer cuDNN, TF32 off; the post-hoc localization within
 1e-2 px), and the phase oracle's eval and expert data agree in every
-episode.
+episode.  Distilled PPO's labelled rollout (one env-step launch a step,
+the teacher reading the state before the kernel updates it) is held to
+the CPU's labels, at most one env in 64 apart, and one closed-loop GAIL
+iteration to the CPU's at the losses' tolerance.
 """
 
 import dataclasses
@@ -895,3 +898,90 @@ def test_oracle_eval_on_the_card_matches_the_cpu(card):
     assert (ga == wa).all() and len(wa) > 0
     torch.testing.assert_close(torch.from_numpy(gs), torch.from_numpy(ws),
                                rtol=1e-5, atol=1e-4)
+
+
+def test_labelled_rollout_on_the_card_matches_the_cpu(card):
+    """Distilled PPO's teacher in a rollout chunk of 256 envs x 24 steps:
+    one env-step launch a step (the oracle reads the state before the
+    kernel updates it in place), and at most one env in 64 apart from the
+    CPU's labels, actions or dones."""
+    from tpu_plume_torch.evaluation.oracle import make_oracle
+
+    cfg = dataclasses.replace(get_preset("ppo_v2_0").env, grid_size=250,
+                              source_padding=25.0, move_frac=0.1,
+                              max_steps=20)
+    n, t = 256, 24
+    oracle = make_oracle("phase", cfg)
+    model = ActorCritic(cfg.obs_dim, cfg.num_actions, (64, 32))
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    carry = rollout.init_rollout(cfg, n, torch.Generator().manual_seed(1))
+    draws = rollout.draw_chunk(torch.Generator().manual_seed(2), cfg, t, n)
+    _, want, _ = rollout.rollout_chunk(model, carry, cfg, t, draws=draws,
+                                       oracle=oracle)
+    before = plume.env_step_launches
+    _, got, _ = rollout.rollout_chunk(
+        model.to(card), _moved(carry, card), cfg, t,
+        draws=_moved(draws, card), oracle=oracle)
+    torch.cuda.synchronize()
+    assert plume.env_step_launches == before + t
+    off = ((got.oracle_action.cpu() != want.oracle_action)
+           | (got.action.cpu() != want.action)
+           | (got.done.cpu() != want.done)).any(0)
+    assert int(off.sum()) <= n // 64
+    assert want.done.any() and len(want.oracle_action.unique()) > 1
+
+
+def test_gail_step_on_the_card_matches_the_cpu(card):
+    """One closed-loop GAIL iteration of 64 envs x 16 steps from the same
+    params, discriminator, draws, shuffles and discriminator rows: actions
+    and dones equal, the discriminator's loss and the policy's losses at
+    rtol 1e-4 / atol 1e-5, 16 env-step launches."""
+    from tpu_plume_torch.train import gail_trainer as tgail
+    from tpu_plume_torch.train import ppo_trainer as ttrain
+
+    cfg = get_preset("ppo_v2_0")
+    cfg = cfg.replace(
+        env=dataclasses.replace(cfg.env, max_steps=6, initial_radius=200.0),
+        ppo=dataclasses.replace(cfg.ppo, hidden_sizes=(64, 32),
+                                minibatch_size=256),
+        rollout=dataclasses.replace(cfg.rollout, num_envs=64,
+                                    unroll_length=16))
+    g = torch.Generator().manual_seed(4)
+    expert = (torch.randn(128, cfg.env.obs_dim, generator=g),
+              torch.randint(0, cfg.env.num_actions, (128,), generator=g))
+    rows = (torch.randint(0, 128, (64,), generator=g),
+            torch.randint(0, 64 * 16, (64,), generator=g))
+    draws = rollout.draw_chunk(torch.Generator().manual_seed(5), cfg.env, 16,
+                               64)
+    shuffles = [3, 77, 0, 101, 64]
+    cpu = ttrain.init_loop(cfg, "cpu")
+    out = {}
+    for dev in ("cpu", card):
+        model = ttrain.make_policy_model(cfg).to(dev)
+        model.load_state_dict(cpu.model.state_dict())
+        loop = dataclasses.replace(
+            cpu, model=model,
+            optimizer=ttrain.ClippedAdam(model.parameters(),
+                                         cfg.ppo.learning_rate,
+                                         cfg.ppo.max_grad_norm),
+            rollout=dataclasses.replace(
+                _moved(cpu.rollout, dev),
+                generator=torch.Generator(device=dev)))
+        disc, opt = tgail.make_disc_state(cfg, dev, 1)
+        step = tgail.build_gail_train_step(
+            cfg, *(x.to(dev) for x in expert), closed_loop=True,
+            disc_batch=64)
+        before = plume.env_step_launches
+        _, stats, traj = step(
+            tgail.GAILCarry(ppo=loop, disc=disc, disc_optimizer=opt), 0.1,
+            draws=_moved(draws, dev), shuffles=shuffles,
+            disc_idx=tuple(x.to(dev) for x in rows))
+        out[str(dev)] = (stats, traj, plume.env_step_launches - before)
+    (cstats, ctraj, _), (gstats, gtraj, launches) = out["cpu"], out[str(card)]
+    assert launches == 16
+    assert torch.equal(gtraj.action.cpu(), ctraj.action)
+    assert torch.equal(gtraj.done.cpu(), ctraj.done)
+    for key in ("loss/total", "loss/value", "gail/disc_loss",
+                "gail/disc_acc"):
+        assert np.isclose(float(gstats[key]), float(cstats[key]), rtol=1e-4,
+                          atol=1e-5), key

@@ -12,7 +12,7 @@ commands of the port's CLI, on the CPU.
   params (``tests/test_torch_train.py``'s harness and tolerances).
 - Both ``eval`` parsers build the same config from the flags they share;
   the flags slices 9b, 10 and 11 ported parse as in JAX and reach the
-  work.
+  work, the train flags of distilled PPO too.
 
 Tolerances are ``tests/test_torch_eval.py``'s: steps, stop flags and
 success equal, deviations rtol 1e-5 / atol 1e-4.
@@ -298,10 +298,34 @@ def test_flags_of_later_slices_are_refused_before_any_work(name, tmp_path):
         assert ("samples" if cmd == "expert" else "success_rate") in out
 
 
+# The train flags of slice 10 (distilled PPO) that once were refused here,
+# and the config field each sets.
+TRAIN_PORTED = {   # name: (flags, ppo field, value)
+    "distill": (["--distill", "phase"], "distill_oracle", "phase"),
+    "distill_coef": (["--distill-coef", "0.1"], "distill_coef", 0.1),
+    "distill_gate": (["--distill-gate=0.2"], "distill_conc_gate", 0.2),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TRAIN_PORTED))
+def test_train_flags_of_slice_10_reach_the_work(name, tmp_path):
+    """Each train flag that slice 10 refused until it was ported parses as
+    JAX's parser parses it, sets the config field JAX's overrides set,
+    and the train command runs with it."""
+    flags, field, value = TRAIN_PORTED[name]
+    argv = ["train", "--iterations", "1", "--envs", str(N), "--unroll",
+            str(T), "--minibatch", str(MB), "--hidden", "64,32", *flags]
+    jcfg = j_apply_overrides(j_get_preset("ppo_v2_0"),
+                             j_build_parser().parse_args(argv))
+    tcfg = apply_overrides(t_get_preset("ppo_v2_0"),
+                           build_parser().parse_args(argv))
+    assert getattr(tcfg.ppo, field) == getattr(jcfg.ppo, field) == value
+    assert dataclasses.asdict(tcfg.ppo) == dataclasses.asdict(jcfg.ppo)
+    out = _run(cli_main, [*argv, "--cpu", "--out", str(tmp_path / "run")])
+    assert out["env_steps"] == N * T
+
+
 TRAIN_REFUSED = {   # train flags: ROADMAP.md Queue 1 slice
-    "distill": (["--distill", "phase"], 10),
-    "distill_coef": (["--distill-coef", "0.1"], 10),
-    "distill_gate": (["--distill-gate=0.2"], 10),
     "resume": (["--resume", "runs/old"], 12),
     "snapshot_every": (["--snapshot-every", "5"], 12),
     "tensorboard": (["--tensorboard"], 12),

@@ -9,9 +9,10 @@ against JAX's CLI, and the parsers' remaining differences, on the CPU.
   JAX's bank (``make_bank`` monkeypatched): the same summaries (with
   ``bank_gate_rate`` and ``bank_match_accuracy``) at the env tolerance,
   the expert samples equal.  No policy file where JAX needs none.
-- The parsers of ``eval`` and ``expert`` differ from JAX's only by the
-  flags of later slices, and those, and the commands of later slices,
-  are refused naming their slice.
+- The parsers of ``eval``, ``expert`` and the imitation commands differ
+  from JAX's only by the flags of later slices, and those, and the
+  commands of later slices, are refused naming their slice; the distill
+  flags parse on ``eval`` and ``expert`` as in JAX.
 """
 
 import argparse
@@ -163,16 +164,12 @@ def parser_options(build, cmd):
 def test_eval_parsers_differ_from_jax_only_by_later_slices(cmd):
     jax_only = (parser_options(j_build_parser, cmd)
                 - parser_options(tcli.build_parser, cmd))
-    assert jax_only == {"--distill", "--distill-coef", "--distill-gate",
-                        "--debug-nans"}
+    assert jax_only == {"--debug-nans"}
     assert not (parser_options(tcli.build_parser, cmd)
                 - parser_options(j_build_parser, cmd))
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["eval", "--distill", "phase"], 10),
-    (["expert", "--distill-coef", "0.1"], 10),
-    (["eval", "--distill-gate=0.2"], 10),
     (["expert", "--debug-nans"], 12)])
 def test_later_slices_are_refused_naming_them(argv, item):
     with pytest.raises(SystemExit, match=rf"ROADMAP\.md Queue 1, slice {item} "):
@@ -180,11 +177,49 @@ def test_later_slices_are_refused_naming_them(argv, item):
 
 
 @pytest.mark.parametrize("argv", [
-    ["flux", "--sources", "3"], ["train-bc", "--expert", "x.npz"],
-    ["train-dagger"], ["train-gail", "--expert", "x.npz"],
-    ["plot", "--what", "curves"]])
+    ["eval", "--distill", "phase"], ["expert", "--distill-coef", "0.1"],
+    ["eval", "--distill-gate=0.2"]])
+def test_distill_flags_parse_on_eval_and_expert_as_in_jax(argv):
+    """Slice 10's distill flags, declared on every command as JAX's
+    ``common()`` declares them, parse to JAX's values and set JAX's config
+    fields (which eval and expert do not read)."""
+    from tpu_plume.cli.main import _apply_overrides
+
+    jargs = j_build_parser().parse_args(argv)
+    targs = tcli.build_parser().parse_args(argv)
+    for key, value in vars(targs).items():
+        if key != "fn":
+            assert value == getattr(jargs, key), key
+    jcfg = _apply_overrides(j_get_preset("ppo_v2_0"), jargs)
+    tcfg = tcli.apply_overrides(t_get_preset("ppo_v2_0"), targs)
+    for key in ("distill_oracle", "distill_coef", "distill_conc_gate"):
+        assert getattr(tcfg.ppo, key) == getattr(jcfg.ppo, key), key
+
+
+@pytest.mark.parametrize("cmd", ["train-bc", "train-dagger", "train-gail"])
+def test_commands_of_slice_10_are_declared_as_in_jax(cmd, capsys):
+    """The imitation commands are the port's parser's choices with JAX's
+    flags (but the scale-out slice's ``--debug-nans``) and defaults."""
+    assert (parser_options(j_build_parser, cmd)
+            - parser_options(tcli.build_parser, cmd)) == {"--debug-nans"}
+    assert not (parser_options(tcli.build_parser, cmd)
+                - parser_options(j_build_parser, cmd))
+    argv = [cmd] + (["--expert", "x.npz"] if cmd != "train-dagger" else [])
+    jargs = j_build_parser().parse_args(argv)
+    for key, value in vars(tcli.build_parser().parse_args(argv)).items():
+        if key != "fn":
+            assert value == getattr(jargs, key), key
+    if cmd != "train-dagger":
+        with pytest.raises(SystemExit) as exc:
+            tcli.main([cmd, "--cpu"])
+        assert exc.value.code == 2
+        assert "--expert" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [
+    ["flux", "--sources", "3"], ["plot", "--what", "curves"]])
 def test_commands_of_later_slices_are_not_declared(argv, capsys):
-    """JAX's commands that slices 10-12 port are no choice of the port's
+    """JAX's commands that slices 11-12 port are no choice of the port's
     parser, which refuses them before any work."""
     with pytest.raises(SystemExit) as exc:
         tcli.main(argv)

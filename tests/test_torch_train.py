@@ -230,7 +230,7 @@ def test_cli_train_on_cpu(tmp_path, capsys):
 
 
 def test_cli_refuses_flags_of_later_slices(tmp_path):
-    for flag in (["--distill", "phase"], ["--resume", "dir"]):
+    for flag in (["--tensorboard"], ["--resume", "dir"]):
         with pytest.raises(SystemExit, match="is not ported yet"):
             cli_main(["train", "--cpu", "--out", str(tmp_path), *flag])
 
@@ -246,19 +246,18 @@ def test_entry_points_raise_without_a_card(tmp_path, monkeypatch):
     assert resolve_device("cpu").type == "cpu"
 
 
-UNPORTED = {   # name: (config part, fields, ROADMAP Queue 1 slice)
-    "distill_oracle": ("ppo", {"distill_oracle": "naive"}, 10),
-}
-
-
-@pytest.mark.parametrize("name", sorted(UNPORTED))
-def test_unported_options_raise_naming_roadmap(name, tmp_path):
+def test_train_ppo_runs_distilled_ppo(tmp_path):
+    """``distill_oracle`` (once refused until slice 10) runs the teacher in
+    the rollout and the imitation term in the update: ``loss/distill``
+    reaches ``train_log.csv``."""
     cfg = _train_cfg()
-    part, kw, item = UNPORTED[name]
-    cfg = cfg.replace(**{part: dataclasses.replace(getattr(cfg, part), **kw)})
-    with pytest.raises(NotImplementedError,
-                       match=rf"ROADMAP\.md Queue 1, slice {item} "):
-        ttrain.train_ppo(cfg, str(tmp_path), device="cpu", max_iterations=1)
+    cfg = cfg.replace(ppo=dataclasses.replace(cfg.ppo, distill_oracle="naive"))
+    res = ttrain.train_ppo(cfg, str(tmp_path), device="cpu",
+                           max_iterations=ttrain.LOG_EVERY, verbose=False)
+    assert res.env_steps == ttrain.LOG_EVERY * N * T
+    with open(tmp_path / "train_log.csv", newline="") as fh:
+        rows = list(csv.DictReader(fh))
+    assert rows and float(rows[-1]["loss/distill"]) > 0
 
 
 def test_gridded_without_a_bank_raises_value_error(tmp_path):

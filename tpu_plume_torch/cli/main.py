@@ -18,6 +18,10 @@
     python -m tpu_plume_torch.cli train-lstm --variant threshold --nc runs/torch_v20/training_data.nc --out runs/lstm
     python -m tpu_plume_torch.cli eval --pth ... --stop threshold --lstm-ckpt runs/lstm/lstm_threshold_predictor.pt
     python -m tpu_plume_torch.cli inspect-nc runs/torch_v20/training_data.nc
+    python -m tpu_plume_torch.cli train --distill phase --distill-gate 0.2
+    python -m tpu_plume_torch.cli train-bc --expert expert_data.npz --out runs/bc
+    python -m tpu_plume_torch.cli train-dagger --rounds 8 --envs 512 --out runs/dagger
+    python -m tpu_plume_torch.cli train-gail --expert expert_data.npz --closed-loop --gail-anneal 20000 --out runs/gail
 
 Runs on the card; ``--cpu`` runs on the CPU.  The flags are the JAX CLI's
 (``python -m tpu_plume.cli``), with its types, defaults and override
@@ -40,7 +44,12 @@ of a gridded bank and ``eval --guide learned`` steers by a trained source
 localizer (``train-lstm --variant params``, loaded by ``--guide-ckpt``
 from its run directory or its ``gaussian_params.pt``), which ``eval
 --localize`` also runs post hoc on every flight.  ``eval --oracle`` and
-``expert --oracle`` fly a scripted policy and load none.  The NetCDF files
+``expert --oracle`` fly a scripted policy and load none.  ``train
+--distill`` adds a scripted teacher's imitation term to PPO; ``train-bc``
+and ``train-dagger`` write a ``checkpoint.pt`` that ``--ckpt`` loads, and
+``train-gail`` one with the discriminator beside the policy and the
+reference's ``model/ppo_gail.pth`` and ``model/discriminator.pth``.  The
+NetCDF files
 (``--netcdf``, ``--bank file.nc``, ``train-lstm --nc``, ``inspect-nc``)
 need h5py.  A command or flag of a path the port does not run yet is
 refused before any work, naming the ``ROADMAP.md`` slice that ports it.
@@ -105,6 +114,12 @@ def apply_overrides(cfg, args):
         ppo = dataclasses.replace(ppo, arch=args.arch)
     if args.ln_lstm:
         ppo = dataclasses.replace(ppo, lstm_layer_norm=True)
+    if args.distill:
+        ppo = dataclasses.replace(ppo, distill_oracle=args.distill)
+    if args.distill_coef is not None:
+        ppo = dataclasses.replace(ppo, distill_coef=args.distill_coef)
+    if args.distill_gate is not None:
+        ppo = dataclasses.replace(ppo, distill_conc_gate=args.distill_gate)
     cfg = cfg.replace(env=env, curriculum=curriculum, rollout=rollout,
                       ppo=ppo)
     if args.episodes:
@@ -208,9 +223,8 @@ def load_policy(args, cfg, device):
 # Flags of later slices, left undeclared and refused before any work: a
 # flag by its name (without "--", "no-" and "=value") matched against each
 # pattern, with the ROADMAP item that ports it.
-LATER_FLAGS = ((r"distill(-coef|-gate)?", support.IMITATION),
-               (r"resume|snapshot-every|tensorboard|profile-steps|debug-nans",
-                support.SCALE_OUT))
+LATER_FLAGS = ((r"resume|snapshot-every|tensorboard|profile-steps|debug-nans",
+                support.SCALE_OUT),)
 
 
 def refuse_later_flags(extra):
@@ -563,6 +577,52 @@ def cmd_train(args):
     }))
 
 
+def cmd_train_bc(args):
+    from tpu_plume_torch.train.bc import train_bc
+
+    cfg = apply_overrides(get_preset(args.preset), args)
+    res = train_bc(cfg, args.out, args.expert, epochs=args.bc_epochs,
+                   batch_size=args.bc_batch, lr=args.bc_lr,
+                   device=resolve_device("cpu" if args.cpu else None))
+    print(json.dumps({
+        "samples": res.samples, "train_loss": round(res.train_loss, 4),
+        "val_loss": round(res.val_loss, 4),
+        "val_accuracy": round(res.val_accuracy, 4), "out": args.out,
+    }))
+
+
+def cmd_train_dagger(args):
+    from tpu_plume_torch.train.dagger import train_dagger
+
+    cfg = apply_overrides(get_preset(args.preset), args)
+    res = train_dagger(
+        cfg, args.out, oracle_kind=args.oracle, rounds=args.rounds,
+        episodes_per_round=args.envs or 512,
+        epochs_per_round=args.bc_epochs, batch_size=args.bc_batch,
+        lr=args.bc_lr, device=resolve_device("cpu" if args.cpu else None))
+    print(json.dumps({
+        "rounds": res.rounds, "samples": res.samples,
+        "val_accuracy": round(res.val_accuracy, 4),
+        "rollout_success": [round(s, 4) for s in res.eval_success],
+        "out": args.out,
+    }))
+
+
+def cmd_train_gail(args):
+    from tpu_plume_torch.train.gail_trainer import train_ppo_gail
+
+    cfg = apply_overrides(get_preset(args.preset), args)
+    res = train_ppo_gail(
+        cfg, args.out, args.expert, closed_loop=args.closed_loop,
+        gail_reward_coef=args.gail_coef,
+        gail_anneal_episodes=args.gail_anneal,
+        gail_anneal_radius=args.gail_anneal_radius,
+        max_iterations=args.iterations,
+        device=resolve_device("cpu" if args.cpu else None))
+    print(json.dumps({"episodes": res.episodes, "successes": res.successes,
+                      "out_dir": res.out_dir}))
+
+
 def cmd_train_lstm(args):
     if args.variant == "params":
         if not (args.nc or args.flights):
@@ -702,6 +762,16 @@ def _common(sp, out_default):
                          "the guided dynamics.  Pair with --min-radius 50 "
                          "--terminal-gate 40 (declared on every command, "
                          "as in JAX; eval and expert ignore it)")
+    sp.add_argument("--distill", choices=["naive", "look1", "phase"],
+                    help="distilled PPO: a scripted privileged teacher "
+                         "labels every rollout state and the update adds "
+                         "an imitation cross-entropy (declared on every "
+                         "command, as in JAX; train reads it)")
+    sp.add_argument("--distill-coef", type=float,
+                    help="imitation-term weight (default 0.1)")
+    sp.add_argument("--distill-gate", type=float,
+                    help="imitate only where conc_norm exceeds this "
+                         "(default 0 = everywhere)")
 
 
 def build_parser():
@@ -719,6 +789,42 @@ def build_parser():
     sp.add_argument("--conc-csv", action="store_true",
                     help="capture ragged conc sequences (V1.2 data.csv)")
     sp.set_defaults(fn=cmd_train)
+
+    sp = sub.add_parser(
+        "train-bc", help="behavior-cloning pretrain on expert pairs (warm "
+                         "start for train --ckpt)")
+    _common(sp, "runs/bc")
+    sp.add_argument("--expert", required=True)
+    sp.add_argument("--bc-epochs", type=int, default=30)
+    sp.add_argument("--bc-batch", type=int, default=4096)
+    sp.add_argument("--bc-lr", type=float, default=1e-3)
+    sp.set_defaults(fn=cmd_train_bc)
+
+    sp = sub.add_parser(
+        "train-dagger", help="DAgger against a scripted oracle teacher "
+                             "(--envs = episodes per round)")
+    _common(sp, "runs/dagger")
+    sp.add_argument("--oracle", choices=["naive", "look1", "phase"],
+                    default="phase")
+    sp.add_argument("--rounds", type=int, default=8)
+    sp.add_argument("--bc-epochs", type=int, default=20)
+    sp.add_argument("--bc-batch", type=int, default=4096)
+    sp.add_argument("--bc-lr", type=float, default=1e-3)
+    sp.set_defaults(fn=cmd_train_dagger)
+
+    sp = sub.add_parser("train-gail", help="PPO + GAIL discriminator")
+    _common(sp, "runs/gail")
+    sp.add_argument("--expert", required=True)
+    sp.add_argument("--closed-loop", action="store_true")
+    sp.add_argument("--gail-coef", type=float, default=0.1,
+                    help="imitation-reward weight (closed loop only)")
+    sp.add_argument("--gail-anneal", type=int,
+                    help="linearly decay the imitation weight to 0 over N "
+                         "episodes")
+    sp.add_argument("--gail-anneal-radius", type=float,
+                    help="start the --gail-anneal decay only once the "
+                         "curriculum radius first reaches this value")
+    sp.set_defaults(fn=cmd_train_gail)
 
     sp = sub.add_parser("train-lstm", help="LSTM stop-predictor training")
     sp.add_argument("--variant",

@@ -1,6 +1,6 @@
-"""Parameters between the flax ``ActorCritic`` / ``RecurrentActorCritic``
-and stop-LSTM layouts and the port's modules, and field banks from the JAX
-package's arrays into the port.
+"""Parameters between the flax ``ActorCritic`` / ``RecurrentActorCritic``,
+stop-LSTM and ``Discriminator`` layouts and the port's modules, and field
+banks from the JAX package's arrays into the port.
 
 Works on plain numpy arrays, so neither side needs the other's framework:
 flax ``{"params": {"Dense_0": {"kernel", "bias"}, "LayerNorm_0": {"scale",
@@ -194,6 +194,29 @@ def lstm_zoo_to_flax(model, state_dict: dict) -> dict:
                         if flax_name.startswith("LayerNorm_") else
                         {"kernel": np.ascontiguousarray(w.T), "bias": b})
     return {"params": p}
+
+
+# (torch prefix, flax module) of the GAIL discriminator, the reference
+# ``discriminator.pth`` layout.
+_DISCRIMINATOR = (("net.0", "Dense_0"), ("net.2", "Dense_1"))
+
+
+def discriminator_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """flax ``Discriminator`` param tree (numpy leaves) -> a state_dict for
+    the port's ``Discriminator``."""
+    p = params["params"] if "params" in params else params
+    return {**{f"{t}.weight": _tensor(_arr(p[f]["kernel"]).T)
+               for t, f in _DISCRIMINATOR},
+            **{f"{t}.bias": _tensor(p[f]["bias"]) for t, f in _DISCRIMINATOR}}
+
+
+def discriminator_to_flax(state_dict: dict) -> dict:
+    """The port's ``Discriminator`` state_dict -> flax param tree with
+    numpy leaves."""
+    sd = {k: _arr(v) for k, v in state_dict.items()}
+    return {"params": {f: {"kernel": np.ascontiguousarray(
+        sd[f"{t}.weight"].T), "bias": sd[f"{t}.bias"]}
+        for t, f in _DISCRIMINATOR}}
 
 
 def field_bank_from_numpy(conc, source, wind=None, steps_per_frame=1.0,

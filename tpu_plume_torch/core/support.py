@@ -1,15 +1,13 @@
-"""Config fields whose paths the port does not run yet.
-
-Each raises ``NotImplementedError`` naming the ``ROADMAP.md`` item that will
-port it, so a config meant for the JAX package never runs a different
-program here without saying so.
+"""The config values the port runs, checked before any work, and the
+message that names the ``ROADMAP.md`` item of a flag the port does not run
+yet (``cli/main.py``), so a command meant for the JAX package never runs a
+different program here without saying so.
 """
 
 from __future__ import annotations
 
 from tpu_plume_torch.core.config import EnvConfig, PPOConfig
 
-IMITATION = "ROADMAP.md Queue 1, slice 10 (distill, BC, DAgger and GAIL)"
 SCALE_OUT = "ROADMAP.md Queue 1, slice 12 (scale-out and the rest)"
 
 # The JAX package's bank gather formulations; the port samples one function
@@ -19,10 +17,6 @@ GATHER_MODES = ("auto", "packed", "corner", "fused")
 
 def unported_message(what: str, item: str) -> str:
     return f"{what} is not ported yet: {item}"
-
-
-def _unported(what: str, item: str):
-    raise NotImplementedError(unported_message(what, item))
 
 
 PLUME_MODELS = ("isotropic", "anisotropic", "gridded")
@@ -41,5 +35,3 @@ def check_env(cfg: EnvConfig) -> None:
 def check_ppo(cfg: PPOConfig) -> None:
     if cfg.arch not in ARCHS:
         raise ValueError(f"arch must be one of {ARCHS}, got {cfg.arch!r}")
-    if cfg.distill_oracle is not None:
-        _unported("distill_oracle", IMITATION)

@@ -416,6 +416,81 @@ def summarize(m: EvalMetrics) -> dict:
     }
 
 
+@dataclass
+class Collection:
+    """One pass of N episodes over T steps, frozen once each ends (the
+    expert data's and DAgger's rollout), on the collection's device."""
+
+    states: torch.Tensor          # f32[T, N, obs_dim] the obs of each step
+    actions: torch.Tensor         # i64[T, N] the executed actions
+    labels: torch.Tensor | None   # i64[T, N] the labeller's actions
+    valid: torch.Tensor           # bool[T, N] the episode was active
+    success: torch.Tensor         # bool[N] ended reached within 40 px
+    finished: torch.Tensor        # bool[N] ended
+
+
+@torch.no_grad()
+def collect(
+    model: torch.nn.Module | None,
+    env_cfg: EnvConfig,
+    generator: torch.Generator | None = None,
+    num_episodes: int = 100,
+    bank=None,
+    draws: EvalDraws | None = None,
+    device=None,
+    rnn=None,
+    oracle=None,
+    labeller=None,
+) -> Collection:
+    """The eval loop with no gate, at the env's own radius, for
+    ``env_cfg.max_steps`` steps: each step the greedy policy (or ``oracle``
+    in its place) acts on every episode, finished episodes frozen.
+    ``labeller`` (``fn(env_state) -> i64[N]``, an oracle) labels each
+    pre-step state.  ``rnn`` is the recurrent policy, its carry advanced
+    at every step, also after the episode has ended, as in JAX.
+    ``device``, ``generator`` and ``draws`` are as in ``evaluate_policy``."""
+    check_env(env_cfg)
+    if oracle is not None:
+        model = rnn = None
+    n, length = num_episodes, env_cfg.max_steps
+    dev, model, bank, draws, env_state, obs = _start(
+        model if rnn is None else rnn, env_cfg, device, generator, draws, n,
+        length, True, None, bank)
+    hidden = None if rnn is None else model.initial_state(n, dev)
+    finished = torch.zeros(n, dtype=torch.bool, device=dev)
+    success = torch.zeros(n, dtype=torch.bool, device=dev)
+    states = torch.empty(length, n, env_cfg.obs_dim, dtype=torch.float32,
+                         device=dev)
+    actions = torch.empty(length, n, dtype=torch.int64, device=dev)
+    labels = (None if labeller is None else
+              torch.empty(length, n, dtype=torch.int64, device=dev))
+    valid = torch.empty(length, n, dtype=torch.bool, device=dev)
+    for t in range(length):
+        if oracle is not None:
+            action = oracle(env_state)
+        else:
+            if hidden is None:
+                logits, _ = model(obs)
+            else:
+                hidden, logits, _ = model.step(hidden, obs)
+            action = torch.argmax(logits, dim=-1)
+        if labeller is not None:
+            labels[t] = action if labeller is oracle else labeller(env_state)
+        new_env, trans = step_noise(env_state, action, draws.turb_noise[t],
+                                    env_cfg, bank)
+        active = ~finished
+        states[t] = obs
+        actions[t] = action
+        valid[t] = active
+        env_state = select(active, new_env, env_state)
+        obs = torch.where(active[:, None], trans.obs, obs)
+        success = success | (active & trans.done & trans.info.reached
+                             & (trans.info.distance <= 40.0))
+        finished = finished | trans.done
+    return Collection(states=states, actions=actions, labels=labels,
+                      valid=valid, success=success, finished=finished)
+
+
 @torch.no_grad()
 def generate_expert_data(
     model: torch.nn.Module | None,
@@ -430,52 +505,18 @@ def generate_expert_data(
     oracle=None,
 ):
     """Greedy-rollout (state, action) collection -- the reference
-    expert-data pipeline (PPOV1.1/generate_expert_data.py:14-61): the eval
-    loop with no gate, at the env's own radius, for ``env_cfg.max_steps``
-    steps, keeping each active episode's (obs, action) in step-major order.
-    Returns numpy ``(states f32[M, obs_dim], actions i64[M])`` and writes
-    them to ``path`` in the ``expert_data.npz`` contract when given.
-    ``device``, ``generator`` and ``draws`` are as in ``evaluate_policy``.
-
-    ``rnn`` is the recurrent policy, as in ``evaluate_policy``, but its
-    carry advances at every step, also after the episode has ended, as in
-    JAX.  ``oracle`` (``evaluation.oracle.make_oracle``) replaces the
-    policy, as in ``evaluate_policy``: privileged-teacher demonstrations,
-    with ``model`` and ``rnn`` unread."""
-    check_env(env_cfg)
-    if oracle is not None:
-        model = rnn = None
-    n, length = num_episodes, env_cfg.max_steps
-    dev, model, bank, draws, env_state, obs = _start(
-        model if rnn is None else rnn, env_cfg, device, generator, draws, n,
-        length, True, None, bank)
-    hidden = None if rnn is None else model.initial_state(n, dev)
-    finished = torch.zeros(n, dtype=torch.bool, device=dev)
-    states = torch.empty(length, n, env_cfg.obs_dim, dtype=torch.float32,
-                         device=dev)
-    actions = torch.empty(length, n, dtype=torch.int64, device=dev)
-    valid = torch.empty(length, n, dtype=torch.bool, device=dev)
-    for t in range(length):
-        if oracle is not None:
-            action = oracle(env_state)
-        else:
-            if hidden is None:
-                logits, _ = model(obs)
-            else:
-                hidden, logits, _ = model.step(hidden, obs)
-            action = torch.argmax(logits, dim=-1)
-        new_env, trans = step_noise(env_state, action, draws.turb_noise[t],
-                                    env_cfg, bank)
-        active = ~finished
-        states[t] = obs
-        actions[t] = action
-        valid[t] = active
-        env_state = select(active, new_env, env_state)
-        obs = torch.where(active[:, None], trans.obs, obs)
-        finished = finished | trans.done
-    mask = valid.reshape(-1)
-    states = states.reshape(-1, env_cfg.obs_dim)[mask].cpu().numpy()
-    actions = actions.reshape(-1)[mask].cpu().numpy()
+    expert-data pipeline (PPOV1.1/generate_expert_data.py:14-61):
+    ``collect``'s pass, keeping each active episode's (obs, action) in
+    step-major order.  Returns numpy ``(states f32[M, obs_dim], actions
+    i64[M])`` and writes them to ``path`` in the ``expert_data.npz``
+    contract when given.  ``device``, ``generator`` and ``draws`` are as in
+    ``evaluate_policy``; ``rnn`` and ``oracle`` (privileged-teacher
+    demonstrations, ``evaluation.oracle.make_oracle``) as in ``collect``."""
+    c = collect(model, env_cfg, generator, num_episodes, bank, draws, device,
+                rnn, oracle)
+    mask = c.valid.reshape(-1)
+    states = c.states.reshape(-1, env_cfg.obs_dim)[mask].cpu().numpy()
+    actions = c.actions.reshape(-1)[mask].cpu().numpy()
     if path is not None:
         from tpu_plume_torch.data.expert import save_expert_data
 

@@ -1,4 +1,5 @@
 from tpu_plume_torch.models.actor_critic import ActorCritic
+from tpu_plume_torch.models.discriminator import Discriminator
 from tpu_plume_torch.models.lstm_zoo import (
     ConcentrationPredictor,
     ConcentrationThresholdPredictor,
@@ -14,6 +15,7 @@ __all__ = [
     "ActorCritic",
     "ConcentrationPredictor",
     "ConcentrationThresholdPredictor",
+    "Discriminator",
     "GaussianLSTM",
     "GaussianParamAndStopPredictor",
     "GaussianParamPredictor",

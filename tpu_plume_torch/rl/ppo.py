@@ -13,7 +13,8 @@ in the backward under ``cfg.remat`` (``torch.utils.checkpoint``), or, under
 ``cfg.fused_update``, the fused kernel's (``tpu_plume_torch.ops.ppo``): it
 takes every minibatch when the batch has no per-sample weights, the model
 is the standard feedforward ActorCritic and the minibatch has a row tile
-(the JAX gate, ``tpu_plume/rl/ppo.py:294-302``).  A batch on the card then
+(the JAX gate, ``tpu_plume/rl/ppo.py:294-302``); a batch with teacher
+labels (distilled PPO, ``oracle_actions``) takes autodiff.  A batch on the card then
 goes to the CUDA kernel, one on the CPU to the kernel's plain version.
 
 ``ppo_update_recurrent`` is the recurrent policy's update: the same losses
@@ -49,6 +50,9 @@ class PPOBatch:
     # Optional per-sample weights of the policy surrogate and entropy
     # (None = uniform); the value loss trains on every sample.
     weights: torch.Tensor | None = None
+    # Optional teacher labels of distilled PPO (i64[B]; None = no
+    # imitation term).
+    oracle_actions: torch.Tensor | None = None
 
     def map(self, fn) -> "PPOBatch":
         return PPOBatch(**{f.name: (None if getattr(self, f.name) is None
@@ -70,15 +74,20 @@ class RecurrentPPOBatch:
     old_values: torch.Tensor     # f32[T, N]
     resets: torch.Tensor         # bool[T, N]: zero the carry before step t
     h_init: tuple                # (c, h), each f32[N, H], at chunk start
+    # Optional teacher labels of distilled PPO (i64[T, N]; None = no
+    # imitation term).
+    oracle_actions: torch.Tensor | None = None
 
     def envs(self, index) -> "RecurrentPPOBatch":
         """The sequences of the envs ``index`` (a slice or an index
         tensor).  The split goes by field, not by shape: ``h_init`` is
         env-major and the others time-major, and a shape test would take
-        one for the other where T == N == H."""
+        one for the other where T == N == H; an absent ``oracle_actions``
+        stays None."""
         return RecurrentPPOBatch(
             h_init=tuple(x[index] for x in self.h_init),
-            **{f.name: getattr(self, f.name)[:, index]
+            **{f.name: (None if getattr(self, f.name) is None
+                        else getattr(self, f.name)[:, index])
                for f in dataclasses.fields(self) if f.name != "h_init"})
 
 
@@ -95,6 +104,26 @@ def ppo_loss(model: torch.nn.Module, batch: PPOBatch, cfg: PPOConfig):
     """(total loss, metrics dict of 0-d tensors) for one minibatch."""
     logits, values = model(batch.obs)
     return _clipped_loss(logits, values, batch, cfg, batch.weights)
+
+
+def _maybe_distill(total, metrics, oracle_actions, log_probs_all, obs,
+                   cfg: PPOConfig):
+    """Distilled PPO's imitation term (JAX's ``_maybe_distill``): the
+    cross-entropy of the policy against the teacher's action, added at
+    ``cfg.distill_coef``; with ``distill_conc_gate`` > 0 only states whose
+    normalized concentration ``obs[..., 2]`` exceeds the gate count.  A
+    no-op without labels."""
+    if oracle_actions is None:
+        return total, metrics
+    ce = -log_probs_all.gather(-1, oracle_actions[..., None]).squeeze(-1)
+    if cfg.distill_conc_gate > 0.0:
+        w = (obs[..., 2] > cfg.distill_conc_gate).to(ce.dtype)
+        distill = (ce * w).sum() / torch.clamp(w.sum(), min=1.0)
+    else:
+        distill = ce.mean()
+    total = total + cfg.distill_coef * distill
+    return total, {**metrics, "loss/total": total.detach(),
+                   "loss/distill": distill.detach()}
 
 
 def _clipped_loss(logits: torch.Tensor, values: torch.Tensor, batch,
@@ -146,7 +175,8 @@ def _clipped_loss(logits: torch.Tensor, values: torch.Tensor, batch,
             "loss/clip_frac": ((ratio - 1.0).abs() > cfg.clip_epsilon)
             .to(torch.float32).mean(),
         }
-    return total, metrics
+    return _maybe_distill(total, metrics, batch.oracle_actions,
+                          log_probs_all, batch.obs, cfg)
 
 
 def ppo_loss_recurrent(model: torch.nn.Module, batch: RecurrentPPOBatch,
@@ -213,6 +243,7 @@ def ppo_update(model: torch.nn.Module, optimizer, batch: PPOBatch,
         raise ValueError(f"{len(shuffles)} shuffles for {cfg.epochs} epochs")
 
     fused = (cfg.fused_update and batch.weights is None
+             and batch.oracle_actions is None
              and fused_ops.supports(model) and fused_ops.pick_tile(mb) > 0)
     params = dict(model.named_parameters()) if fused else None
 

@@ -96,6 +96,9 @@ class RolloutStep:
     # sampled one (the PPO update masks these steps out of the policy
     # surrogate); None unless the rollout runs a guide.
     override: torch.Tensor | None = None
+    # i64[N]: the teacher's action on the pre-step state (distilled PPO);
+    # None unless the rollout runs an oracle.
+    oracle_action: torch.Tensor | None = None
 
 
 @dataclass
@@ -183,7 +186,7 @@ def init_rollout(cfg: EnvConfig, num_envs: int, generator: torch.Generator,
 
 
 def empty_trajectory(length: int, num_envs: int, cfg: EnvConfig, device,
-                     guided: bool = False):
+                     guided: bool = False, labelled: bool = False):
     """The buffers of a chunk of ``length`` steps over ``num_envs`` envs:
     ``(traj, obs_rows)``, ``traj`` a ``RolloutStep`` of [T, N, ...] tensors
     and ``obs_rows`` f32[T + 1, N, obs_dim], whose row ``t`` is the obs the
@@ -191,7 +194,7 @@ def empty_trajectory(length: int, num_envs: int, cfg: EnvConfig, device,
     obs.  ``traj.obs`` is ``obs_rows[:T]``; the record's ``done`` is
     ``traj.done`` and its ``final_x`` / ``final_y`` are views of
     ``traj.pos``, since they hold the same values.  ``guided`` adds the
-    ``override`` rows."""
+    ``override`` rows, ``labelled`` the ``oracle_action`` rows."""
     t, n = length, num_envs
 
     def f32(*shape):
@@ -216,7 +219,9 @@ def empty_trajectory(length: int, num_envs: int, cfg: EnvConfig, device,
         log_prob=f32(), value=f32(), reward=f32(), done=done, pos=pos,
         conc=f32(), episode=episode,
         override=(torch.empty(t, n, dtype=torch.bool, device=device)
-                  if guided else None))
+                  if guided else None),
+        oracle_action=(torch.empty(t, n, dtype=torch.int64, device=device)
+                       if labelled else None))
     return traj, obs_rows
 
 
@@ -309,7 +314,8 @@ def env_step_plain(logits: torch.Tensor, value: torch.Tensor,
 @torch.no_grad()
 def rollout_chunk(model: torch.nn.Module, carry: RolloutCarry, cfg: EnvConfig,
                   length: int, greedy: bool = False,
-                  draws: ChunkDraws | None = None, bank=None, guide=None):
+                  draws: ChunkDraws | None = None, bank=None, guide=None,
+                  oracle=None):
     """Run ``length`` policy+env steps for all envs.
 
     Returns ``(carry', traj: RolloutStep[T, N, ...], bootstrap_value f32[N])``
@@ -337,7 +343,13 @@ def rollout_chunk(model: torch.nn.Module, carry: RolloutCarry, cfg: EnvConfig,
     (``exec_action`` of the env step; on the card still one env-step
     launch).  ``traj.action`` and ``traj.log_prob`` stay the policy's,
     ``traj.override`` marks the steps the guide changed, and the guide's
-    state returns to its initial state where the step ended an episode."""
+    state returns to its initial state where the step ended an episode.
+
+    ``oracle`` (``evaluation.oracle.make_oracle``, ``fn(env_state) ->
+    i64[N]``) labels every pre-step state into ``traj.oracle_action``, the
+    teacher of distilled PPO; it runs before the env step, so on the card
+    it reads the state before the env-step kernel updates it in place (stream
+    order, no host read)."""
     num_envs = carry.obs.shape[0]
     if draws is None:
         draws = draw_chunk(carry.generator, cfg, length, num_envs, greedy)
@@ -345,7 +357,8 @@ def rollout_chunk(model: torch.nn.Module, carry: RolloutCarry, cfg: EnvConfig,
         draws = dataclasses.replace(draws, gumbel=None)
     traj, obs_rows = empty_trajectory(length, num_envs, cfg,
                                       carry.obs.device,
-                                      guided=guide is not None)
+                                      guided=guide is not None,
+                                      labelled=oracle is not None)
     obs_rows[0] = carry.obs
     inputs = obs_rows.unbind(0)
     hidden = carry.hidden
@@ -383,6 +396,10 @@ def rollout_chunk(model: torch.nn.Module, carry: RolloutCarry, cfg: EnvConfig,
                                             state.conc, action)
         return executed
 
+    def label(t, state):
+        if oracle is not None:
+            traj.oracle_action[t] = oracle(state)
+
     def reset_guide(t):
         nonlocal guide_state
         if guide is not None:
@@ -395,6 +412,7 @@ def rollout_chunk(model: torch.nn.Module, carry: RolloutCarry, cfg: EnvConfig,
                                    cfg)
         for t in range(length):
             logits, value = policy(t)
+            label(t, env_state)
             stepper(t, logits, value, guided(t, env_state, logits))
             reset_hidden(t)
             reset_guide(t)
@@ -402,6 +420,7 @@ def rollout_chunk(model: torch.nn.Module, carry: RolloutCarry, cfg: EnvConfig,
         env_state, acc = carry.env_state, carry.accum
         for t in range(length):
             logits, value = policy(t)
+            label(t, env_state)
             executed = guided(t, env_state, logits)
             env_state, _, acc = env_step_plain(
                 logits, value, draws, t, env_state, acc, traj, obs_rows, cfg,

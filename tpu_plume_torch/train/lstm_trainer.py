@@ -87,14 +87,14 @@ class ReduceLROnPlateau:
 
 class ClippedAdamW:
     """JAX's ``_make_optimizer``: ``clip_by_global_norm(clip)`` (gradients
-    scaled by ``clip / norm`` when the norm reaches ``clip``), optax's
-    ``scale_by_adam`` (b1 .9, b2 .999, eps 1e-8), then ``p -= lr * (u + wd *
-    p)``, over the trainable parameters, in foreach launches with no host
-    read."""
+    scaled by ``clip / norm`` when the norm reaches ``clip``; ``clip=None``
+    skips it, ``optax.adamw`` alone), optax's ``scale_by_adam`` (b1 .9, b2
+    .999, eps 1e-8), then ``p -= lr * (u + wd * p)``, over the trainable
+    parameters, in foreach launches with no host read."""
 
     B1, B2, EPS = 0.9, 0.999, 1e-8
 
-    def __init__(self, params, weight_decay: float, clip: float):
+    def __init__(self, params, weight_decay: float, clip: float | None):
         self.params = [p for p in params if p.requires_grad]
         self.weight_decay, self.clip = weight_decay, clip
         self.mu = [torch.zeros_like(p) for p in self.params]
@@ -107,10 +107,15 @@ class ClippedAdamW:
 
     @torch.no_grad()
     def step(self, lr: float):
-        grads = [p.grad for p in self.params]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        torch._foreach_mul_(grads, torch.where(norm < self.clip, 1.0,
-                                               self.clip / norm))
+        # a parameter the loss does not reach steps on a zero gradient, as
+        # in optax (its weight decay still applies)
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                 for p in self.params]
+        if self.clip is not None:
+            norm = torch.linalg.vector_norm(torch.stack(
+                torch._foreach_norm(grads)))
+            torch._foreach_mul_(grads, torch.where(norm < self.clip, 1.0,
+                                                   self.clip / norm))
         self.count += 1
         torch._foreach_lerp_(self.mu, grads, 1.0 - self.B1)
         torch._foreach_mul_(self.nu, self.B2)

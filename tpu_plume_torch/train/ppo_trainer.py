@@ -152,6 +152,19 @@ def _sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
+def push_curriculum(loop: LoopCarry) -> RolloutCarry:
+    """The loop's rollout carry with the curriculum's current radius and
+    exploration bonus in every env."""
+    n, device = loop.rollout.obs.shape[0], loop.rollout.obs.device
+    env_state = loop.rollout.env_state.replace(
+        radius=torch.full((n,), loop.curriculum.radius, dtype=torch.float32,
+                          device=device),
+        explore_bonus=torch.full((n,), loop.curriculum.explore_bonus,
+                                 dtype=torch.float32, device=device),
+    )
+    return dataclasses.replace(loop.rollout, env_state=env_state)
+
+
 def build_train_step(cfg: TrainConfig, bank=None, time_phases: bool = False,
                      guide=None):
     """One training iteration ``train_step(loop, draws=None, shuffles=None)
@@ -176,7 +189,13 @@ def build_train_step(cfg: TrainConfig, bank=None, time_phases: bool = False,
     ``init_loop(guide=)``): the envs execute its actions, and the update
     masks the overridden steps out of the policy surrogate and entropy
     (``PPOBatch.weights = 1 - override``; a weighted batch takes autodiff
-    under ``fused_update``, as in JAX)."""
+    under ``fused_update``, as in JAX).
+
+    ``cfg.ppo.distill_oracle`` (distilled PPO) names a scripted teacher
+    (``evaluation.oracle.make_oracle``) that labels every pre-step state of
+    the rollout (``rollout_chunk(oracle=)``); the update adds the imitation
+    cross-entropy (``rl.ppo._maybe_distill``), and a labelled batch takes
+    autodiff under ``fused_update``, as in JAX."""
     check_env(cfg.env)
     check_ppo(cfg.ppo)
     if cfg.env.plume_model == "gridded" and bank is None:
@@ -195,6 +214,11 @@ def build_train_step(cfg: TrainConfig, bank=None, time_phases: bool = False,
     update_dtypes = None
     if ppo_cfg.bf16_update and not ppo_cfg.bf16_compute:
         update_dtypes = policy_dtypes(cfg, torch.bfloat16)
+    oracle = None
+    if ppo_cfg.distill_oracle:
+        from tpu_plume_torch.evaluation.oracle import make_oracle
+
+        oracle = make_oracle(ppo_cfg.distill_oracle, env_cfg)
 
     def train_step(loop: LoopCarry, draws: ChunkDraws | None = None,
                    shuffles=None):
@@ -206,21 +230,13 @@ def build_train_step(cfg: TrainConfig, bank=None, time_phases: bool = False,
                 _sync(device)
                 marks.append(time.perf_counter())
 
-        # Push the current curriculum values into every env.
-        n = loop.rollout.obs.shape[0]
-        env_state = loop.rollout.env_state.replace(
-            radius=torch.full((n,), loop.curriculum.radius,
-                              dtype=torch.float32, device=device),
-            explore_bonus=torch.full((n,), loop.curriculum.explore_bonus,
-                                     dtype=torch.float32, device=device),
-        )
-        carry = dataclasses.replace(loop.rollout, env_state=env_state)
+        carry = push_curriculum(loop)
         h_init = carry.hidden
 
         mark()
         carry, traj, bootstrap = rollout_chunk(loop.model, carry, env_cfg, T,
                                                draws=draws, bank=bank,
-                                               guide=guide)
+                                               guide=guide, oracle=oracle)
         mark()
         advantages, returns = compute_gae(
             traj.reward, traj.value, traj.done, bootstrap,
@@ -240,7 +256,7 @@ def build_train_step(cfg: TrainConfig, bank=None, time_phases: bool = False,
                 old_values=traj.value,
                 resets=torch.cat([torch.zeros_like(traj.done[:1]),
                                   traj.done[:-1]]),
-                h_init=h_init)
+                h_init=h_init, oracle_actions=traj.oracle_action)
             loss_metrics = ppo_update_recurrent(
                 update_model, loop.optimizer, batch, ppo_cfg,
                 generator=loop.generator, shuffles=shuffles)
@@ -263,6 +279,8 @@ def build_train_step(cfg: TrainConfig, bank=None, time_phases: bool = False,
                 old_values=flat(traj.value),
                 weights=(None if guide is None else
                          1.0 - flat(traj.override).to(torch.float32)),
+                oracle_actions=(None if oracle is None
+                                else flat(traj.oracle_action)),
             )
             loss_metrics = ppo_update(update_model, loop.optimizer, batch,
                                       ppo_cfg, generator=loop.generator,
@@ -434,6 +452,26 @@ class EpisodeCapture:
     def close(self) -> None:
         if self.writer is not None:
             self.writer.close()
+
+
+def cpu_state_dict(model: torch.nn.Module) -> dict:
+    return {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+
+def curriculum_dict(curriculum: CurriculumState) -> dict:
+    return {k: v.item() if isinstance(v, np.generic) else v
+            for k, v in dataclasses.asdict(curriculum).items()}
+
+
+def save_checkpoint(out_dir: str, cfg: TrainConfig, state_dict: dict,
+                    **extra) -> None:
+    """``out_dir/checkpoint.pt``: the policy's state_dict under ``model``,
+    ``extra``'s entries, and the config under ``config``, whose ``ppo``
+    the CLI's ``--ckpt`` checks against the policy it builds."""
+    os.makedirs(out_dir, exist_ok=True)
+    torch.save({"model": state_dict, **extra,
+                "config": dataclasses.asdict(cfg)},
+               os.path.join(out_dir, "checkpoint.pt"))
 
 
 @dataclasses.dataclass
@@ -617,17 +655,13 @@ def train_ppo(
         _sync(device)
         total_dt = time.perf_counter() - (t_steady or time.perf_counter())
 
-    state_dict = {k: v.detach().cpu() for k, v in
-                  loop.model.state_dict().items()}
-    torch.save({
-        "model": state_dict,
-        "optimizer": loop.optimizer.state_dict(),
-        "curriculum": {k: v.item() if isinstance(v, np.generic) else v
-                       for k, v in dataclasses.asdict(loop.curriculum).items()},
-        "counters": {"episodes": episodes, "successes": successes,
-                     "env_steps": env_steps, "iteration": iteration},
-        "config": dataclasses.asdict(cfg),
-    }, os.path.join(out_dir, "checkpoint.pt"))
+    state_dict = cpu_state_dict(loop.model)
+    save_checkpoint(
+        out_dir, cfg, state_dict,
+        optimizer=loop.optimizer.state_dict(),
+        curriculum=curriculum_dict(loop.curriculum),
+        counters={"episodes": episodes, "successes": successes,
+                  "env_steps": env_steps, "iteration": iteration})
     if cfg.ppo.arch == "mlp" and len(cfg.ppo.hidden_sizes) == 2:
         # The .pth layout is the reference's 2-layer PPOActorCritic.
         model_dir = os.path.join(out_dir, "model")
