@@ -66,8 +66,9 @@ outside a checkout of the repository.  Phases, each of which must pass:
    counts set to 0 just before ``init_loop`` and read just after the last
    iteration (``init_loop``, one warm-up and the timed iterations, each
    stretch's launches checked), then one rollout chunk and one iteration
-   under the profiler (the chunk's launches per env step and the
-   iteration's launches printed): the ppo_v2_0 train step (one env-step
+   under the profiler, recording the device's activity alone (the chunk's
+   launches per env step and the iteration's launches printed): the
+   ppo_v2_0 train step (one env-step
    launch per env step) with
    the 6->256->128 network in three variants (f32 autodiff,
    ``fused_update``, ``bf16_compute``); wrf_les (the anisotropic plume in
@@ -78,16 +79,18 @@ outside a checkout of the repository.  Phases, each of which must pass:
    ``--synth-bank static`` read between cells (one bilinear launch a
    sample); ppo_v2_0 with the recurrent policy (``--arch lstm``, 6 -> 128
    -> LayerNorm -> LSTM 128 -> {5, 1}, f32, the BPTT update over 512-env
-   sequence minibatches; one env-step launch per env step), its iteration
-   profiled on the device alone; then one minibatch step of its update,
-   forward and backward, through ``sequence`` and through a chain of
+   sequence minibatches; one env-step launch per env step), its rollout
+   chunk profiled and its iteration not (the processing of its 135 k
+   launches took 52.7 s on an NVIDIA H100 80GB HBM3, 700.00 W); then one
+   minibatch step of its update, forward and backward, through
+   ``sequence`` and through a chain of
    ``step`` calls (the same loss and gradients, each one's ms and
    launches); ppo_v2_0 and wrf_les with the training guide (``train
    --train-guide fit --min-radius 50 --terminal-gate 40``: the fit guide in
    the rollout, still one env-step launch per env step, the overridden
    steps masked out of the update; 3 and 1 timed iterations), their share
-   of overridden steps, and a 16-step chunk profiled on the device alone
-   for the launches per env step;
+   of overridden steps, and a GUIDED_PROFILE_STEPS-step chunk profiled on
+   the device alone for the launches per env step;
 7. the evaluation harness at the reference protocol's width, 1000
    episodes x 1000 steps, each episode reset once and frozen once it ends:
    eval A, ppo_v2_0 with the heuristic stop and the params of the f32 main
@@ -130,14 +133,15 @@ outside a checkout of the repository.  Phases, each of which must pass:
    (the same init and batches, losses within rtol 1e-4); one epoch of
    each profiled (ms and launches per minibatch step); each trained at
    the JAX package's epochs (150 and 100, cut so that each phase stays
-   within 12 s, the cut printed); then eval A with the trained policy and
-   ``--stop threshold`` and ``--stop peakstop`` gates of those nets (the
-   CLI's ``lstm_gate``), each run as phase 7 runs an eval (exact
-   plume-sample launches, wall, launches per eval step, busy share) and on
-   the card against the CPU (at most one episode in 64 apart); then the
-   CLI: ``train-lstm --variant v12`` on the captured ``data.csv`` and
-   ``eval --stop threshold`` / ``--stop peakstop --lstm-ckpt`` on the
-   checkpoints the trainers wrote, each checked for its JSON line;
+   within TRAINER_BUDGET_S, the cut printed); then eval A with the
+   trained policy and ``--stop threshold`` and ``--stop peakstop`` gates
+   of those nets (the CLI's ``lstm_gate``), each run as phase 7 runs an
+   eval (exact plume-sample launches, wall, launches per eval step, busy
+   share) and on the card against the CPU (at most one episode in 64
+   apart); then the CLI: ``train-lstm --variant v12`` on the captured
+   ``data.csv`` and ``eval --stop threshold`` / ``--stop peakstop
+   --lstm-ckpt`` on the checkpoints the trainers wrote, each checked for
+   its JSON line;
 11. ``fit_aniso`` alone on the card against the CPU over 1000 of
    wrf_les's guide buffers [1000, 128] (noisy transects, ridge segments
    and sparse reads: n_eff equal, at most one buffer in 64 whose gate
@@ -193,7 +197,7 @@ outside a checkout of the repository.  Phases, each of which must pass:
    128 env-step launches per iteration and 40 of each fused kernel under
    ``fused_update``) and one small GAIL iteration on the card against the
    CPU (phase 5's check); DAgger against the phase oracle, 512 episodes x
-   1000 steps, 3 of JAX's 8 rounds (each collection one plume
+   1000 steps, DAGGER_ROUNDS of JAX's 8 rounds (each collection one plume
    sample per step plus the reset's, and its fit, timed), one
    student-driven round's collection on the card against the CPU (at most
    one episode in 64 whose labels or ``valid`` rows part), and sequence
@@ -201,21 +205,36 @@ outside a checkout of the repository.  Phases, each of which must pass:
    steps and one epoch a round; then the CLI: ``train-bc`` at JAX's
    defaults and ``eval --ckpt`` of its checkpoint, ``train-dagger
    --rounds 2``, ``train-gail --closed-loop --iterations 2`` and ``train
-   --distill phase --iterations 1`` with exact launch counts.
+   --distill phase --iterations 1`` with exact launch counts;
+14. flux inversion (slice 11), each study 64 episodes x 500 steps with
+   estimated positions and 3 sources, through ``flux_inversion_study``:
+   the raster protocol (RESULTS.md's round 5), the random survey, the
+   two-pass survey (100 of the steps for pass 2), the anisotropic plume
+   (wrf_les) and analytic 3-D flight; then the learning check's policy's
+   survey through ``cli flux --ckpt``.  Each launches the plume sample
+   exactly steps + 1 times and no other counted kernel; its wall ms, its
+   first EVAL_PROFILE_STEPS steps profiled (launches per survey step,
+   busy share); and on the card against the CPU from the same draws
+   (``flux_against_cpu``: at most one flight in 64 apart beyond the env
+   tolerance; estimates
+   within FLUX_POS_LIMIT px and FLUX_Q_RTOL, or replayed stage by stage;
+   each decision apart logged with its margins).  The raster protocol
+   must reach within_20pct >= 0.75 and observed_frac >= 0.95.
 
 ``python3 chip_smoke.py --only guide`` runs, after the build, the guide's
 phases alone (the executed-action mode, the guided training paths, the
 learning check for a trained policy, the fit check, the guided evals of
 the trained and the untrained ppo_v2_0 and wrf_les params, phase 12, the
 guided CLI); ``--only stop-lstm`` runs phases 9 and 10 alone, and
-``--only eval-guides`` the learning check and phase 12, and ``--only
-imitation`` phase 13 on an expert file of its own.  Each prints its JSON
+``--only eval-guides`` the learning check and phase 12, ``--only
+imitation`` phase 13 on an expert file of its own, and ``--only flux``
+the learning check and phase 14.  Each prints its JSON
 record, each phase's seconds and the card's name and power limit.
 
 Then it prints a JSON line of the eval phases, one of the recurrent main
 path and its replay, one of the capture and the stop LSTMs
 (``stop_lstm``), one of phase 12 (``eval_guides``), one of phase 13
-(``imitation``), one of the guide's
+(``imitation``), one of phase 14 (``flux``), one of the guide's
 phases (``guide``), each phase's seconds, the ``kernels`` JSON line (each
 kernel's launches in
 evals A and B under ``eval_launches``, the recurrent path's under
@@ -225,7 +244,8 @@ training's under ``guided``, the executed-action mode's parity and times
 under ``exec_action``, the guided evals' under ``guided_eval_launches``,
 and in every entry phase 12's under ``bank_guided_eval_launches``,
 ``learned_guided_eval_launches`` and ``oracle_eval_launches``; phase
-13's under ``imitation``), the
+13's under ``imitation``; phase 14's plume-sample launches under
+``flux_launches``), the
 card's
 name and power limit, and, last, the result line ``{"ok": true,
 "device": {...}}``.  h5py is never imported here (``find_spec`` tells
@@ -341,7 +361,7 @@ LEARN_EPISODE_CAP = 10**6
 # The stop-LSTM trainers: the JAX package's epochs, the wall each phase may
 # take before its epochs are cut, and the epochs of the card-vs-CPU runs.
 THRESHOLD_EPOCHS, PEAK_STOP_EPOCHS = 150, 100
-TRAINER_BUDGET_S = 12.0
+TRAINER_BUDGET_S = 6.0
 EPOCH_MARGIN = 1.5
 TRAINER_CHECK_EPOCHS = 3
 TRAINER_RTOL = 1e-4
@@ -1528,7 +1548,7 @@ def small_gail_steps(ttrain, cfg, cpu, gpu):
 
 
 def run_main_path(ttrain, rollout_chunk, k, label, cfg, bank=None, iters=3,
-                  profile=True, profile_cpu=True, guide=None,
+                  profile=True, profile_cpu=False, guide=None,
                   profile_steps=None):
     """The full-width train step of ``cfg`` (over ``bank``, on the card),
     driven as ``train_ppo`` drives it, with every launch count set to 0
@@ -2293,13 +2313,13 @@ EXEC_SHARE = 1.0 / 3.0
 # device time, and the CPU's episodes in the card-vs-CPU checks (the CPU
 # runs the first episodes of the card's draws; it fits every episode at
 # every step).
-GUIDE_PROFILE_STEPS = 32
+GUIDE_PROFILE_STEPS = 16
 GUIDE_CPU_EPISODES = {"ppo_v2_0": 256, "wrf_les": 8}
 # The guided training paths: timed iterations, and the steps of the
 # rollout chunk profiled for its launches per env step (the guide's
 # launches are the same at every step).
 GUIDED_ITERS = {"ppo_v2_0": 3, "wrf_les": 1}
-GUIDED_PROFILE_STEPS = 16
+GUIDED_PROFILE_STEPS = 8
 # The anisotropic fit alone on the card against the CPU: one buffer per
 # eval episode, and the tolerances of the port's flights against JAX's
 # (tests/test_torch_aniso_fit.py): where both validate, the estimate in
@@ -3392,7 +3412,7 @@ def expert_file(cli_main, expert_dir) -> dict:
 
 
 IMIT_ITERS = 2            # timed iterations of the distill and GAIL paths
-DAGGER_ROUNDS = 3         # of JAX's 8 default rounds
+DAGGER_ROUNDS = 2         # of JAX's 8 default rounds
 DAGGER_EPISODES = 512     # JAX's default episodes a round
 # sequence DAgger, cut: BPTT over whole episodes is one launch chain a step
 SEQ_DAGGER = dict(rounds=2, episodes_per_round=64, epochs_per_round=1)
@@ -3684,9 +3704,9 @@ def imitation(m, v20, expert_path) -> dict:
     and with ``fused_update``, which takes autodiff), its labels on the
     card against the CPU; closed-loop GAIL with the fused update off and
     on, a small GAIL iteration against the CPU; BC and DAgger on the
-    phase oracle's expert file ``expert_path``, 3 DAgger rounds and one
-    round's collection against the CPU, 2 rounds of sequence DAgger; the
-    imitation CLI."""
+    phase oracle's expert file ``expert_path``, DAGGER_ROUNDS DAgger
+    rounds and one round's collection against the CPU, 2 rounds of
+    sequence DAgger; the imitation CLI."""
     import torch
 
     from tpu_plume_torch.train import bc, dagger
@@ -3765,8 +3785,9 @@ def run_only(only, m, v20, wl, phase_done) -> None:
     and the untrained wrf_les params, the trained ones' first episodes
     also on the CPU, and the guided CLI); ``--only stop-lstm``: phases 9
     and 10; ``--only eval-guides``: the learning check and phase 12;
-    ``--only imitation``: phase 13 on an expert file of its own.  Each
-    prints its JSON record."""
+    ``--only imitation``: phase 13 on an expert file of its own; ``--only
+    flux``: the learning check and phase 14.  Each prints its JSON
+    record."""
     if only == "stop-lstm":
         _, stop_lstm, _ = stop_lstm_phases(m.ttrain, m.ev, m.k, m.cli_main,
                                            v20, phase_done)
@@ -3781,6 +3802,15 @@ def run_only(only, m, v20, wl, phase_done) -> None:
                               m.cli_main, v20, trained, tmp)
         phase_done("eval guides")
         log(json.dumps({"eval_guides": out}, default=str))
+        return
+    if only == "flux":
+        with tempfile.TemporaryDirectory() as tmp:
+            _, _, trained = learning_check(m.ttrain, m.ev, m.k, v20,
+                                           os.path.join(tmp, "learn"))
+        phase_done("learning check")
+        out = flux_phase(m, trained)
+        phase_done("flux")
+        log(json.dumps({"flux": out}, default=str))
         return
     if only == "imitation":
         with tempfile.TemporaryDirectory() as tmp:
@@ -3828,6 +3858,410 @@ def run_only(only, m, v20, wl, phase_done) -> None:
     log(json.dumps({"guide": out}, default=str))
 
 
+FLUX_EPISODES, FLUX_STEPS = 64, 500   # RESULTS.md's round-5 protocol
+FLUX_REFINE_STEPS = 100
+FLUX_POS_LIMIT, FLUX_Q_RTOL = 0.05, 1e-3      # px; an episode's estimates
+FLUX_STAGE_RTOL = 1e-2        # a replayed stage's strengths
+# A replayed EM or log-Gaussian fit parts from the CPU's beyond
+# FLUX_POS_LIMIT px (FLUX_STAGE_RTOL in its strengths) only within
+# SENSITIVITY_FACTOR times the fit's own sensitivity on the CPU to an fp32
+# ulp of noise on the concentrations (a near-flat fit, beta3 ~ 0, amplifies
+# rounding: 1.38 px on the anisotropic plume on an NVIDIA H100 80GB HBM3,
+# 700.00 W), or where its ``ok`` gate flipped within rounding of a bound:
+# |beta3| or |mu_rel| - 2 within these.
+FLUX_BETA3_MARGIN, FLUX_MU_REL_MARGIN = 1e-3, 1e-2
+FLUX_GAIN_RTOL = 1e-5         # an LM take flip within this x the data's SSE
+# The phase's studies: label -> (preset, env overrides, survey, refine
+# steps); every one with estimated positions.  The policy's survey runs
+# through ``cli flux --ckpt`` (``flux_phase``).
+FLUX_STUDIES = {
+    "raster protocol": ("ppo_v2_0", {}, "raster", 0),
+    "random": ("ppo_v2_0", {}, "random", 0),
+    "two-pass": ("ppo_v2_0", {}, "raster", FLUX_REFINE_STEPS),
+    "anisotropic": ("wrf_les", {}, "raster", 0),
+    "3-D": ("ppo_v2_0", {"env_3d": True}, "random", 0),
+}
+
+
+def flux_env(get_preset, preset, overrides):
+    return dataclasses.replace(get_preset(preset).env, num_sources=3,
+                               **overrides)
+
+
+def flux_oracle(cfg, survey, refine):
+    """``cli flux``'s raster surveyor (its bands widened for a two-pass
+    survey), or None."""
+    from tpu_plume_torch.cli.main import raster_band_scale
+    from tpu_plume_torch.evaluation.oracle import make_oracle
+
+    if survey != "raster":
+        return None
+    return make_oracle("raster", cfg, raster_band_scale=raster_band_scale(
+        cfg, FLUX_STEPS, refine))
+
+
+def flux_parts(ev, flux, cfg, draws, device, policy, oracle, refine):
+    """The study's survey and scores on ``device`` from ``draws``, with the
+    estimator's decisions recorded."""
+    _, policy, _, draws, state, obs = ev._start(
+        policy, cfg, device, None, draws, FLUX_EPISODES, FLUX_STEPS, False,
+        None, None)
+    survey = flux.fly_survey(cfg, state, obs, draws, FLUX_STEPS,
+                             policy=policy, oracle=oracle,
+                             refine_steps=refine)
+    record = {}
+    scores = flux.score_survey(survey, cfg, True, record=record)
+    return survey, [x.cpu() for x in scores], {
+        key: ([x.cpu() for x in v] if isinstance(v, list) else v.cpu())
+        for key, v in record.items()}
+
+
+def flux_decisions_apart(ep, got, want) -> list:
+    """The decisions of episode ``ep`` that part between two records, each
+    with its margins on both sides (the winning sample's lead, beta3 and
+    |mu_rel| - 2 of each fit, the residual peak over its bound, the SSE
+    gain of each LM step, the sectors hit)."""
+    out = []
+    pairs = (("pick", "pick_gap"), ("reseat", "reseat_margin"),
+             ("take", "sse_gain"), ("good", "hits"))
+    for key, margin in pairs:
+        if key in got and not bool((got[key][ep] == want[key][ep]).all()):
+            out.append(dict(decision=key, card=got[key][ep].tolist(),
+                            cpu=want[key][ep].tolist(),
+                            margin_card=got[margin][ep].tolist(),
+                            margin_cpu=want[margin][ep].tolist()))
+    for i, (a, b) in enumerate(zip(got.get("ok", []), want.get("ok", []))):
+        if not bool((a[ep] == b[ep]).all()):
+            out.append(dict(decision=f"ok[{i}]", card=a[ep].tolist(),
+                            cpu=b[ep].tolist(),
+                            beta3_card=got["beta3"][i][ep].tolist(),
+                            beta3_cpu=want["beta3"][i][ep].tolist(),
+                            mu_rel_minus_2_card=(got["mu_rel_norm"][i][ep]
+                                                 - 2).tolist(),
+                            mu_rel_minus_2_cpu=(want["mu_rel_norm"][i][ep]
+                                                - 2).tolist()))
+    return out
+
+
+def flux_replay(flux, points, concs, cfg, seeds=None) -> dict:
+    """Episode ``points`` f32[T, 2] / ``concs`` f32[T] replayed stage by
+    stage, each stage on the card given the CPU's inputs to it: the greedy
+    picks equal, each fit's EM candidates (from the same candidates) and
+    its fit (from the CPU's EM candidates) within FLUX_POS_LIMIT px and
+    FLUX_STAGE_RTOL or SENSITIVITY_FACTOR times the fit's own sensitivity
+    to an ulp of noise, but where its ``ok`` gate flipped within rounding
+    (FLUX_BETA3_MARGIN, FLUX_MU_REL_MARGIN; logged), each
+    LM step within FLUX_POS_LIMIT px unless its take decision flipped
+    within FLUX_GAIN_RTOL of the data's SSE, the coverage gate equal.
+    Returns each stage's largest position gap."""
+    import torch
+
+    p, c = points[None].cpu(), concs[None].cpu()
+    s = cfg.num_sources
+    gaps = {}
+
+    def both(fn, *args):
+        want = fn(*args)
+        got = fn(*(a.cuda() if torch.is_tensor(a) else a for a in args))
+        return got, want
+
+    def refine(pp, cc, kk, em_iters):
+        rec = {}
+        m, q = flux.refine_positions(pp, cc, kk, cfg, em_iters=em_iters,
+                                     return_strengths=True, record=rec)
+        return m.cpu(), q.cpu(), {k: v[0][0].cpu() for k, v in rec.items()}
+
+    def limits(peaks, em_iters, want):
+        """Per candidate, SENSITIVITY_FACTOR x the CPU fit's largest change
+        under SENSITIVITY_DRAWS ulps of noise on the concentrations: of
+        the EM's candidate, the position and the strength (relative)."""
+        g = torch.Generator().manual_seed(0)
+        em = pos = qr = torch.zeros(s)
+        for _ in range(SENSITIVITY_DRAWS):
+            noise = 1 + FP32_EPS * (2 * torch.randint(0, 2, c.shape,
+                                                      generator=g) - 1)
+            m, q, rec = refine(p, c * noise, peaks, em_iters)
+            em = torch.maximum(em, (rec["em_peaks"] - want[2]["em_peaks"]
+                                    ).abs().amax(-1))
+            pos = torch.maximum(pos, (m - want[0])[0].abs().amax(-1))
+            qr = torch.maximum(qr, ((q - want[1]).abs()
+                                    / want[1].abs().clamp(min=1e-6))[0])
+        return tuple(torch.clamp(SENSITIVITY_FACTOR * x, min=floor)
+                     for floor, x in ((FLUX_POS_LIMIT, em),
+                                      (FLUX_POS_LIMIT, pos),
+                                      (FLUX_STAGE_RTOL, qr)))
+
+    def fit(name, peaks, em_iters):
+        """The EM from the same candidates, then the fit on the card from
+        the CPU's EM candidates, each against the CPU's."""
+        want = refine(p, c, peaks, em_iters)
+        em_limit, pos_limit, q_limit = limits(peaks, em_iters, want)
+        got_em = refine(p.cuda(), c.cuda(), peaks.cuda(), em_iters)[2][
+            "em_peaks"]
+        got = refine(p.cuda(), c.cuda(), want[2]["em_peaks"][None].cuda(), 0)
+        em_gap = (got_em - want[2]["em_peaks"]).abs().amax(-1)
+        gaps[name + " em"] = float(em_gap.max())
+        gaps[name] = float((got[0] - want[0]).abs().max())
+        assert bool((em_gap <= em_limit).all()), (name, em_gap, em_limit)
+        near = ((got[2]["beta3"].abs() <= FLUX_BETA3_MARGIN)
+                | ((got[2]["mu_rel_norm"] - 2).abs() <= FLUX_MU_REL_MARGIN))
+        flipped = (got[2]["ok"] != want[2]["ok"]) & near
+        keys = ("ok", "beta3", "mu_rel_norm")
+        if bool(flipped.any()) or gaps[name] > FLUX_POS_LIMIT:
+            log(f"flux replay {name}: position gap {gaps[name]:.3e} px "
+                f"(limits {pos_limit.tolist()}), ok flipped within rounding "
+                f"at {flipped.nonzero().flatten().tolist()}; card "
+                f"{ {k: got[2][k].tolist() for k in keys} }, CPU "
+                f"{ {k: want[2][k].tolist() for k in keys} }")
+        keep = ~flipped
+        pos_gap = (got[0][0] - want[0][0]).abs().amax(-1)[keep]
+        q_gap = ((got[1][0] - want[1][0]).abs()
+                 / want[1][0].abs().clamp(min=1e-6))[keep]
+        assert bool((pos_gap <= pos_limit[keep]).all()), (name, pos_gap,
+                                                           pos_limit)
+        q_abs = (got[1][0] - want[1][0]).abs()[keep]
+        assert bool(((q_gap <= q_limit[keep]) | (q_abs <= 1e-6)).all()), (
+            name, q_gap, q_limit)
+        # the later stages start from the CPU's estimate
+        return want[0], want[1]
+
+    if seeds is not None:
+        fit("refine", seeds[None].cpu(), 0)
+        return gaps
+    radius = 3.0 * cfg.plume_sigma
+    gp, peaks = both(lambda pp, cc: flux._greedy_peaks(pp, cc, s, radius,
+                                                       None), p, c)
+    assert torch.equal(gp.cpu(), peaks), (gp, peaks)
+    m, q = fit("refine", peaks, 8)
+    if cfg.plume_model != "isotropic":
+        return gaps
+    m, q = fit("reseat", flux._reseat_seeds(p, c, m, q, cfg, None), 0)
+    cd = torch.clamp(c - cfg.turbulence_intensity * (0.7978845608 + 0.1),
+                     min=0.0)
+    sse_scale = float(((c < 0.95 * cfg.conc_peak) * cd ** 2).sum())
+    for step in range(8):
+        record = {}
+        (gm, _), (m1, q1) = both(
+            lambda pp, cc, mm, qq: flux.joint_refine(
+                pp, cc, mm, qq, cfg, iters=1, record=record), p, c, m, q)
+        gap = float((gm.cpu() - m1).abs().max())
+        gain = float(record["sse_gain"][0, 0])
+        gaps[f"lm{step}"] = gap
+        flip_ok = abs(gain) <= FLUX_GAIN_RTOL * sse_scale
+        assert gap <= FLUX_POS_LIMIT or flip_ok, (step, gap, gain, sse_scale)
+        m, q = m1, q1
+    gg, good = both(lambda pp, cc, mm: flux._coverage_good(pp, cc, mm, cfg,
+                                                           None), p, c, m)
+    assert torch.equal(gg.cpu(), good), (gg, good)
+    return gaps
+
+
+def flux_against_cpu(ev, flux, label, cfg, draws, policy, oracle,
+                     refine) -> dict:
+    """The study's survey and scores on the card and on the CPU from the
+    same draws.  At most one episode in 64 whose flight parts (a position
+    beyond the env tolerance RTOL / ATOL at some step: the card's positions
+    differ from the CPU's in the last bits, the plume kernel's TKE
+    rounding carried into the turbulence displacement); a two-pass
+    survey's second pass chases each episode's pass-1 estimates, so where
+    those part beyond FLUX_POS_LIMIT (each
+    replayed stage by stage, ``flux_replay``) its second pass may part
+    too, and is logged.  On the episodes whose flights agree: estimated
+    positions within FLUX_POS_LIMIT px and strengths within FLUX_Q_RTOL of
+    the CPU's, or else replayed stage by stage; observed flags equal; each
+    decision that parts logged with its margins."""
+    import copy
+
+    import torch
+
+    cpu_policy = None if policy is None else copy.deepcopy(policy).cpu()
+    sv_c, sc_c, rec_c = flux_parts(ev, flux, cfg, draws, "cpu", cpu_policy,
+                                   oracle, refine)
+    sv_g, sc_g, rec_g = flux_parts(ev, flux, cfg, draws, "cuda", policy,
+                                   oracle, refine)
+    step_same = torch.isclose(sv_g.points.cpu(), sv_c.points, rtol=RTOL,
+                              atol=ATOL).all(-1)                 # [N, T]
+    if cfg.env_3d:
+        step_same &= torch.isclose(sv_g.z.cpu(), sv_c.z, rtol=RTOL,
+                                   atol=ATOL)
+    t1 = FLUX_STEPS - refine
+    same1 = step_same[:, :t1].all(-1)
+    same = step_same.all(-1)
+    seeds_apart, seed_replays = [], {}
+    if refine:
+        seed_gap = (sv_g.seeds.cpu() - sv_c.seeds).abs().amax((1, 2))
+        seeds_apart = ((seed_gap > FLUX_POS_LIMIT) & same1).nonzero(
+            ).flatten().tolist()
+        for ep in seeds_apart:
+            seed_replays[ep] = flux_replay(flux, sv_c.points[ep, :t1],
+                                           sv_c.concs[ep, :t1], cfg)
+    apart = [ep for ep in (~same).nonzero().flatten().tolist()
+             if ep not in seeds_apart]
+    excused = [ep for ep in seeds_apart if not bool(same[ep])]
+    pos_gap = (sc_g[2] - sc_c[2]).abs().amax((1, 2))
+    q_ok = torch.isclose(sc_g[0], sc_c[0], rtol=FLUX_Q_RTOL,
+                         atol=1e-6).all(-1)
+    parted = (same & ~((pos_gap <= FLUX_POS_LIMIT) & q_ok)).nonzero(
+        ).flatten().tolist()
+    decisions, replays = {}, {}
+    for ep in same.nonzero().flatten().tolist():
+        d = flux_decisions_apart(ep, rec_g, rec_c)
+        if d:
+            decisions[ep] = d
+            log(f"flux {label} card vs CPU: episode {ep} decisions apart: "
+                + json.dumps(d))
+    for ep in parted:
+        replays[ep] = flux_replay(
+            flux, sv_c.points[ep], sv_c.concs[ep], cfg,
+            None if sv_c.seeds is None else sv_c.seeds[ep])
+    obs_apart = ((sc_g[4] != sc_c[4]).any(-1) & same).nonzero().flatten()
+    summary_cpu = flux.summarize_flux(*sc_c, True)
+    max_gap = float(pos_gap[same].max()) if bool(same.any()) else 0.0
+    log(f"flux {label} card vs CPU, {FLUX_EPISODES} episodes x {FLUX_STEPS} "
+        f"steps: flights apart {apart}"
+        + (f"; pass-1 estimates beyond {FLUX_POS_LIMIT} px {seeds_apart} "
+           f"(replayed, largest stage gaps "
+           f"{ {ep: max(g.values()) for ep, g in seed_replays.items()} }), "
+           f"of which their second pass parted {excused}" if refine else "")
+        + f"; of the agreeing flights, estimates beyond {FLUX_POS_LIMIT} px "
+        f"/ rtol {FLUX_Q_RTOL}: {parted} (largest position gap "
+        f"{max_gap:.3e} px), each replayed stage by stage within the limits "
+        f"(largest stage gaps "
+        f"{ {ep: max(g.values()) for ep, g in replays.items()} }); "
+        f"{len(decisions)} episodes with a decision apart; CPU summary "
+        + json.dumps(summary_cpu))
+    assert len(apart) <= FLUX_EPISODES // 64, (label, apart)
+    assert len(obs_apart) == 0, (label, obs_apart)
+    return dict(flights_apart=apart, pass1_estimates_apart=seeds_apart,
+                pass2_apart_by_estimates=excused, estimates_apart=parted,
+                max_pos_gap=max_gap, decisions_apart=decisions,
+                replay_gaps=replays, pass1_replay_gaps=seed_replays,
+                summary_cpu=summary_cpu)
+
+
+def flux_study(ev, k, flux, label, cfg, policy=None, oracle=None,
+               refine=0) -> dict:
+    """One flux study on the card (``flux_inversion_study``, estimated
+    positions; ``flux_phase`` warms up once): the whole study with every
+    launch count set to 0 just before it and read just after (one plume-sample
+    launch a survey step plus the reset's, nothing else), its wall ms;
+    then the same study cut to its first EVAL_PROFILE_STEPS steps (one
+    pass) unprofiled and under the profiler, for its launches per survey
+    step and the device's busy share; then on the card against the CPU
+    (``flux_against_cpu``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    draws = ev.draw_eval(torch.Generator(device="cuda").manual_seed(11),
+                         cfg, FLUX_STEPS, FLUX_EPISODES, greedy=False)
+
+    def run(steps, refine_steps):
+        cut = draws if steps == FLUX_STEPS else dataclasses.replace(
+            draws, turb_noise=draws.turb_noise[:steps],
+            gumbel=draws.gumbel[:steps])
+        return flux.flux_inversion_study(
+            cfg, num_episodes=FLUX_EPISODES, num_steps=steps, policy=policy,
+            estimated_positions=True, oracle=oracle,
+            refine_steps=refine_steps, draws=cut, device="cuda")
+
+    zero_counts(k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    summary = run(FLUX_STEPS, refine)
+    wall = time.perf_counter() - t0
+    counts = read_counts(k)
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    want["plume_sample"] = FLUX_STEPS + 1
+    assert counts == want, (label, counts, want)
+    assert summary["episodes"] == FLUX_EPISODES and all(
+        math.isfinite(summary[key]) for key in (
+            "observed_frac", "mean_pos_error", "within_20pct")), summary
+    steps = EVAL_PROFILE_STEPS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(steps, 0)
+    short_wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run(steps, 0)
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    launches = sum(e.count for e in kernels)
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.count)[:8]
+    out = dict(summary=summary, wall_ms=wall * 1e3, launches=counts,
+               profiled_steps=steps, launches_per_step=launches / steps,
+               device_ms=device_ms, busy=device_ms / (short_wall * 1e3),
+               top_kernels={e.key[:120]: e.count for e in top})
+    log(f"flux {label}: {cfg.plume_model}{' 3-D' if cfg.env_3d else ''}, "
+        f"{FLUX_EPISODES} episodes x {FLUX_STEPS} steps"
+        f"{f' ({refine} of them pass 2)' if refine else ''}: wall "
+        f"{wall * 1e3:.1f} ms; launches "
+        f"{ {name: c for name, c in counts.items() if c} }; its first "
+        f"{steps} steps as a study of their own: {launches} device launches "
+        f"= {launches / steps:.2f} per survey step, device kernels "
+        f"{device_ms:.2f} ms = busy share {out['busy']:.4f} of their "
+        f"unprofiled wall ({short_wall * 1e3:.1f} ms); the most launched "
+        f"kernels {out['top_kernels']}; summary " + json.dumps(summary))
+    out["card_vs_cpu"] = flux_against_cpu(ev, flux, label, cfg, draws,
+                                          policy, oracle, refine)
+    return out
+
+
+def flux_phase(m, trained) -> dict:
+    """Phase 14: the flux studies of FLUX_STUDIES (``flux_study``), then a
+    survey flown by ``trained`` (the learning check's ppo_v2_0 MLP,
+    Gumbel-sampled) through ``cli flux --ckpt`` with exact launches, and
+    the same survey on the card against the CPU.  The raster protocol must
+    reach JAX's own thresholds (``tests/test_flux.py:153-155``):
+    within_20pct >= 0.75 and observed_frac >= 0.95."""
+    import torch
+
+    from tpu_plume_torch.evaluation import flux
+
+    out = {}
+    warm = flux_env(m.get_preset, "ppo_v2_0", {})
+    flux.flux_inversion_study(warm, torch.Generator(device="cuda"),
+                              num_episodes=FLUX_EPISODES,
+                              num_steps=EVAL_WARMUP, estimated_positions=True,
+                              device="cuda")
+    for label, (preset, overrides, survey, refine) in FLUX_STUDIES.items():
+        cfg = flux_env(m.get_preset, preset, overrides)
+        out[label] = flux_study(m.ev, m.k, flux, label, cfg,
+                                oracle=flux_oracle(cfg, survey, refine),
+                                refine=refine)
+        torch.cuda.empty_cache()
+    proto = out["raster protocol"]["summary"]
+    assert proto["within_20pct"] >= 0.75 and proto["observed_frac"] >= 0.95, (
+        proto)
+    v20 = m.get_preset("ppo_v2_0")
+    with tempfile.TemporaryDirectory() as tmp:
+        m.ttrain.save_checkpoint(tmp, v20, {
+            key: v.cpu() for key, v in trained.state_dict().items()})
+        zero_counts(m.k)
+        summary, wall = cli_json(m.cli_main, [
+            "flux", "--ckpt", tmp, "--estimated", "--sources", "3",
+            "--steps", str(FLUX_STEPS), "--episodes", str(FLUX_EPISODES)])
+        counts = read_counts(m.k)
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    want["plume_sample"] = FLUX_STEPS + 1
+    assert counts == want, (counts, want)
+    cfg = flux_env(m.get_preset, "ppo_v2_0", {})
+    draws = m.ev.draw_eval(torch.Generator(device="cuda").manual_seed(12),
+                           cfg, FLUX_STEPS, FLUX_EPISODES, greedy=False)
+    out["policy"] = dict(summary=summary, wall_ms=wall * 1e3,
+                         launches=counts)
+    log(f"cli flux --ckpt (the learning check's policy, Gumbel-sampled): "
+        f"wall {wall * 1e3:.1f} ms with the policy's load; launches "
+        f"{ {name: c for name, c in counts.items() if c} }; summary "
+        + json.dumps(summary))
+    out["policy"]["card_vs_cpu"] = flux_against_cpu(
+        m.ev, flux, "policy", cfg, draws, trained, None, 0)
+    log("flux within_20pct / observed_frac: " + ", ".join(
+        f"{label} {r['summary']['within_20pct']:.4f} / "
+        f"{r['summary']['observed_frac']:.4f}" for label, r in out.items()))
+    return out
+
+
 def build_kernels(build, names) -> None:
     """One nvcc per source, all started together."""
     t0 = time.perf_counter()
@@ -3842,11 +4276,12 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--only", choices=("guide", "stop-lstm", "eval-guides",
-                           "imitation"),
+                           "imitation", "flux"),
         help="after the build, run only the guide's phases (with the "
              "untrained policies' guided evals), only phases 9 and 10, "
-             "only the learning check and phase 12, or only phase 13, the "
-             "imitation phase")
+             "only the learning check and phase 12, only phase 13, the "
+             "imitation phase, or only the learning check and phase 14, "
+             "the flux studies")
     args = parser.parse_args(argv)
     import torch
 
@@ -4029,7 +4464,7 @@ def main(argv=None) -> int:
         v20.ppo, minibatch_size=MAIN_MB, arch="lstm"))
     lstm = run_main_path(ttrain, rollout.rollout_chunk, k, "lstm", lstm_cfg,
                          iters=1,
-                         profile_cpu=False)
+                         profile_steps=lstm_cfg.rollout.unroll_length)
     lstm_replay = time_bptt_replay(ttrain, ppo_mod, lstm_cfg)
     eval_lstm = run_eval(ev, k, "A lstm", lstm_cfg, lstm["model"],
                          stop="heuristic")
@@ -4093,6 +4528,10 @@ def main(argv=None) -> int:
         imit = imitation(m, v20, os.path.join(expert_dir,
                                               "expert_data.npz"))
         phase_done("imitation")
+    # Flux inversion (phase 14): the studies, and the learning check's
+    # policy's survey through cli flux --ckpt.
+    flux_out = flux_phase(m, trained)
+    phase_done("flux")
     for gate in STOP_GATES:
         e = stop_lstm[f"eval_{gate}"]
         log(f"eval A {gate} gate: success@40 {e['summary']['success_rate']:.3f}"
@@ -4116,6 +4555,7 @@ def main(argv=None) -> int:
     log(json.dumps({"stop_lstm": stop_lstm}))
     log(json.dumps({"eval_guides": eval_guides_out}, default=str))
     log(json.dumps({"imitation": imit}, default=str))
+    log(json.dumps({"flux": flux_out}, default=str))
     log(json.dumps({"guide": {
         "evals": guided, "fit_card_vs_cpu": fit_check,
         "exec_parity": exec_parity, "exec_time": {
@@ -4151,6 +4591,8 @@ def main(argv=None) -> int:
         "guided_eval_launches": {
             label: e["launches"]["plume_sample"]
             for label, e in guided.items() if "launches" in e},
+        "flux_launches": {label: r["launches"]["plume_sample"]
+                          for label, r in flux_out.items()},
         "imitation": {
             f"dagger {arch} collections": [
                 r["launches"]["plume_sample"]

@@ -49,7 +49,12 @@ guide's (its localizer cuDNN, TF32 off; the post-hoc localization within
 episode.  Distilled PPO's labelled rollout (one env-step launch a step,
 the teacher reading the state before the kernel updates it) is held to
 the CPU's labels, at most one env in 64 apart, and one closed-loop GAIL
-iteration to the CPU's at the losses' tolerance.
+iteration to the CPU's at the losses' tolerance.  The flux study (raster
+and two-pass surveys) launches the plume sample once a survey step plus
+once at the reset and no other counted kernel, and is held to the CPU:
+flights within the env tolerance, observed flags and the observed
+sources' true-position strengths equal within rtol 1e-3, most estimated
+positions within 0.05 px.
 """
 
 import dataclasses
@@ -985,3 +990,66 @@ def test_gail_step_on_the_card_matches_the_cpu(card):
                 "gail/disc_acc"):
         assert np.isclose(float(gstats[key]), float(cstats[key]), rtol=1e-4,
                           atol=1e-5), key
+
+
+def _counts():
+    return (plume.launches, plume.env_step_launches, fused_ops.launches,
+            gather.bilinear.launches, gather.trilinear_zyx.launches)
+
+
+@pytest.mark.parametrize("survey", ["raster", "two_pass"])
+def test_flux_study_on_the_card_matches_the_cpu(card, survey):
+    """The flux study, 16 episodes x 160 steps of the raster survey (40 of
+    them pass 2 in the two-pass survey), estimated positions: one
+    plume-sample launch a survey step plus the reset's and no other
+    counted launch; on the card against the CPU from the same draws, the
+    flights within the env tolerance in all but at most one episode (and, after two passes,
+    those whose pass-1 estimates part beyond 0.05 px), on the others the
+    observed flags equal and the observed sources' true-position strengths
+    within rtol 1e-3 (an unobserved source's column is near zero and its
+    ridge-regularised strength ill-conditioned),
+    and the estimated positions within 0.05 px in at least 12 of 16 (the
+    fits and the LM of a near-degenerate mixture amplify rounding)."""
+    from tpu_plume_torch.evaluation import flux
+    from tpu_plume_torch.evaluation.oracle import make_oracle
+
+    cfg = dataclasses.replace(get_preset("ppo_v2_0").env, num_sources=3)
+    n, steps = 16, 160
+    refine = 40 if survey == "two_pass" else 0
+    draws = harnesses.draw_eval(torch.Generator().manual_seed(5), cfg, steps,
+                                n, greedy=False)
+    oracle = make_oracle("raster", cfg, raster_band_scale=2.0)
+    before = _counts()
+    out = flux.flux_inversion_study(cfg, num_episodes=n, num_steps=steps,
+                                    estimated_positions=True, oracle=oracle,
+                                    refine_steps=refine, draws=draws,
+                                    device=card)
+    after = _counts()
+    assert after[0] - before[0] == steps + 1
+    assert after[1:] == before[1:]
+    assert out["episodes"] == n
+    parts = {}
+    for device in ("cpu", card):
+        _, _, _, d, state, obs = harnesses._start(
+            None, cfg, device, None, draws, n, steps, False, None, None)
+        sv = flux.fly_survey(cfg, state, obs, d, steps, oracle=oracle,
+                             refine_steps=refine)
+        parts[str(device)] = sv, [
+            [x.cpu() for x in flux.score_survey(sv, cfg, est)]
+            for est in (False, True)]
+    (sv_c, (true_c, est_c)), (sv_g, (true_g, est_g)) = (
+        parts["cpu"], parts[str(card)])
+    same = torch.isclose(sv_g.points.cpu(), sv_c.points, rtol=1e-5,
+                         atol=1e-4).all(-1).all(-1)
+    if refine:
+        seeds_apart = (sv_g.seeds.cpu() - sv_c.seeds).abs().amax((1, 2)) > 0.05
+        same_or_seeds = same | seeds_apart
+    else:
+        same_or_seeds = same
+    assert int((~same_or_seeds).sum()) <= 1
+    seen = same[:, None] & true_c[4]
+    torch.testing.assert_close(true_g[0][seen], true_c[0][seen], rtol=1e-3,
+                               atol=1e-6)
+    assert torch.equal(true_g[4][same], true_c[4][same])
+    gap = (est_g[2] - est_c[2]).abs().amax((1, 2))
+    assert int((gap[same] <= 0.05).sum()) >= int(same.sum()) - 4

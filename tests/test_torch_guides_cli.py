@@ -10,8 +10,8 @@ against JAX's CLI, and the parsers' remaining differences, on the CPU.
   ``bank_gate_rate`` and ``bank_match_accuracy``) at the env tolerance,
   the expert samples equal.  No policy file where JAX needs none.
 - The parsers of ``eval``, ``expert`` and the imitation commands differ
-  from JAX's only by the flags of later slices, and those, and the
-  commands of later slices, are refused naming their slice; the distill
+  from JAX's only by the flags of later slices, and those are refused
+  naming their slice; the distill
   flags parse on ``eval`` and ``expert`` as in JAX.
 """
 
@@ -215,13 +215,3 @@ def test_commands_of_slice_10_are_declared_as_in_jax(cmd, capsys):
         assert exc.value.code == 2
         assert "--expert" in capsys.readouterr().err
 
-
-@pytest.mark.parametrize("argv", [
-    ["flux", "--sources", "3"], ["plot", "--what", "curves"]])
-def test_commands_of_later_slices_are_not_declared(argv, capsys):
-    """JAX's commands that slices 11-12 port are no choice of the port's
-    parser, which refuses them before any work."""
-    with pytest.raises(SystemExit) as exc:
-        tcli.main(argv)
-    assert exc.value.code == 2
-    assert f"invalid choice: '{argv[0]}'" in capsys.readouterr().err

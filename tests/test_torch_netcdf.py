@@ -201,6 +201,19 @@ def test_no_module_of_the_port_imports_h5py_at_module_level():
         assert "h5py" not in _module_level_imports(path), path
 
 
+def test_no_module_of_the_port_imports_matplotlib_or_pandas_at_module_level():
+    """The plots import matplotlib (and pandas for the curves) where they
+    draw: the card's machine has neither."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    paths = [os.path.join(repo, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(repo, "tpu_plume_torch")):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    assert any(p.endswith(os.path.join("viz", "plots.py")) for p in paths)
+    for path in paths:
+        assert not {"matplotlib", "pandas"} & _module_level_imports(path), (
+            path)
+
+
 def test_conc_csv_reads_and_writes_across_packages(tmp_path):
     rng = np.random.default_rng(3)
     seqs = [rng.uniform(0, 100, int(rng.integers(1, 30))) for _ in range(7)]

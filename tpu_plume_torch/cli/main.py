@@ -22,6 +22,10 @@
     python -m tpu_plume_torch.cli train-bc --expert expert_data.npz --out runs/bc
     python -m tpu_plume_torch.cli train-dagger --rounds 8 --envs 512 --out runs/dagger
     python -m tpu_plume_torch.cli train-gail --expert expert_data.npz --closed-loop --gail-anneal 20000 --out runs/gail
+    python -m tpu_plume_torch.cli flux --estimated --survey raster --steps 500
+    python -m tpu_plume_torch.cli flux --estimated --survey raster --steps 500 --refine-steps 100
+    python -m tpu_plume_torch.cli flux --estimated --pth runs/torch_v20/model/ppo_successful_models.pth
+    python -m tpu_plume_torch.cli plot --what curves --csv runs/torch_v20/training_results.csv --out curves.png
 
 Runs on the card; ``--cpu`` runs on the CPU.  The flags are the JAX CLI's
 (``python -m tpu_plume.cli``), with its types, defaults and override
@@ -48,10 +52,14 @@ from its run directory or its ``gaussian_params.pt``), which ``eval
 --distill`` adds a scripted teacher's imitation term to PPO; ``train-bc``
 and ``train-dagger`` write a ``checkpoint.pt`` that ``--ckpt`` loads, and
 ``train-gail`` one with the discriminator beside the policy and the
-reference's ``model/ppo_gail.pth`` and ``model/discriminator.pth``.  The
-NetCDF files
-(``--netcdf``, ``--bank file.nc``, ``train-lstm --nc``, ``inspect-nc``)
-need h5py.  A command or flag of a path the port does not run yet is
+reference's ``model/ppo_gail.pth`` and ``model/discriminator.pth``.
+``flux`` runs the flux-inversion study (random, raster, policy or two-pass
+surveys, at the true or estimated source positions) and prints its
+summary; ``plot`` draws an episode's field and flight from a
+``training_data.nc`` or the training curves of a ``training_results.csv``
+(matplotlib, and pandas for the curves).  The NetCDF files (``--netcdf``,
+``--bank file.nc``, ``train-lstm --nc``, ``inspect-nc``, ``plot --what
+field``) need h5py.  A flag of a path the port does not run yet is
 refused before any work, naming the ``ROADMAP.md`` slice that ports it.
 """
 
@@ -669,6 +677,73 @@ def cmd_train_lstm(args):
         print(json.dumps({"best_loss": res.extra["best_loss"]}))
 
 
+def raster_band_scale(env, steps: int, refine_steps: int) -> float:
+    """The raster surveyor's band pitch in plume sigmas for ``flux``: 1.12,
+    widened under a two-pass survey so that the shortened first pass still
+    covers the domain (descend g/m steps, then sweeps of g/m + 1 steps)."""
+    if not refine_steps:
+        return 1.12
+    g, m = env.grid_size, env.move_step
+    sweep = max(steps - refine_steps - g / m, 1.0)
+    n_bands = max(sweep / (g / m + 1.0), 1.0)
+    return max(1.12, g / n_bands / env.plume_sigma)
+
+
+def cmd_flux(args):
+    import torch
+
+    from tpu_plume_torch.evaluation import flux
+
+    cfg = get_preset(args.preset)
+    env = dataclasses.replace(
+        cfg.env, num_sources=args.sources,
+        plume_model=args.plume_model or cfg.env.plume_model)
+    try:
+        flux.check_flux_env(env)
+    except ValueError as err:
+        raise SystemExit(f"flux: {err}") from None
+    device = resolve_device("cpu" if args.cpu else None)
+    policy = oracle = None
+    if args.survey == "raster":
+        from tpu_plume_torch.evaluation.oracle import make_oracle
+
+        scale = raster_band_scale(env, args.steps, args.refine_steps)
+        oracle = make_oracle("raster", env, raster_band_scale=scale)
+    elif args.ckpt or args.pth:
+        # the policy as JAX's _load_params builds it: the preset's network
+        # with --hidden and --arch
+        ppo = cfg.ppo
+        if args.hidden:
+            ppo = dataclasses.replace(ppo, hidden_sizes=tuple(
+                int(h) for h in args.hidden.split(",")))
+        if args.arch:
+            ppo = dataclasses.replace(ppo, arch=args.arch)
+        if ppo.arch != "mlp":
+            raise SystemExit(
+                f"flux --arch {ppo.arch}: the survey policy is the MLP, "
+                f"sampled from its logits at each step; a recurrent policy's "
+                f"carry has no place in the flux survey")
+        policy = load_policy(args, cfg.replace(ppo=ppo), device)
+    out = flux.flux_inversion_study(
+        env, torch.Generator(device=device).manual_seed(args.seed or 0),
+        num_episodes=args.episodes or 64, num_steps=args.steps,
+        policy=policy, estimated_positions=args.estimated, oracle=oracle,
+        refine_steps=args.refine_steps, device=device)
+    print(json.dumps(out))
+
+
+def cmd_plot(args):
+    if args.what == "field":
+        from tpu_plume_torch.viz import plot_gaussian_field
+
+        path = plot_gaussian_field(args.nc, args.episode, save_path=args.out)
+    else:
+        from tpu_plume_torch.viz import plot_training_curves
+
+        path = plot_training_curves(args.csv, save_path=args.out)
+    print(json.dumps({"saved": path}))
+
+
 def cmd_inspect_nc(args):
     from tpu_plume_torch.data.netcdf import describe_nc
 
@@ -958,9 +1033,38 @@ def build_parser():
                          "known) instead of a checkpoint")
     sp.set_defaults(fn=cmd_expert)
 
+    sp = sub.add_parser(
+        "flux", help="flux-inversion study (README <20%% error goal)")
+    _common(sp, None)
+    sp.add_argument("--sources", type=int, default=3)
+    sp.add_argument("--steps", type=int, default=400,
+                    help="survey steps per episode")
+    sp.add_argument("--estimated", action="store_true",
+                    help="estimate the source positions from the flight "
+                         "data (no oracle positions) and report the joint "
+                         "position and strength error")
+    sp.add_argument("--survey", choices=["random", "raster"],
+                    default="random",
+                    help="survey track: 'raster' flies the non-privileged "
+                         "boustrophedon surveyor instead of the random walk "
+                         "or the --ckpt/--pth policy")
+    sp.add_argument("--refine-steps", type=int, default=0,
+                    help="two-pass survey: reserve this many of --steps "
+                         "for pass-2 orbits around the pass-1 position "
+                         "estimates (same total budget)")
+    sp.set_defaults(fn=cmd_flux)
+
     sp = sub.add_parser("inspect-nc", help="dump NetCDF dataset schema")
     sp.add_argument("path")
     sp.set_defaults(fn=cmd_inspect_nc)
+
+    sp = sub.add_parser("plot", help="trajectory-field / training-curve plots")
+    sp.add_argument("--what", choices=["field", "curves"], default="field")
+    sp.add_argument("--nc", help="training_data.nc (field plot)")
+    sp.add_argument("--csv", help="training_results.csv (curves plot)")
+    sp.add_argument("--episode", type=int, default=0)
+    sp.add_argument("--out", default="plot.png")
+    sp.set_defaults(fn=cmd_plot)
     return p
 
 
