@@ -219,7 +219,23 @@ outside a checkout of the repository.  Phases, each of which must pass:
    tolerance; estimates
    within FLUX_POS_LIMIT px and FLUX_Q_RTOL, or replayed stage by stage;
    each decision apart logged with its margins).  The raster protocol
-   must reach within_20pct >= 0.75 and observed_frac >= 0.95.
+   must reach within_20pct >= 0.75 and observed_frac >= 0.95;
+15. the train flags and data parallel (slice 12): ``train_ppo`` resumed
+   bit for bit (ppo_v2_0 f32 and ``fused_update`` at full width,
+   wrf_les_3d over its bank: 4 iterations at ``sync_every`` 2 against the
+   run killed after its snapshot at 2 and resumed to 4; params, optimizer
+   state, rollout carry, generator, counters, curriculum and
+   ``training_results.csv`` equal, exact launches); ``cli train
+   --profile-steps 2 --tensorboard`` (the trace holds the traced
+   iterations' env-step launches; event files, or the line saying
+   tensorboard does not import) and ``--debug-nans`` for one iteration;
+   the packed drain (a profiled full-width run with the CSV makes the same
+   device-to-host copies as with ``--no-csv``, each window's stats copy
+   carrying its compacted record rows), and iteration ms with and without
+   the CSV in alternating blocks; the data-parallel step at world size 1
+   through NCCL against the plain step, f32 and ``fused_update``, bit for
+   bit with the same launches; and 2 gloo ranks sharing the card against
+   one process at a small width.  It prints a ``scale_out`` JSON line.
 
 ``python3 chip_smoke.py --only guide`` runs, after the build, the guide's
 phases alone (the executed-action mode, the guided training paths, the
@@ -227,8 +243,9 @@ learning check for a trained policy, the fit check, the guided evals of
 the trained and the untrained ppo_v2_0 and wrf_les params, phase 12, the
 guided CLI); ``--only stop-lstm`` runs phases 9 and 10 alone, and
 ``--only eval-guides`` the learning check and phase 12, ``--only
-imitation`` phase 13 on an expert file of its own, and ``--only flux``
-the learning check and phase 14.  Each prints its JSON
+imitation`` phase 13 on an expert file of its own, ``--only flux``
+the learning check and phase 14, and ``--only scale-out`` phase 15.
+Each prints its JSON
 record, each phase's seconds and the card's name and power limit.
 
 Then it prints a JSON line of the eval phases, one of the recurrent main
@@ -245,7 +262,7 @@ under ``exec_action``, the guided evals' under ``guided_eval_launches``,
 and in every entry phase 12's under ``bank_guided_eval_launches``,
 ``learned_guided_eval_launches`` and ``oracle_eval_launches``; phase
 13's under ``imitation``; phase 14's plume-sample launches under
-``flux_launches``), the
+``flux_launches``; phase 15's under ``scale_out_launches``), the
 card's
 name and power limit, and, last, the result line ``{"ok": true,
 "device": {...}}``.  h5py is never imported here (``find_spec`` tells
@@ -3786,8 +3803,8 @@ def run_only(only, m, v20, wl, phase_done) -> None:
     also on the CPU, and the guided CLI); ``--only stop-lstm``: phases 9
     and 10; ``--only eval-guides``: the learning check and phase 12;
     ``--only imitation``: phase 13 on an expert file of its own; ``--only
-    flux``: the learning check and phase 14.  Each prints its JSON
-    record."""
+    flux``: the learning check and phase 14; ``--only scale-out``: phase
+    15.  Each prints its JSON record."""
     if only == "stop-lstm":
         _, stop_lstm, _ = stop_lstm_phases(m.ttrain, m.ev, m.k, m.cli_main,
                                            v20, phase_done)
@@ -3811,6 +3828,13 @@ def run_only(only, m, v20, wl, phase_done) -> None:
         out = flux_phase(m, trained)
         phase_done("flux")
         log(json.dumps({"flux": out}, default=str))
+        return
+    if only == "scale-out":
+        w3 = m.get_preset("wrf_les_3d")
+        w3 = w3.replace(ppo=dataclasses.replace(w3.ppo,
+                                                minibatch_size=MAIN_MB))
+        scale_out_phase(m, v20, w3)
+        phase_done("scale-out")
         return
     if only == "imitation":
         with tempfile.TemporaryDirectory() as tmp:
@@ -4262,6 +4286,443 @@ def flux_phase(m, trained) -> dict:
     return out
 
 
+# Phase 15: the train flags and data parallel.  Each resume case runs
+# SCALE_ITERS iterations uninterrupted, then the run killed after its
+# snapshot at SCALE_SYNC iterations, resumed to SCALE_ITERS; the CLI's
+# --profile-steps run is cut to SCALE_CLI_ENVS envs x SCALE_CLI_UNROLL steps
+# in one minibatch (its trace's host events take seconds to write).
+SCALE_ITERS, SCALE_SYNC = 4, 2
+SCALE_CLI_ENVS, SCALE_CLI_UNROLL = 1024, 32
+DRAIN_ITERS = 6          # iterations of each CSV / --no-csv block
+GLOO_WORLD = 2
+# The gloo ranks' small config: envs, steps, minibatch.
+GLOO_N, GLOO_T, GLOO_MB = 256, 16, 1024
+
+
+def counted(m, totals: dict, fn):
+    """``fn()`` with every launch count set to 0 just before and read just
+    after: (its result, its counts), the counts also added to ``totals``."""
+    zero_counts(m.k)
+    result = fn()
+    counts = read_counts(m.k)
+    for name, c in counts.items():
+        totals[name] = totals.get(name, 0) + c
+    return result, counts
+
+
+def same_state(a, b, where="") -> list:
+    """The paths where two saved states (nested dicts, tuples and tensors)
+    differ, with the largest gap of each float tensor that does."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        if torch.equal(a, b):
+            return []
+        gap = ((a.double() - b.double()).abs().max().item()
+               if a.is_floating_point() else "ints")
+        return [f"{where} {gap}"]
+    if isinstance(a, dict):
+        if a.keys() != b.keys():
+            return [f"{where} keys"]
+        return [d for k in a for d in same_state(a[k], b[k], f"{where}/{k}")]
+    if isinstance(a, (list, tuple)):
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in same_state(x, y, f"{where}[{i}]")]
+    return [] if a == b else [f"{where} {a!r} != {b!r}"]
+
+
+def resume_case(m, totals, label, cfg, bank=None) -> dict:
+    """``label`` uninterrupted for SCALE_ITERS iterations (sync_every
+    SCALE_SYNC) against the same run killed after its snapshot at
+    SCALE_SYNC iterations (``snapshot_every``) and resumed from
+    ``checkpoint_iter{SCALE_SYNC}`` to SCALE_ITERS: params, optimizer
+    state, rollout carry, generator, counters, curriculum and
+    ``training_results.csv`` must be equal."""
+    import torch
+
+    kw = dict(device="cuda", verbose=False, sync_every=SCALE_SYNC, bank=bank)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        full, part = os.path.join(tmp, "full"), os.path.join(tmp, "part")
+
+        def runs():
+            a = m.ttrain.train_ppo(cfg, full, max_iterations=SCALE_ITERS,
+                                   **kw)
+            m.ttrain.train_ppo(cfg, part, max_iterations=SCALE_SYNC,
+                               snapshot_every=SCALE_SYNC, **kw)
+            b = m.ttrain.train_ppo(cfg, part, max_iterations=SCALE_ITERS,
+                                   resume_from=os.path.join(
+                                       part, f"checkpoint_iter"
+                                       f"{SCALE_SYNC:06d}"), **kw)
+            return a, b
+
+        (a, b), counts = counted(m, totals, runs)
+        bundles = [torch.load(os.path.join(d, "checkpoint.pt"),
+                              weights_only=True) for d in (full, part)]
+        csvs = []
+        for d in (full, part):
+            with open(os.path.join(d, "training_results.csv")) as fh:
+                csvs.append(fh.read())
+    apart = same_state(*bundles, "bundle")
+    if csvs[0] != csvs[1]:
+        apart.append("training_results.csv")
+    # three init_loops, and the iterations of the full run, the killed run
+    # and the resumed run
+    iters = SCALE_ITERS + SCALE_SYNC + (SCALE_ITERS - SCALE_SYNC)
+    want = {name: 3 * c for name, c in expected_init_counts(cfg,
+                                                            bank).items()}
+    for name, c in expected_counts(cfg, bank, iters).items():
+        want[name] += c
+    out = dict(episodes=a.episodes, rows=csvs[0].count("\n") - 1,
+               apart=apart, launches=counts,
+               seconds=round(time.perf_counter() - t0, 1))
+    log(f"resume {label}: {SCALE_ITERS} iterations against {SCALE_SYNC} + "
+        f"resumed {SCALE_ITERS - SCALE_SYNC}: {a.episodes} / {b.episodes} "
+        f"episodes, {out['rows']} CSV rows; apart: {apart or 'nothing'} "
+        f"({out['seconds']} s)")
+    assert not apart, (label, apart)
+    assert counts == want, (label, counts, want)
+    return out
+
+
+def trace_events(prof_or_path) -> list:
+    """The events of a Chrome trace (a file, or a profiler to export)."""
+    if not isinstance(prof_or_path, str):
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof_or_path.export_chrome_trace(path)
+            return trace_events(path)
+    with open(prof_or_path) as fh:
+        return json.load(fh)["traceEvents"]
+
+
+def dtoh_bytes(events) -> list:
+    """The byte counts of the trace's device-to-host copies."""
+    return [int(e.get("args", {}).get("bytes", -1)) for e in events
+            if e.get("cat") == "gpu_memcpy" and "DtoH" in e.get("name", "")]
+
+
+def drain_check(m, totals, cfg) -> dict:
+    """The packed drain of a full-width ppo_v2_0 run with the CSV on:
+    profiled (device activity), its device-to-host copies against the same
+    run's with ``--no-csv``.  Each window's one stats transfer must carry
+    the window's compacted record rows (``hostsync.drain_window_rows``)
+    with the CSV: the CSV run's copies are the no-CSV run's with each
+    window's stats copy grown by the count and ``10 x cap`` f32 rows, and
+    none added.  Then the iteration ms with and without the CSV in
+    alternating blocks (CSV, no-CSV, no-CSV, CSV)."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    windows = SCALE_ITERS // SCALE_SYNC
+    n = cfg.rollout.num_envs
+    cap = 2 * n * SCALE_SYNC
+    rows_bytes = 4 * (1 + (len(m.ttrain.REC_KEYS) - 1) * cap)
+    copies = {}
+
+    def profiled(csv_on):
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                m.ttrain.train_ppo(cfg, tmp, device="cuda", verbose=False,
+                                   max_iterations=SCALE_ITERS,
+                                   sync_every=SCALE_SYNC, write_csv=csv_on)
+                torch.cuda.synchronize()
+            return dtoh_bytes(trace_events(prof))
+
+    for csv_on in (True, False):
+        copies[csv_on], _ = counted(m, totals, lambda: profiled(csv_on))
+    added = collections.Counter(copies[True]) - collections.Counter(
+        copies[False])
+    gone = collections.Counter(copies[False]) - collections.Counter(
+        copies[True])
+    out = dict(windows=windows, cap=cap, dtoh_csv=len(copies[True]),
+               dtoh_no_csv=len(copies[False]), csv_only=dict(added),
+               no_csv_only=dict(gone))
+    log(f"packed drain: {SCALE_ITERS} iterations in {windows} windows: "
+        f"Memcpy DtoH with the CSV {len(copies[True])}, with --no-csv "
+        f"{len(copies[False])}; copies (bytes: count) only with the CSV "
+        f"{dict(added)}, only without {dict(gone)} (the rows add "
+        f"{rows_bytes} B to a window's stats copy)")
+    assert len(copies[True]) == len(copies[False]), copies
+    assert sum(added.values()) == sum(gone.values()) == windows, (added, gone)
+    assert sorted(added.elements()) == sorted(
+        b + rows_bytes for b in gone.elements()), (added, gone)
+    ms = {True: [], False: []}
+    for csv_on in (True, False, False, True):
+        def block():
+            with tempfile.TemporaryDirectory() as tmp:
+                return m.ttrain.train_ppo(
+                    cfg, tmp, device="cuda", verbose=False,
+                    max_iterations=DRAIN_ITERS, sync_every=SCALE_SYNC,
+                    write_csv=csv_on)
+        res, _ = counted(m, totals, block)
+        ms[csv_on].append(n * cfg.rollout.unroll_length
+                          / res.steps_per_sec * 1e3)
+    out.update(iteration_ms_csv=ms[True], iteration_ms_no_csv=ms[False])
+    log(f"iteration ms (blocks CSV, no-CSV, no-CSV, CSV; {DRAIN_ITERS} "
+        f"iterations, the first excluded): CSV {ms[True]}, --no-csv "
+        f"{ms[False]}")
+    return out
+
+
+def flags_cli(m, totals, tmp) -> dict:
+    """``cli train --profile-steps 2 --tensorboard`` (the trace must hold
+    the env-step kernel's launches of the 2 traced iterations; the event
+    files appear, or the line saying tensorboard does not import) and
+    ``--debug-nans`` for one iteration at full width."""
+    out = {}
+    prof_dir = os.path.join(tmp, "prof")
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        (res, wall), counts = counted(m, totals, lambda: cli_json(
+            m.cli_main, ["train", "--out", prof_dir, "--iterations", "4",
+                         "--envs", str(SCALE_CLI_ENVS), "--unroll",
+                         str(SCALE_CLI_UNROLL), "--minibatch",
+                         str(SCALE_CLI_ENVS * SCALE_CLI_UNROLL),
+                         "--profile-steps", "2", "--tensorboard"]))
+    assert counts["env_step"] == 4 * SCALE_CLI_UNROLL, counts
+    events = trace_events(os.path.join(prof_dir, "profile", "trace.json"))
+    traced = sum(1 for e in events if e.get("cat") == "kernel"
+                 and "env_step_kernel" in e.get("name", ""))
+    tb = os.path.join(prof_dir, "tb")
+    tb_files = sorted(os.listdir(tb)) if os.path.isdir(tb) else []
+    out["profile"] = dict(env_step_in_trace=traced, events=len(events),
+                          tensorboard_files=tb_files,
+                          tensorboard_stderr=err.getvalue().strip(),
+                          wall_s=round(wall, 1), launches=counts)
+    log(f"cli train --profile-steps 2 --tensorboard: {traced} env_step "
+        f"launches of {len(events)} trace events; tb: "
+        f"{tb_files or err.getvalue().strip()} ({wall:.1f} s)")
+    assert traced == 2 * SCALE_CLI_UNROLL, traced
+    assert tb_files or "--tensorboard" in err.getvalue(), (tb_files, err)
+    (res, wall), counts = counted(m, totals, lambda: cli_json(
+        m.cli_main, ["train", "--out", os.path.join(tmp, "nans"),
+                     "--iterations", "1", "--minibatch", str(MAIN_MB),
+                     "--debug-nans"]))
+    assert res["env_steps"] == 4096 * 128 and counts["env_step"] == 128, (
+        res, counts)
+    out["debug_nans"] = dict(wall_s=round(wall, 1), launches=counts)
+    log(f"cli train --debug-nans: 1 iteration in {wall:.1f} s with the "
+        f"phase checks and anomaly mode")
+    return out
+
+
+def mesh_steps(m, totals, cfg, mesh, iters=2) -> tuple:
+    """``iters`` steps of the plain loop and of the same loop laid out on
+    ``mesh``: each run's (last trajectory, last stats, params, launch
+    counts), and the kernel names of the mesh run's last step, profiled."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_plume_torch.parallel import shard_loop_carry
+
+    step = m.ttrain.build_train_step(cfg)
+    runs, names = [], []
+
+    def run(laid):
+        loop = m.ttrain.init_loop(cfg, "cuda")
+        if laid:
+            loop = shard_loop_carry(loop, mesh)
+        for _ in range(iters - 1):
+            loop, stats, traj = step(loop)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            loop, stats, traj = step(loop)
+            torch.cuda.synchronize()
+        names.append(sorted({e.key for e in device_kernels(prof)}))
+        return traj, stats, m.ttrain.cpu_state_dict(loop.model)
+
+    for laid in (False, True):
+        result, counts = counted(m, totals, lambda: run(laid))
+        runs.append((*result, counts))
+    return runs, names
+
+
+def nccl_world_of_one(m, totals, v20) -> dict:
+    """The mesh step at world size 1 through NCCL against the plain step,
+    for f32 and ``fused_update``, at full width: trajectories, stats and
+    params bit-equal, the same kernel launches."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from tpu_plume_torch.parallel import make_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    out = {}
+    try:
+        mesh = make_mesh(1)
+        for name, ppo in (("f32", {}), ("fused_update",
+                                        dict(fused_update=True))):
+            cfg = v20.replace(ppo=dataclasses.replace(v20.ppo, **ppo))
+            t0 = time.perf_counter()
+            runs, (pnames, names) = mesh_steps(m, totals, cfg, mesh)
+            (ptraj, pstats, psd, pcounts), (mtraj, mstats, msd, mcounts) = runs
+            apart = same_state(psd, msd, "params") + [
+                f"traj.{f}" for f in ("action", "done", "reward", "value",
+                                      "log_prob", "obs")
+                if not torch.equal(getattr(ptraj, f), getattr(mtraj, f))] + [
+                f"stats.{k}" for k in pstats
+                if k != "grads" and float(pstats[k]) != float(mstats[k])]
+            extra = sorted(set(names) - set(pnames))
+            out[name] = dict(apart=apart, counts=mcounts, plain_counts=pcounts,
+                             kernels_only_in_mesh_step=extra,
+                             seconds=round(time.perf_counter() - t0, 1))
+            log(f"mesh step at world size 1 (NCCL) {name}: apart from the "
+                f"plain step: {apart or 'nothing'}; launches {mcounts} "
+                f"(plain {pcounts}); device kernels of its profiled step "
+                f"that the plain step's lacks: {extra}")
+            assert not apart and mcounts == pcounts, (name, apart, mcounts,
+                                                      pcounts)
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def gloo_cfg(get_preset, **ppo):
+    v20 = get_preset("ppo_v2_0")
+    return v20.replace(
+        ppo=dataclasses.replace(v20.ppo, minibatch_size=GLOO_MB, **ppo),
+        rollout=dataclasses.replace(v20.rollout, num_envs=GLOO_N,
+                                    unroll_length=GLOO_T))
+
+
+def gloo_rank(rank: int, world: int, store: str, out_dir: str) -> None:
+    """A gloo rank on the one card: ``gloo_steps`` on its share of the
+    envs, saved to ``out_dir/gloo_<rank>.npz``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from tpu_plume_torch.core.config import get_preset
+    from tpu_plume_torch.parallel import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_mesh(world, device="cuda")
+        np.savez(os.path.join(out_dir, f"gloo_{rank}.npz"),
+                 **gloo_steps(get_preset, mesh))
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_steps(get_preset, mesh=None) -> dict:
+    """Two iterations of the small f32 and ``fused_update`` configs on the
+    card (on ``mesh``'s share of the envs): the first iteration's actions,
+    dones and rewards, the last's loss and the params."""
+    from tpu_plume_torch.parallel import shard_loop_carry
+    from tpu_plume_torch.train import ppo_trainer as ttrain
+
+    out = {}
+    for name, ppo in (("f32", {}), ("fused", dict(fused_update=True))):
+        cfg = gloo_cfg(get_preset, **ppo)
+        loop = ttrain.init_loop(cfg, "cuda")
+        if mesh is not None:
+            loop = shard_loop_carry(loop, mesh)
+        step = ttrain.build_train_step(cfg)
+        for i in range(2):
+            loop, stats, traj = step(loop)
+            if i == 0:
+                for f in ("action", "done", "reward"):
+                    out[f"{name}/{f}"] = getattr(traj, f).cpu().numpy()
+        out[f"{name}/loss"] = float(stats["loss/total"])
+        out.update({f"{name}/param/{k}": v.numpy() for k, v in
+                    ttrain.cpu_state_dict(loop.model).items()})
+    return out
+
+
+def gloo_on_the_card(m, totals) -> dict:
+    """GLOO_WORLD gloo ranks sharing the one card (spawned processes)
+    against one process over all the envs: actions and dones equal,
+    rewards rtol 1e-5 / atol 1e-5, the loss rtol 1e-4, params atol 1e-6
+    per Adam step."""
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(gloo_rank, args=(GLOO_WORLD,
+                                            os.path.join(tmp, "store"), tmp),
+                           nprocs=GLOO_WORLD, join=True,
+                           start_method="spawn")
+        parts = [dict(np.load(os.path.join(tmp, f"gloo_{r}.npz")))
+                 for r in range(GLOO_WORLD)]
+    want, _ = counted(m, totals, lambda: gloo_steps(m.get_preset))
+    steps = 2 * 5 * (GLOO_N * GLOO_T // GLOO_MB)
+    worst = {}
+    for key, value in want.items():
+        if key.endswith(("/action", "/done", "/reward")):
+            got = np.concatenate([p[key] for p in parts], axis=1)
+            if key.endswith("/reward"):
+                np.testing.assert_allclose(got, value, rtol=1e-5, atol=1e-5,
+                                           err_msg=key)
+            else:
+                np.testing.assert_array_equal(got, value, err_msg=key)
+            continue
+        for p in parts[1:]:
+            np.testing.assert_array_equal(p[key], parts[0][key], err_msg=key)
+        got = parts[0][key]
+        if key.endswith("/loss"):
+            np.testing.assert_allclose(got, value, rtol=1e-4, err_msg=key)
+        else:
+            np.testing.assert_allclose(got, value, rtol=0, atol=1e-6 * steps,
+                                       err_msg=key)
+            worst[key] = float(np.abs(got - value).max())
+    out = dict(world=GLOO_WORLD, max_param_gap=max(worst.values()),
+               seconds=round(time.perf_counter() - t0, 1))
+    log(f"gloo, {GLOO_WORLD} ranks on the one card against one process "
+        f"({GLOO_N} envs x {GLOO_T} steps, f32 and fused_update, 2 "
+        f"iterations): actions and dones equal, largest param gap "
+        f"{out['max_param_gap']:.3g} ({out['seconds']} s)")
+    return out
+
+
+def scale_out_phase(m, v20, w3) -> dict:
+    """Phase 15: resume bit for bit (ppo_v2_0 f32 and ``fused_update`` at
+    full width, wrf_les_3d over its bank), the CLI's ``--profile-steps``,
+    ``--tensorboard`` and ``--debug-nans``, the packed drain, the mesh step
+    at world size 1 through NCCL, and gloo ranks on the one card.  Returns
+    each case's result and seconds, and the phase's launches."""
+    import torch
+
+    out, totals = {}, {}
+    fused = v20.replace(ppo=dataclasses.replace(v20.ppo, fused_update=True))
+    bank = m.gridded.synthesize_3d_bank(
+        torch.Generator(device="cuda").manual_seed(0), w3.env)
+    out["resume"] = {
+        "ppo_v2_0 f32": resume_case(m, totals, "ppo_v2_0 f32", v20),
+        "ppo_v2_0 fused_update": resume_case(m, totals,
+                                             "ppo_v2_0 fused_update", fused),
+        "wrf_les_3d": resume_case(m, totals, "wrf_les_3d", w3, bank)}
+    del bank
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out["cli"] = flags_cli(m, totals, tmp)
+    out["cli"]["seconds"] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    out["drain"] = drain_check(m, totals, v20)
+    out["drain"]["seconds"] = round(time.perf_counter() - t0, 1)
+    out["nccl_world_1"] = nccl_world_of_one(m, totals, v20)
+    out["gloo_on_card"] = gloo_on_the_card(m, totals)
+    out["launches"] = totals
+    log(json.dumps({"scale_out": out}, default=str))
+    return out
+
+
 def build_kernels(build, names) -> None:
     """One nvcc per source, all started together."""
     t0 = time.perf_counter()
@@ -4276,12 +4737,13 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--only", choices=("guide", "stop-lstm", "eval-guides",
-                           "imitation", "flux"),
+                           "imitation", "flux", "scale-out"),
         help="after the build, run only the guide's phases (with the "
              "untrained policies' guided evals), only phases 9 and 10, "
              "only the learning check and phase 12, only phase 13, the "
-             "imitation phase, or only the learning check and phase 14, "
-             "the flux studies")
+             "imitation phase, only the learning check and phase 14, "
+             "the flux studies, or only phase 15, the train flags and "
+             "data parallel")
     args = parser.parse_args(argv)
     import torch
 
@@ -4532,6 +4994,9 @@ def main(argv=None) -> int:
     # policy's survey through cli flux --ckpt.
     flux_out = flux_phase(m, trained)
     phase_done("flux")
+    # The train flags and data parallel (phase 15).
+    scale_out = scale_out_phase(m, v20_main, w3)
+    phase_done("scale-out")
     for gate in STOP_GATES:
         e = stop_lstm[f"eval_{gate}"]
         log(f"eval A {gate} gate: success@40 {e['summary']['success_rate']:.3f}"
@@ -4711,6 +5176,7 @@ def main(argv=None) -> int:
         "wrapper: " + json.dumps(gather_time["split_ns"]))
     for entry in kernels:
         entry["eval_launches"] = eval_launches[entry["name"]]
+        entry["scale_out_launches"] = scale_out["launches"][entry["name"]]
         for key, labels in EVAL_GUIDE_GROUPS.items():
             entry[key] = {label: eval_guides_out[label]["launches"][
                 entry["name"]] for label in labels}

@@ -54,7 +54,11 @@ and two-pass surveys) launches the plume sample once a survey step plus
 once at the reset and no other counted kernel, and is held to the CPU:
 flights within the env tolerance, observed flags and the observed
 sources' true-position strengths equal within rtol 1e-3, most estimated
-positions within 0.05 px.
+positions within 0.05 px.  A run on the card killed after a snapshot and
+resumed from it equals the uninterrupted run bit for bit (params,
+optimizer state, rollout carry, generator, counters, curriculum and
+``training_results.csv``), and the data-parallel step at world size 1
+through NCCL equals the plain step bit for bit with the same launches.
 """
 
 import dataclasses
@@ -1053,3 +1057,83 @@ def test_flux_study_on_the_card_matches_the_cpu(card, survey):
     assert torch.equal(true_g[4][same], true_c[4][same])
     gap = (est_g[2] - est_c[2]).abs().amax((1, 2))
     assert int((gap[same] <= 0.05).sum()) >= int(same.sum()) - 4
+
+
+def _small_train_cfg(**ppo):
+    cfg = get_preset("ppo_v2_0")
+    return cfg.replace(
+        ppo=dataclasses.replace(cfg.ppo, minibatch_size=1024, **ppo),
+        rollout=dataclasses.replace(cfg.rollout, num_envs=256,
+                                    unroll_length=16))
+
+
+def _same(a, b, where=""):
+    if isinstance(a, torch.Tensor):
+        assert torch.equal(a, b), where
+    elif isinstance(a, dict):
+        assert a.keys() == b.keys(), where
+        for k in a:
+            _same(a[k], b[k], f"{where}/{k}")
+    elif isinstance(a, (list, tuple)):
+        for i, (x, y) in enumerate(zip(a, b, strict=True)):
+            _same(x, y, f"{where}[{i}]")
+    else:
+        assert a == b, where
+
+
+@pytest.mark.parametrize("ppo", [{}, {"fused_update": True}])
+def test_resume_on_the_card_is_bit_exact(card, tmp_path, ppo):
+    from tpu_plume_torch.train import ppo_trainer as ttrain
+
+    cfg = _small_train_cfg(**ppo)
+    kw = dict(device="cuda", verbose=False, sync_every=2)
+    full, part = str(tmp_path / "full"), str(tmp_path / "part")
+    ttrain.train_ppo(cfg, full, max_iterations=4, **kw)
+    ttrain.train_ppo(cfg, part, max_iterations=2, snapshot_every=2, **kw)
+    ttrain.train_ppo(cfg, part, max_iterations=4, **kw,
+                     resume_from=str(tmp_path / "part" /
+                                     "checkpoint_iter000002"))
+    a, b = (torch.load(f"{d}/checkpoint.pt", weights_only=True)
+            for d in (full, part))
+    for key in ("model", "optimizer", "rollout", "generator", "counters",
+                "curriculum"):
+        _same(a[key], b[key], key)
+    assert ((tmp_path / "full" / "training_results.csv").read_text()
+            == (tmp_path / "part" / "training_results.csv").read_text())
+
+
+def test_mesh_step_at_world_size_1_is_the_plain_step(card, tmp_path):
+    import torch.distributed as dist
+
+    from tpu_plume_torch.parallel import make_mesh, shard_loop_carry
+    from tpu_plume_torch.train import ppo_trainer as ttrain
+
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1)
+    try:
+        mesh = make_mesh(1)
+        assert mesh.device.type == "cuda" and mesh.world_size == 1
+        for ppo in ({}, {"fused_update": True}):
+            cfg = _small_train_cfg(**ppo)
+            step = ttrain.build_train_step(cfg)
+            outs = []
+            for laid in (False, True):
+                loop = ttrain.init_loop(cfg, "cuda")
+                if laid:
+                    loop = shard_loop_carry(loop, mesh)
+                before = (plume.env_step_launches, fused_ops.launches)
+                for _ in range(2):
+                    loop, stats, traj = step(loop)
+                launches = (plume.env_step_launches - before[0],
+                            fused_ops.launches - before[1])
+                outs.append((traj, stats, loop.model.state_dict(), launches))
+            (pt, ps, pm, pl), (mt, ms, mm, ml) = outs
+            assert pl == ml and pl[0] == 2 * 16
+            for f in ("action", "done", "reward", "value", "log_prob"):
+                assert torch.equal(getattr(pt, f), getattr(mt, f)), f
+            for k in ps:
+                assert float(ps[k]) == float(ms[k]), k
+            _same(pm, mm, "params")
+    finally:
+        dist.destroy_process_group()

@@ -325,26 +325,42 @@ def test_train_flags_of_slice_10_reach_the_work(name, tmp_path):
     assert out["env_steps"] == N * T
 
 
-TRAIN_REFUSED = {   # train flags: ROADMAP.md Queue 1 slice
-    "resume": (["--resume", "runs/old"], 12),
-    "snapshot_every": (["--snapshot-every", "5"], 12),
-    "tensorboard": (["--tensorboard"], 12),
-    "profile_steps": (["--profile-steps", "3"], 12),
-    "debug_nans": (["--debug-nans"], 12),
+# The train flags of slice 12, refused until it ported them, and what each
+# leaves in the run directory.
+TRAIN_SLICE_12 = {   # name: (flags, a file of the run)
+    "resume": (["--resume", "BASE"], "checkpoint.pt"),
+    # one drain window (sync_every 8): the snapshot of its end
+    "snapshot_every": (["--snapshot-every", "1"],
+                       "checkpoint_iter000002/checkpoint.pt"),
+    "tensorboard": (["--tensorboard"], "tb"),
+    "profile_steps": (["--profile-steps", "1", "--iterations", "3"],
+                      "profile/trace.json"),
+    "debug_nans": (["--debug-nans"], "checkpoint.pt"),
 }
 
 
-@pytest.mark.parametrize("name", sorted(TRAIN_REFUSED))
-def test_train_flags_of_later_slices_are_refused_before_any_work(name,
-                                                                 tmp_path):
-    flags, item = TRAIN_REFUSED[name]
+@pytest.mark.parametrize("name", sorted(TRAIN_SLICE_12))
+def test_train_flags_of_slice_12_reach_the_work(name, tmp_path):
+    """Each train flag of slice 12 parses as JAX's parser parses it and the
+    train command runs with it (``--resume`` from a run of one iteration,
+    to two)."""
+    flags, made = TRAIN_SLICE_12[name]
+    base = str(tmp_path / "base")
+    flags = [base if f == "BASE" else f for f in flags]
+    argv = ["train", "--iterations", "2", "--envs", str(N), "--unroll",
+            str(T), "--minibatch", str(MB), "--hidden", "64,32", *flags]
+    want = vars(j_build_parser().parse_args(argv))
+    for key, value in vars(build_parser().parse_args(argv)).items():
+        if key not in ("fn", "out"):    # the port's run directory is its own
+            assert value == want[key], key
+    if name == "resume":
+        _run(cli_main, [*argv[:-2], "--iterations", "1", "--cpu", "--out",
+                        base])
     out = tmp_path / "run"
-    with pytest.raises(SystemExit, match=rf"ROADMAP\.md Queue 1, slice {item} "):
-        cli_main(["train", "--cpu", "--iterations", "1", "--out", str(out),
-                  *flags])
-    assert not out.exists()
-    # JAX's train parser takes each of them
-    j_build_parser().parse_args(["train", *flags])
+    printed = _run(cli_main, [*argv, "--cpu", "--out", str(out)])
+    assert printed["env_steps"] == (3 if name == "profile_steps"
+                                    else 2) * N * T
+    assert (out / made).exists()
 
 
 @pytest.mark.parametrize("cmd", ["train", "eval", "expert"])

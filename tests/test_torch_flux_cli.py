@@ -1,7 +1,7 @@
 """The port's ``flux`` and ``plot`` commands against JAX's, on the CPU.
 
 - The parsers of ``flux`` and ``plot`` against JAX's: the same options
-  (``flux`` but the scale-out slice's ``--debug-nans``) and defaults.
+  and defaults.
 - ``flux --cpu`` through both CLIs on the same argv, the port given the
   draws JAX's study consumes (``draw_eval`` monkeypatched to
   ``flux_draws``): the same JSON keys, and at the true source positions
@@ -57,7 +57,7 @@ def parser_options(build, cmd) -> set:
     return {s for a in sub.choices[cmd]._actions for s in a.option_strings}
 
 
-@pytest.mark.parametrize("cmd, only_jax", [("flux", {"--debug-nans"}),
+@pytest.mark.parametrize("cmd, only_jax", [("flux", set()),
                                            ("plot", set())])
 def test_flux_and_plot_are_declared_as_in_jax(cmd, only_jax):
     got = parser_options(tcli.build_parser, cmd)

@@ -55,6 +55,7 @@ from tpu_plume_torch.data.scaler import MinMaxScaler as TScaler
 from tpu_plume_torch.evaluation import harnesses as th
 from tpu_plume_torch.fields import gridded as tg
 from tpu_plume_torch.train import ppo_trainer as ttrain
+from tpu_plume_torch.train.hostsync import drain_window
 
 torch.set_num_threads(1)
 
@@ -415,7 +416,7 @@ def _replay_step(recorded):
     def t(x):
         return torch.from_numpy(np.array(x))
 
-    def build(cfg, bank=None, time_phases=False, guide=None):
+    def build(cfg, bank=None, time_phases=False, guide=None, with_grads=False):
         def step(loop, draws=None, shuffles=None):
             stats, traj = next(it)
             stats = {k: (int(v) if k in ("rollout/episodes",
@@ -478,7 +479,7 @@ def test_window_to_host_is_one_transfer_of_every_dtype():
                "c": torch.linspace(0, 1, 4)},
               {"a": torch.full((1, 3), 16777216, dtype=torch.int32),
                "b": torch.tensor([False]), "c": torch.ones(2)}]
-    host = ttrain._window_to_host(window)
+    host = drain_window(window)
     for got, want in zip(host, window, strict=True):
         for k, v in want.items():
             assert got[k].dtype == v.numpy().dtype, k

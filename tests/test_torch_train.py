@@ -229,10 +229,23 @@ def test_cli_train_on_cpu(tmp_path, capsys):
     assert sd["feature.0.weight"].shape == (256, 12)  # obs_memory: 6 + 1 + 5
 
 
-def test_cli_refuses_flags_of_later_slices(tmp_path):
-    for flag in (["--tensorboard"], ["--resume", "dir"]):
-        with pytest.raises(SystemExit, match="is not ported yet"):
-            cli_main(["train", "--cpu", "--out", str(tmp_path), *flag])
+def test_cli_runs_flags_of_slice_12(tmp_path):
+    """``--snapshot-every`` and ``--tensorboard``, refused until slice 12,
+    run, and ``--resume`` continues from the snapshot to the same params
+    as the run it was taken from."""
+    small = ["train", "--cpu", "--envs", str(N), "--unroll", str(T),
+             "--minibatch", str(MB), "--hidden", "64,32"]
+    cli_main([*small, "--iterations", "2", "--sync-every", "1",
+              "--snapshot-every", "1", "--tensorboard", "--out",
+              str(tmp_path / "run")])
+    assert (tmp_path / "run" / "tb").is_dir()
+    cli_main([*small, "--iterations", "2", "--resume",
+              str(tmp_path / "run" / "checkpoint_iter000001"), "--out",
+              str(tmp_path / "resumed")])
+    a, b = (torch.load(tmp_path / d / "checkpoint.pt", weights_only=True)
+            for d in ("run", "resumed"))
+    for k, v in a["model"].items():
+        assert torch.equal(v, b["model"][k]), k
 
 
 def test_entry_points_raise_without_a_card(tmp_path, monkeypatch):

@@ -59,8 +59,14 @@ summary; ``plot`` draws an episode's field and flight from a
 ``training_data.nc`` or the training curves of a ``training_results.csv``
 (matplotlib, and pandas for the curves).  The NetCDF files (``--netcdf``,
 ``--bank file.nc``, ``train-lstm --nc``, ``inspect-nc``, ``plot --what
-field``) need h5py.  A flag of a path the port does not run yet is
-refused before any work, naming the ``ROADMAP.md`` slice that ports it.
+field``) need h5py.  ``train --snapshot-every N`` writes a full resume
+bundle every N or more iterations and ``--resume DIR`` continues from one
+bit for bit; ``--tensorboard`` logs to ``out/tb``, ``--profile-steps N``
+writes a ``torch.profiler`` trace to ``out/profile``, and ``--debug-nans``
+(every command but ``train-lstm``, ``inspect-nc`` and ``plot``) names the
+first phase whose outputs are not finite.  Before any command the CLI turns
+off TF32 and bf16 reduced-precision reductions on the card, the precision
+the checks hold the port to.
 """
 
 from __future__ import annotations
@@ -68,9 +74,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import re
 
-from tpu_plume_torch.core import support
 from tpu_plume_torch.core.config import PRESETS, get_preset
 from tpu_plume_torch.core.device import resolve_device
 
@@ -226,26 +230,6 @@ def load_policy(args, cfg, device):
     model = make_policy_model(cfg)
     model.load_state_dict(state_dict)
     return model.to(device)
-
-
-# Flags of later slices, left undeclared and refused before any work: a
-# flag by its name (without "--", "no-" and "=value") matched against each
-# pattern, with the ROADMAP item that ports it.
-LATER_FLAGS = ((r"resume|snapshot-every|tensorboard|profile-steps|debug-nans",
-                support.SCALE_OUT),)
-
-
-def refuse_later_flags(extra):
-    """Raise ``SystemExit`` naming the ROADMAP slice of the first flag of
-    ``extra`` (what ``parse_known_args`` left) that a later slice ports."""
-    for token in extra:
-        if not token.startswith("--"):
-            continue
-        name = token[2:].split("=", 1)[0].removeprefix("no-")
-        for pattern, item in LATER_FLAGS:
-            if re.fullmatch(pattern, name):
-                raise SystemExit(support.unported_message(token.split("=")[0],
-                                                          item))
 
 
 def lstm_gate(args, cfg, device):
@@ -551,6 +535,8 @@ def cmd_train(args):
 
     cfg = apply_overrides(get_preset(args.preset), args)
     device = resolve_device("cpu" if args.cpu else None)
+    if args.resume and (args.ckpt or args.pth):
+        raise SystemExit("--resume restores its own params; drop --ckpt/--pth")
     init_params = None
     if args.ckpt or args.pth:
         init_params = load_policy(args, cfg, "cpu").state_dict()
@@ -574,6 +560,10 @@ def cmd_train(args):
         capture_netcdf=args.netcdf,
         capture_conc_csv=args.conc_csv,
         guide=guide,
+        use_tensorboard=args.tensorboard,
+        profile_steps=args.profile_steps,
+        snapshot_every=args.snapshot_every,
+        resume_from=args.resume,
     )
     print(json.dumps({
         "episodes": res.episodes,
@@ -818,6 +808,14 @@ def _common(sp, out_default):
                          "--bf16-update")
     sp.add_argument("--cpu", action="store_true",
                     help="run on the CPU instead of the card")
+    sp.add_argument("--debug-nans", action="store_true",
+                    help="locate the first non-finite values: autograd's "
+                         "anomaly mode, and a finite check of each phase's "
+                         "outputs (the rollout, GAE, the update, the GAIL "
+                         "discriminator; an eval step's logits and "
+                         "observations) that names the first phase that "
+                         "is not finite (host reads each phase; off, "
+                         "nothing is added)")
     sp.add_argument("--ckpt",
                     help="the port's checkpoint.pt (or a run directory "
                          "holding one) to load the policy from")
@@ -863,6 +861,23 @@ def build_parser():
                     help="capture training_data.nc (needs h5py)")
     sp.add_argument("--conc-csv", action="store_true",
                     help="capture ragged conc sequences (V1.2 data.csv)")
+    sp.add_argument("--tensorboard", action="store_true",
+                    help="log the scalars and the params' and full-batch "
+                         "gradients' histograms to out/tb (where "
+                         "torch.utils.tensorboard imports)")
+    sp.add_argument("--profile-steps", type=int, default=0,
+                    help="capture a torch.profiler trace over N train steps "
+                         "(from the third) in out/profile")
+    sp.add_argument("--snapshot-every", type=int,
+                    help="save a full resume bundle every >= N iterations "
+                         "(at drain-window boundaries) to "
+                         "out/checkpoint_iterNNNNNN")
+    sp.add_argument("--resume", metavar="DIR",
+                    help="resume an interrupted run from a full bundle "
+                         "(checkpoint_iterNNNNNN or a run directory): "
+                         "params, optimizer, env states, curriculum, "
+                         "generator and counters; bit-exact continuation, "
+                         "CSV logs append")
     sp.set_defaults(fn=cmd_train)
 
     sp = sub.add_parser(
@@ -1068,16 +1083,24 @@ def build_parser():
     return p
 
 
-def main(argv=None):
-    import sys
+def set_precision():
+    """Full f32 products and f32 reductions of bf16 products on the card,
+    the precision every check of the port assumes (TF32 is cuDNN's
+    default)."""
+    import torch
 
-    argv = sys.argv[1:] if argv is None else list(argv)
-    parser = build_parser()
-    args, extra = parser.parse_known_args(argv)
-    if extra:
-        refuse_later_flags(extra)
-        parser.error("unrecognized arguments: " + " ".join(extra))
-    args.fn(args)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def main(argv=None):
+    from tpu_plume_torch.core.debug import debug_nans
+
+    args = build_parser().parse_args(argv)
+    set_precision()
+    with debug_nans(getattr(args, "debug_nans", False)):
+        args.fn(args)
 
 
 if __name__ == "__main__":

@@ -1,22 +1,15 @@
-"""The config values the port runs, checked before any work, and the
-message that names the ``ROADMAP.md`` item of a flag the port does not run
-yet (``cli/main.py``), so a command meant for the JAX package never runs a
-different program here without saying so.
+"""The config values the port runs, checked before any work, so a config
+meant for the JAX package never runs a different program here without
+saying so.
 """
 
 from __future__ import annotations
 
 from tpu_plume_torch.core.config import EnvConfig, PPOConfig
 
-SCALE_OUT = "ROADMAP.md Queue 1, slice 12 (scale-out and the rest)"
-
 # The JAX package's bank gather formulations; the port samples one function
 # for all of them.
 GATHER_MODES = ("auto", "packed", "corner", "fused")
-
-
-def unported_message(what: str, item: str) -> str:
-    return f"{what} is not ported yet: {item}"
 
 
 PLUME_MODELS = ("isotropic", "anisotropic", "gridded")

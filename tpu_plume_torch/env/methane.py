@@ -31,6 +31,7 @@ import torch
 
 from tpu_plume_torch.core.config import EnvConfig
 from tpu_plume_torch.core.support import check_env
+from tpu_plume_torch.core.tree import tree_map
 from tpu_plume_torch.fields.analytic import (
     FieldState,
     new_field_from_draws,
@@ -85,14 +86,8 @@ def select(mask: torch.Tensor, a, b):
     """Per-env ``where(mask, a, b)`` over tensors or (nested) dataclasses of
     tensors whose first axis is the env axis; a field None in both stays
     None."""
-    if a is None and b is None:
-        return None
-    if dataclasses.is_dataclass(a):
-        return type(a)(**{f.name: select(mask, getattr(a, f.name),
-                                         getattr(b, f.name))
-                          for f in dataclasses.fields(a)})
-    m = mask.reshape(mask.shape + (1,) * (a.dim() - 1))
-    return torch.where(m, a, b)
+    return tree_map(lambda x, y: torch.where(
+        mask.reshape(mask.shape + (1,) * (x.dim() - 1)), x, y), a, b)
 
 
 def _explore_index(pos: torch.Tensor, cfg: EnvConfig):

@@ -41,9 +41,11 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from tpu_plume_torch.core import debug
 from tpu_plume_torch.core.config import EnvConfig, EvalConfig, StopConfig
 from tpu_plume_torch.core.device import resolve_device
 from tpu_plume_torch.core.support import check_env
+from tpu_plume_torch.core.tree import tree_map
 from tpu_plume_torch.env.methane import reset_from_draws, select, step_noise
 from tpu_plume_torch.ops import plume
 from tpu_plume_torch.rollout.rollout import gumbel_noise, random_bits
@@ -164,11 +166,22 @@ class EvalDraws:
     turb_noise: torch.Tensor        # f32[T, N, pos_dim] displacement normals
     gumbel: torch.Tensor | None     # f32[T, N, A] Gumbel noise; None = greedy
 
+    def envs(self, index) -> "EvalDraws":
+        """The draws of the episodes ``index`` (a slice or an index
+        tensor), contiguous; an absent draw stays None.  The split goes by
+        field: the resets are per episode [N, ...], the per-step draws
+        [T, N, ...]."""
+        def take(x, axis):
+            return (None if x is None else
+                    x[(slice(None),) * axis + (index,)].contiguous())
+
+        return EvalDraws(u_src=take(self.u_src, 0),
+                         u_wind=take(self.u_wind, 0), bits=take(self.bits, 0),
+                         turb_noise=take(self.turb_noise, 1),
+                         gumbel=take(self.gumbel, 1))
+
     def to(self, device) -> "EvalDraws":
-        return EvalDraws(**{
-            f.name: None if getattr(self, f.name) is None
-            else getattr(self, f.name).to(device)
-            for f in dataclasses.fields(self)})
+        return tree_map(lambda x: x.to(device), self)
 
 
 def draw_eval(generator: torch.Generator, cfg: EnvConfig, length: int,
@@ -333,6 +346,9 @@ def evaluate_policy(
             new_guide, action, _ = g_fn(*g_args)
         new_env, trans = step_noise(env_state, action, draws.turb_noise[t],
                                     env_cfg, bank)
+        if debug.enabled():
+            debug.check_finite("eval step", logits=None if oracle else logits,
+                               obs=trans.obs)
         active = ~finished
         done = trans.done
         if stop_state is not None:
@@ -478,6 +494,9 @@ def collect(
             labels[t] = action if labeller is oracle else labeller(env_state)
         new_env, trans = step_noise(env_state, action, draws.turb_noise[t],
                                     env_cfg, bank)
+        if debug.enabled():
+            debug.check_finite("eval step", logits=None if oracle else logits,
+                               obs=trans.obs)
         active = ~finished
         states[t] = obs
         actions[t] = action

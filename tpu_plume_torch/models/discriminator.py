@@ -38,11 +38,13 @@ class Discriminator(nn.Module):
         return self.net(torch.cat([state, action_one_hot], -1)).squeeze(-1)
 
 
-def bce_with_logits(logits: torch.Tensor,
-                    targets: torch.Tensor) -> torch.Tensor:
-    """Stable binary cross-entropy on logits (== BCELoss(sigmoid(x), t))."""
-    return torch.mean(torch.clamp(logits, min=0.0) - logits * targets
-                      + torch.log1p(torch.exp(-torch.abs(logits))))
+def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
+                    mean=torch.mean) -> torch.Tensor:
+    """Stable binary cross-entropy on logits (== BCELoss(sigmoid(x), t));
+    ``mean`` averages the samples' terms (a data-parallel rank passes its
+    share of the global mean, ``rl.ppo.Share.mean``)."""
+    return mean(torch.clamp(logits, min=0.0) - logits * targets
+                + torch.log1p(torch.exp(-torch.abs(logits))))
 
 
 def discriminator_loss(model: Discriminator, expert_states, expert_actions_oh,

@@ -1,11 +1,12 @@
 """Per-episode CSV stats and the per-iteration scalar log (the port's copy of
 ``tpu_plume/obsv/metrics.py``: ``EpisodeCSVLogger`` column for column, and
-``TrainLogger`` without TensorBoard)."""
+``TrainLogger`` with its TensorBoard scalars and histograms)."""
 
 from __future__ import annotations
 
 import csv
 import os
+import sys
 from typing import IO
 
 import numpy as np
@@ -79,23 +80,59 @@ class EpisodeCSVLogger:
 
 
 class TrainLogger:
-    """Iteration-level scalar log: ``train_log.csv`` in the run directory."""
+    """Iteration-level scalar log: ``train_log.csv`` in the run directory,
+    appended to with ``append`` (a resumed run), and with
+    ``use_tensorboard`` the same scalars and the histograms of
+    ``log_histograms`` in ``out_dir/tb``.  Where ``torch.utils.tensorboard``
+    does not import, the log goes on with the CSV alone and says so in one
+    line on stderr."""
 
-    def __init__(self, out_dir: str):
+    def __init__(self, out_dir: str, use_tensorboard: bool = False,
+                 append: bool = False):
         os.makedirs(out_dir, exist_ok=True)
-        self._fh = open(os.path.join(out_dir, "train_log.csv"), "w",
-                        newline="")
+        path = os.path.join(out_dir, "train_log.csv")
+        resume = append and os.path.exists(path) and os.path.getsize(path) > 0
+        self._fh = open(path, "a" if resume else "w", newline="")
+        self._skip_header = resume
         self._csv = csv.writer(self._fh)
         self._keys: list[str] | None = None
+        self._tb = None
+        if use_tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError as err:
+                print(f"--tensorboard: torch.utils.tensorboard does not "
+                      f"import ({err}); logging train_log.csv alone",
+                      file=sys.stderr)
+            else:
+                self._tb = SummaryWriter(os.path.join(out_dir, "tb"))
+
+    def log_histograms(self, step: int, named: dict, prefix: str = "params"):
+        """A histogram of each named tensor or array of ``named``, as
+        ``prefix/name`` (TensorBoard only)."""
+        if self._tb is None:
+            return
+        for name, value in named.items():
+            if isinstance(value, np.ndarray):
+                value = value.astype(np.float32, copy=False)
+            else:
+                value = value.detach().float().cpu().numpy()
+            self._tb.add_histogram(f"{prefix}/{name}", value, step)
 
     def log(self, step: int, scalars: dict):
         if self._keys is None:
             self._keys = sorted(scalars)
-            self._csv.writerow(["step"] + self._keys)
+            if not self._skip_header:
+                self._csv.writerow(["step"] + self._keys)
         self._csv.writerow(
             [step] + [f"{float(scalars.get(k, float('nan'))):.6g}"
                       for k in self._keys])
         self._fh.flush()
+        if self._tb is not None:
+            for k, v in scalars.items():
+                self._tb.add_scalar(k, float(v), step)
 
     def close(self):
         self._fh.close()
+        if self._tb is not None:
+            self._tb.close()

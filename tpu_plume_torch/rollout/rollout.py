@@ -27,6 +27,7 @@ import torch
 
 from tpu_plume_torch.core.config import EnvConfig
 from tpu_plume_torch.core.support import check_env
+from tpu_plume_torch.core.tree import tree_map
 from tpu_plume_torch.env.methane import (
     EnvState,
     auto_reset_from_draws,
@@ -112,6 +113,11 @@ class ChunkDraws:
     # f32[T, N, 2] reset wind uniforms (speed, direction) of a field with a
     # wind (``plume.reads_wind``); None for the others
     u_wind: torch.Tensor | None = None
+
+    def envs(self, index) -> "ChunkDraws":
+        """The draws of the envs ``index`` (a slice or an index tensor),
+        contiguous; an absent draw stays None."""
+        return tree_map(lambda x: x[:, index].contiguous(), self)
 
 
 @dataclass
@@ -442,10 +448,5 @@ def rollout_chunk(model: torch.nn.Module, carry: RolloutCarry, cfg: EnvConfig,
 def own_copy(obj):
     """A contiguous copy of every tensor of a (nested) dataclass, for the
     env-step kernel to update in place; None stays None."""
-    if obj is None:
-        return None
-    if dataclasses.is_dataclass(obj):
-        return dataclasses.replace(obj, **{
-            f.name: own_copy(getattr(obj, f.name))
-            for f in dataclasses.fields(obj)})
-    return obj.clone(memory_format=torch.contiguous_format)
+    return tree_map(lambda x: x.clone(memory_format=torch.contiguous_format),
+                    obj)

@@ -28,13 +28,13 @@ prediction f32[N]`` (threshold) or ``-> (peak f32[N], stop_prob f32[N])``
 
 from __future__ import annotations
 
-import dataclasses
 from dataclasses import dataclass
 from typing import Callable
 
 import torch
 
 from tpu_plume_torch.core.config import EvalConfig, StopConfig
+from tpu_plume_torch.core.tree import tree_map
 
 
 def _push(ring: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
@@ -46,10 +46,8 @@ def _push(ring: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
 def broadcast(state, n: int, device):
     """Each of ``n`` episodes' copy of the one-episode ``state`` (a tensor
     or a dataclass of tensors) on ``device``."""
-    if isinstance(state, torch.Tensor):
-        return state.to(device).expand((n,) + tuple(state.shape)).clone()
-    return type(state)(**{f.name: broadcast(getattr(state, f.name), n, device)
-                          for f in dataclasses.fields(state)})
+    return tree_map(
+        lambda x: x.to(device).expand((n,) + tuple(x.shape)).clone(), state)
 
 
 # ---------------------------------------------------------------------------

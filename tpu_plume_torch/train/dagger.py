@@ -43,16 +43,27 @@ class DaggerResult:
 
 
 def _collect(model, oracle, env_cfg, n: int, beta: float, *, rnn=False,
-             generator=None, draws=None, device=None):
+             generator=None, draws=None, device=None, mesh=None):
     """One round's collection of ``n`` episodes: the oracle drives where
     ``beta`` is 1, the greedy student (with ``rnn`` its carry fed every
     obs) where it is 0, and the oracle labels every pre-step state.
     Returns ``(states [T, N, D], labels i64[T, N], valid bool[T, N],
     succ bool[N], finished bool[N])`` on the device.  ``draws`` (an
     ``EvalDraws``, greedy) replaces the reset and turbulence draws of
-    ``generator``."""
+    ``generator``.  Under a data-parallel ``mesh`` the rank collects its
+    ``n / W`` episodes of the global draws (``EvalDraws.envs``), with
+    no collective; its N is then ``n / W``."""
     if beta not in (0.0, 1.0):
         raise ValueError(f"beta must be 1.0 or 0.0, got {beta}")
+    if mesh is not None:
+        if n % mesh.world_size:
+            raise ValueError(f"{n} episodes must be divisible by the mesh "
+                             f"size {mesh.world_size}")
+        if draws is None:
+            draws = harnesses.draw_eval(generator, env_cfg, env_cfg.max_steps,
+                                        n)
+        draws = draws.envs(mesh.envs(n))
+        n //= mesh.world_size
     c = harnesses.collect(
         None if rnn else model, env_cfg, generator, n, draws=draws,
         device=device, rnn=model if rnn else None,

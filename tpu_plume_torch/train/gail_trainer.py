@@ -15,6 +15,14 @@ host may anneal it.
 The rollout's draws, the update's shuffles and the discriminator's
 expert and policy indices come from the loop's generators, or from the
 caller, which is how the tests feed both packages the same numbers.
+
+A carry laid out by ``parallel.shard_gail_carry`` runs data parallel: the
+PPO part as ``ppo_trainer.build_train_step`` runs it, the expert data
+replicated, the discriminator's indices drawn globally (the policy's over
+the global batch) and each of its samples counted by one rank (an expert
+sample by rank ``k % W``, a policy sample by the rank that holds its env),
+its loss each rank's sum over the global ``disc_batch`` and its gradients
+summed over the ranks before Adam.
 """
 
 from __future__ import annotations
@@ -28,15 +36,26 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
+from tpu_plume_torch.core import debug
 from tpu_plume_torch.core.config import TrainConfig
 from tpu_plume_torch.core.device import resolve_device
 from tpu_plume_torch.core.support import check_ppo
 from tpu_plume_torch.models.discriminator import Discriminator, bce_with_logits
 from tpu_plume_torch.rl.curriculum import curriculum_update
 from tpu_plume_torch.rl.gae import compute_gae
-from tpu_plume_torch.rl.ppo import PPOBatch, normalize_advantages, ppo_update
-from tpu_plume_torch.rollout.rollout import ChunkDraws, rollout_chunk
+from tpu_plume_torch.rl.ppo import (
+    PPOBatch,
+    Share,
+    normalize_advantages,
+    ppo_update,
+)
+from tpu_plume_torch.rollout.rollout import (
+    ChunkDraws,
+    draw_chunk,
+    rollout_chunk,
+)
 from tpu_plume_torch.train import ppo_trainer as ttrain
+from tpu_plume_torch.train.hostsync import drain_window
 
 CURVE_HEADER = ("iteration,episodes,successes,success_rate,mean_reward,"
                 "disc_loss,disc_acc,radius,gail_coef\n")
@@ -95,6 +114,9 @@ def build_gail_train_step(cfg: TrainConfig, expert_states: torch.Tensor,
                    disc_idx=None):
         loop, disc = carry.ppo, carry.disc
         device = loop.rollout.obs.device
+        mesh = loop.mesh
+        spread = mesh is not None and mesh.world_size > 1
+        n = loop.rollout.obs.shape[0]
         marks = []
 
         def mark():
@@ -102,9 +124,18 @@ def build_gail_train_step(cfg: TrainConfig, expert_states: torch.Tensor,
                 ttrain._sync(device)
                 marks.append(time.perf_counter())
 
+        if mesh is not None:
+            if draws is None:
+                draws = draw_chunk(loop.generator, env_cfg, T,
+                                   n * mesh.world_size)
+            draws = draws.envs(mesh.envs(n * mesh.world_size))
         mark()
         rcarry, traj, bootstrap = rollout_chunk(
             loop.model, ttrain.push_curriculum(loop), env_cfg, T, draws=draws)
+        if debug.enabled():
+            debug.check_finite("rollout", obs=traj.obs, reward=traj.reward,
+                               value=traj.value, log_prob=traj.log_prob,
+                               bootstrap=bootstrap)
         mark()
 
         def flat(x):
@@ -120,14 +151,20 @@ def build_gail_train_step(cfg: TrainConfig, expert_states: torch.Tensor,
         advantages, returns = compute_gae(
             rewards, traj.value, traj.done, bootstrap, ppo_cfg.gamma,
             ppo_cfg.gae_lambda)
+        if debug.enabled():
+            debug.check_finite("gae", advantages=advantages, returns=returns)
         mark()
         batch = PPOBatch(
             obs=obs_flat, actions=act_flat,
             old_log_probs=flat(traj.log_prob),
-            advantages=normalize_advantages(flat(advantages), ppo_cfg),
+            advantages=normalize_advantages(flat(advantages), ppo_cfg, mesh),
             returns=flat(returns), old_values=flat(traj.value))
         loss_metrics = ppo_update(loop.model, loop.optimizer, batch, ppo_cfg,
-                                  generator=loop.generator, shuffles=shuffles)
+                                  generator=loop.generator, shuffles=shuffles,
+                                  mesh=mesh, num_envs=n)
+        if debug.enabled():
+            debug.check_finite("update", **loss_metrics,
+                               **dict(loop.model.named_parameters()))
         mark()
 
         # The discriminator's step: expert minibatch against policy
@@ -135,28 +172,49 @@ def build_gail_train_step(cfg: TrainConfig, expert_states: torch.Tensor,
         if disc_idx is None:
             e_idx = torch.randint(0, expert_n, (disc_batch,), device=device,
                                   generator=loop.generator)
-            p_idx = torch.randint(0, obs_flat.shape[0], (disc_batch,),
-                                  device=device, generator=loop.generator)
+            p_idx = torch.randint(0, obs_flat.shape[0] * (
+                mesh.world_size if spread else 1), (disc_batch,),
+                device=device, generator=loop.generator)
         else:
             e_idx, p_idx = disc_idx
+        mean = torch.mean
+        if spread:
+            # this rank's samples: expert k % W, the policy's by their env
+            w, rank = mesh.world_size, mesh.rank
+            e_idx = e_idx[torch.arange(disc_batch, device=device) % w == rank]
+            envs = p_idx % (n * w)
+            p_idx = (p_idx // (n * w) * n + envs % n)[envs // n == rank]
+            mean = Share(disc_batch, mesh).mean
         e_logit = disc(expert_states[e_idx], one_hot(expert_actions[e_idx]))
         p_logit = disc(obs_flat[p_idx], act_oh[p_idx])
-        d_loss = (bce_with_logits(e_logit, torch.ones_like(e_logit))
-                  + bce_with_logits(p_logit, torch.zeros_like(p_logit)))
-        d_acc = 0.5 * ((e_logit > 0).to(torch.float32).mean()
-                       + (p_logit < 0).to(torch.float32).mean())
+        d_loss = (bce_with_logits(e_logit, torch.ones_like(e_logit), mean)
+                  + bce_with_logits(p_logit, torch.zeros_like(p_logit), mean))
+        d_acc = 0.5 * (mean((e_logit > 0).to(torch.float32))
+                       + mean((p_logit < 0).to(torch.float32)))
         carry.disc_optimizer.zero_grad(set_to_none=True)
         d_loss.backward()
+        if mesh is not None:
+            mesh.sum_grads(disc.parameters())
+            d_loss, d_acc = mesh.sum(torch.stack([d_loss.detach(), d_acc]))
         carry.disc_optimizer.step()
+        if debug.enabled():
+            debug.check_finite("discriminator", disc_loss=d_loss,
+                               **dict(disc.named_parameters()))
         mark()
 
-        new_episodes = int(traj.done.sum())
-        new_successes = int((traj.done & traj.episode.success).sum())
+        new_episodes = traj.done.sum()
+        new_successes = (traj.done & traj.episode.success).sum()
+        mean_reward = traj.reward.mean()
+        if mesh is not None:
+            new_episodes, new_successes = mesh.sum(
+                torch.stack([new_episodes, new_successes]))
+            mean_reward = mesh.mean(traj.reward)
+        new_episodes, new_successes = int(new_episodes), int(new_successes)
         curriculum = curriculum_update(loop.curriculum, new_successes,
                                        new_episodes, cur_cfg)
         stats: dict[str, Any] = dict(loss_metrics)
         stats.update({
-            "rollout/mean_reward": traj.reward.mean(),
+            "rollout/mean_reward": mean_reward,
             "rollout/episodes": new_episodes,
             "rollout/successes": new_successes,
             "curriculum/radius": float(curriculum.radius),
@@ -240,13 +298,15 @@ def train_ppo_gail(
 
     def consume():
         nonlocal episodes, successes, anneal_start
-        # the window's device scalars in one transfer
-        host = torch.stack([torch.stack([
-            st["rollout/mean_reward"], st["gail/disc_loss"],
-            st["gail/disc_acc"]]) for _, st, _ in pending]).cpu().numpy()
+        # the window's stats in one transfer
+        host = drain_window([{k: st[k] for k in (
+            "rollout/mean_reward", "gail/disc_loss", "gail/disc_acc")}
+            for _, st, _ in pending])
         with open(curve_path, "a") as f:
-            for (it, stats, coef), (reward, d_loss, d_acc) in zip(pending,
-                                                                  host):
+            for (it, stats, coef), h in zip(pending, host):
+                reward, d_loss, d_acc = (float(h[k]) for k in (
+                    "rollout/mean_reward", "gail/disc_loss",
+                    "gail/disc_acc"))
                 it_eps = stats["rollout/episodes"]
                 it_succ = stats["rollout/successes"]
                 radius = stats["curriculum/radius"]
