@@ -32,6 +32,10 @@ clip, so every rank takes the same Adam step; the fused kernels compute a
 whole minibatch, so such a batch takes autodiff, as JAX's does under a
 mesh.  At world size 1 the update is the plain one with the gradients
 passed through the (identity) collective.
+
+Under ``torch.profiler`` each minibatch's gradients (with their sum over
+the ranks) and its optimizer step are the ranges ``update.grads`` and
+``update.optimizer`` (``obsv.trace.leaf``).
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from torch.utils.checkpoint import checkpoint
 from tpu_plume_torch.core.config import PPOConfig
 from tpu_plume_torch.core.support import check_ppo
 from tpu_plume_torch.core.tree import tree_map
+from tpu_plume_torch.obsv import trace
 from tpu_plume_torch.ops import ppo as fused_ops
 
 
@@ -337,21 +342,25 @@ def ppo_update(model: torch.nn.Module, optimizer, batch: PPOBatch,
             parts = [shuffled.map(lambda x, i=i: x[i * mb:(i + 1) * mb])
                      for i in range(num_minibatches)]
         for part in parts:
-            if fused:
-                grads, metrics = fused_ops.fused_ppo_grads(model, part, cfg)
-                for name, g in grads.items():
-                    params[name].grad = g
-            else:
-                if cfg.remat:
-                    loss, metrics = checkpoint(ppo_loss, model, part, cfg,
-                                               share, use_reentrant=False)
+            with trace.leaf("update.grads"):
+                if fused:
+                    grads, metrics = fused_ops.fused_ppo_grads(model, part,
+                                                               cfg)
+                    for name, g in grads.items():
+                        params[name].grad = g
                 else:
-                    loss, metrics = ppo_loss(model, part, cfg, share)
-                optimizer.zero_grad(set_to_none=True)
-                loss.backward()
-            if mesh is not None:
-                mesh.sum_grads(model.parameters())
-            optimizer.step()
+                    if cfg.remat:
+                        loss, metrics = checkpoint(ppo_loss, model, part,
+                                                   cfg, share,
+                                                   use_reentrant=False)
+                    else:
+                        loss, metrics = ppo_loss(model, part, cfg, share)
+                    optimizer.zero_grad(set_to_none=True)
+                    loss.backward()
+                if mesh is not None:
+                    mesh.sum_grads(model.parameters())
+            with trace.leaf("update.optimizer"):
+                optimizer.step()
             for k, v in metrics.items():
                 sums[k] = sums[k] + v if k in sums else v
     return _averages(sums, cfg.epochs * num_minibatches, mesh)
@@ -410,12 +419,14 @@ def ppo_update_recurrent(model: torch.nn.Module, optimizer,
                                          (i + 1) * envs_per_mb))
                      for i in range(num_minibatches)]
         for part in parts:
-            loss, metrics = ppo_loss_recurrent(model, part, cfg, share)
-            optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            if mesh is not None:
-                mesh.sum_grads(model.parameters())
-            optimizer.step()
+            with trace.leaf("update.grads"):
+                loss, metrics = ppo_loss_recurrent(model, part, cfg, share)
+                optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+                if mesh is not None:
+                    mesh.sum_grads(model.parameters())
+            with trace.leaf("update.optimizer"):
+                optimizer.step()
             for k, v in metrics.items():
                 sums[k] = sums[k] + v if k in sums else v
     return _averages(sums, cfg.epochs * num_minibatches, mesh)

@@ -35,6 +35,7 @@ from tpu_plume_torch.env.methane import (
     select,
     step_noise,
 )
+from tpu_plume_torch.obsv import trace
 from tpu_plume_torch.ops import plume
 from tpu_plume_torch.stop.controllers import broadcast
 
@@ -355,7 +356,11 @@ def rollout_chunk(model: torch.nn.Module, carry: RolloutCarry, cfg: EnvConfig,
     i64[N]``) labels every pre-step state into ``traj.oracle_action``, the
     teacher of distilled PPO; it runs before the env step, so on the card
     it reads the state before the env-step kernel updates it in place (stream
-    order, no host read)."""
+    order, no host read).
+
+    Under ``torch.profiler`` each step's policy forward and env step are
+    the ranges ``rollout.policy`` and ``rollout.env_step``
+    (``obsv.trace.leaf``)."""
     num_envs = carry.obs.shape[0]
     if draws is None:
         draws = draw_chunk(carry.generator, cfg, length, num_envs, greedy)
@@ -417,22 +422,26 @@ def rollout_chunk(model: torch.nn.Module, carry: RolloutCarry, cfg: EnvConfig,
         stepper = plume.EnvStepper(env_state, acc, draws, traj, obs_rows,
                                    cfg)
         for t in range(length):
-            logits, value = policy(t)
-            label(t, env_state)
-            stepper(t, logits, value, guided(t, env_state, logits))
-            reset_hidden(t)
-            reset_guide(t)
+            with trace.leaf("rollout.policy"):
+                logits, value = policy(t)
+            with trace.leaf("rollout.env_step"):
+                label(t, env_state)
+                stepper(t, logits, value, guided(t, env_state, logits))
+                reset_hidden(t)
+                reset_guide(t)
     else:
         env_state, acc = carry.env_state, carry.accum
         for t in range(length):
-            logits, value = policy(t)
-            label(t, env_state)
-            executed = guided(t, env_state, logits)
-            env_state, _, acc = env_step_plain(
-                logits, value, draws, t, env_state, acc, traj, obs_rows, cfg,
-                bank, exec_action=executed)
-            reset_hidden(t)
-            reset_guide(t)
+            with trace.leaf("rollout.policy"):
+                logits, value = policy(t)
+            with trace.leaf("rollout.env_step"):
+                label(t, env_state)
+                executed = guided(t, env_state, logits)
+                env_state, _, acc = env_step_plain(
+                    logits, value, draws, t, env_state, acc, traj, obs_rows,
+                    cfg, bank, exec_action=executed)
+                reset_hidden(t)
+                reset_guide(t)
 
     obs = inputs[length]
     if hidden is None:

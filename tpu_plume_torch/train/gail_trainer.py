@@ -29,7 +29,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import time
 from typing import Any
 
 import numpy as np
@@ -41,6 +40,8 @@ from tpu_plume_torch.core.config import TrainConfig
 from tpu_plume_torch.core.device import resolve_device
 from tpu_plume_torch.core.support import check_ppo
 from tpu_plume_torch.models.discriminator import Discriminator, bce_with_logits
+from tpu_plume_torch.obsv import trace
+from tpu_plume_torch.obsv.metrics import TrainLogger
 from tpu_plume_torch.rl.curriculum import curriculum_update
 from tpu_plume_torch.rl.gae import compute_gae
 from tpu_plume_torch.rl.ppo import (
@@ -88,18 +89,17 @@ def make_disc_state(cfg: TrainConfig, device, seed: int, lr: float = 1e-3):
 
 def build_gail_train_step(cfg: TrainConfig, expert_states: torch.Tensor,
                           expert_actions: torch.Tensor, *,
-                          closed_loop: bool = False, disc_batch: int = 1024,
-                          time_phases: bool = False):
+                          closed_loop: bool = False, disc_batch: int = 1024):
     """One GAIL iteration ``train_step(carry, gail_coef, draws=None,
     shuffles=None, disc_idx=None) -> (carry, stats, traj)`` (see the module
     docstring); ``expert_states`` f32[M, obs_dim] and ``expert_actions``
     i64[M] on the loop's device.  ``draws`` (``ChunkDraws``), ``shuffles``
     (one per epoch) and ``disc_idx`` (``(expert rows, policy rows)``, each
     i64[disc_batch]) replace the iteration's randomness; the indices are
-    otherwise drawn from the loop's generator after the shuffles.  With
-    ``time_phases`` the device is synchronised at the phase boundaries and
-    ``stats`` gets the wall ms of rollout, GAE, update and the
-    discriminator's step (``time/disc_ms``)."""
+    otherwise drawn from the loop's generator after the shuffles.  Each
+    call records its ``iteration`` span and the ``rollout``, ``gae``,
+    ``update``, ``disc`` and ``read`` spans under it (``obsv.trace``), as
+    ``ppo_trainer.build_train_step``'s do."""
     check_ppo(cfg.ppo)
     env_cfg, ppo_cfg, cur_cfg = cfg.env, cfg.ppo, cfg.curriculum
     T = cfg.rollout.unroll_length
@@ -114,93 +114,95 @@ def build_gail_train_step(cfg: TrainConfig, expert_states: torch.Tensor,
                    disc_idx=None):
         loop, disc = carry.ppo, carry.disc
         device = loop.rollout.obs.device
+        rec = trace.begin(device, drawn=draws is not None)
         mesh = loop.mesh
         spread = mesh is not None and mesh.world_size > 1
         n = loop.rollout.obs.shape[0]
-        marks = []
-
-        def mark():
-            if time_phases:
-                ttrain._sync(device)
-                marks.append(time.perf_counter())
-
         if mesh is not None:
             if draws is None:
                 draws = draw_chunk(loop.generator, env_cfg, T,
                                    n * mesh.world_size)
             draws = draws.envs(mesh.envs(n * mesh.world_size))
-        mark()
-        rcarry, traj, bootstrap = rollout_chunk(
-            loop.model, ttrain.push_curriculum(loop), env_cfg, T, draws=draws)
-        if debug.enabled():
-            debug.check_finite("rollout", obs=traj.obs, reward=traj.reward,
-                               value=traj.value, log_prob=traj.log_prob,
-                               bootstrap=bootstrap)
-        mark()
+        with rec.phase("rollout", ranged=False):
+            rcarry, traj, bootstrap = rollout_chunk(
+                loop.model, ttrain.push_curriculum(loop), env_cfg, T,
+                draws=draws)
+            if debug.enabled():
+                debug.check_finite("rollout", obs=traj.obs,
+                                   reward=traj.reward, value=traj.value,
+                                   log_prob=traj.log_prob,
+                                   bootstrap=bootstrap)
 
         def flat(x):
             return x.reshape((-1,) + x.shape[2:])
 
         obs_flat, act_flat = flat(traj.obs), flat(traj.action)
         act_oh = one_hot(act_flat)
-        rewards = traj.reward
-        if closed_loop:
-            with torch.no_grad():
-                imit = F.softplus(disc(obs_flat, act_oh))
-            rewards = rewards + gail_coef * imit.reshape(rewards.shape)
-        advantages, returns = compute_gae(
-            rewards, traj.value, traj.done, bootstrap, ppo_cfg.gamma,
-            ppo_cfg.gae_lambda)
-        if debug.enabled():
-            debug.check_finite("gae", advantages=advantages, returns=returns)
-        mark()
-        batch = PPOBatch(
-            obs=obs_flat, actions=act_flat,
-            old_log_probs=flat(traj.log_prob),
-            advantages=normalize_advantages(flat(advantages), ppo_cfg, mesh),
-            returns=flat(returns), old_values=flat(traj.value))
-        loss_metrics = ppo_update(loop.model, loop.optimizer, batch, ppo_cfg,
-                                  generator=loop.generator, shuffles=shuffles,
-                                  mesh=mesh, num_envs=n)
-        if debug.enabled():
-            debug.check_finite("update", **loss_metrics,
-                               **dict(loop.model.named_parameters()))
-        mark()
+        with rec.phase("gae"):
+            rewards = traj.reward
+            if closed_loop:
+                with torch.no_grad():
+                    imit = F.softplus(disc(obs_flat, act_oh))
+                rewards = rewards + gail_coef * imit.reshape(rewards.shape)
+            advantages, returns = compute_gae(
+                rewards, traj.value, traj.done, bootstrap, ppo_cfg.gamma,
+                ppo_cfg.gae_lambda)
+            if debug.enabled():
+                debug.check_finite("gae", advantages=advantages,
+                                   returns=returns)
+        with rec.phase("update", ranged=False):
+            batch = PPOBatch(
+                obs=obs_flat, actions=act_flat,
+                old_log_probs=flat(traj.log_prob),
+                advantages=normalize_advantages(flat(advantages), ppo_cfg,
+                                                mesh),
+                returns=flat(returns), old_values=flat(traj.value))
+            loss_metrics = ppo_update(loop.model, loop.optimizer, batch,
+                                      ppo_cfg, generator=loop.generator,
+                                      shuffles=shuffles, mesh=mesh,
+                                      num_envs=n)
+            if debug.enabled():
+                debug.check_finite("update", **loss_metrics,
+                                   **dict(loop.model.named_parameters()))
 
-        # The discriminator's step: expert minibatch against policy
-        # minibatch, expert labelled 1.
-        if disc_idx is None:
-            e_idx = torch.randint(0, expert_n, (disc_batch,), device=device,
-                                  generator=loop.generator)
-            p_idx = torch.randint(0, obs_flat.shape[0] * (
-                mesh.world_size if spread else 1), (disc_batch,),
-                device=device, generator=loop.generator)
-        else:
-            e_idx, p_idx = disc_idx
-        mean = torch.mean
-        if spread:
-            # this rank's samples: expert k % W, the policy's by their env
-            w, rank = mesh.world_size, mesh.rank
-            e_idx = e_idx[torch.arange(disc_batch, device=device) % w == rank]
-            envs = p_idx % (n * w)
-            p_idx = (p_idx // (n * w) * n + envs % n)[envs // n == rank]
-            mean = Share(disc_batch, mesh).mean
-        e_logit = disc(expert_states[e_idx], one_hot(expert_actions[e_idx]))
-        p_logit = disc(obs_flat[p_idx], act_oh[p_idx])
-        d_loss = (bce_with_logits(e_logit, torch.ones_like(e_logit), mean)
-                  + bce_with_logits(p_logit, torch.zeros_like(p_logit), mean))
-        d_acc = 0.5 * (mean((e_logit > 0).to(torch.float32))
-                       + mean((p_logit < 0).to(torch.float32)))
-        carry.disc_optimizer.zero_grad(set_to_none=True)
-        d_loss.backward()
-        if mesh is not None:
-            mesh.sum_grads(disc.parameters())
-            d_loss, d_acc = mesh.sum(torch.stack([d_loss.detach(), d_acc]))
-        carry.disc_optimizer.step()
-        if debug.enabled():
-            debug.check_finite("discriminator", disc_loss=d_loss,
-                               **dict(disc.named_parameters()))
-        mark()
+        with rec.phase("disc"):
+            # The discriminator's step: expert minibatch against policy
+            # minibatch, expert labelled 1.
+            if disc_idx is None:
+                e_idx = torch.randint(0, expert_n, (disc_batch,),
+                                      device=device, generator=loop.generator)
+                p_idx = torch.randint(0, obs_flat.shape[0] * (
+                    mesh.world_size if spread else 1), (disc_batch,),
+                    device=device, generator=loop.generator)
+            else:
+                e_idx, p_idx = disc_idx
+            mean = torch.mean
+            if spread:
+                # this rank's samples: expert k % W, the policy's by their env
+                w, rank = mesh.world_size, mesh.rank
+                e_idx = e_idx[torch.arange(disc_batch, device=device) % w
+                              == rank]
+                envs = p_idx % (n * w)
+                p_idx = (p_idx // (n * w) * n + envs % n)[envs // n == rank]
+                mean = Share(disc_batch, mesh).mean
+            e_logit = disc(expert_states[e_idx],
+                           one_hot(expert_actions[e_idx]))
+            p_logit = disc(obs_flat[p_idx], act_oh[p_idx])
+            d_loss = (bce_with_logits(e_logit, torch.ones_like(e_logit), mean)
+                      + bce_with_logits(p_logit, torch.zeros_like(p_logit),
+                                        mean))
+            d_acc = 0.5 * (mean((e_logit > 0).to(torch.float32))
+                           + mean((p_logit < 0).to(torch.float32)))
+            carry.disc_optimizer.zero_grad(set_to_none=True)
+            d_loss.backward()
+            if mesh is not None:
+                mesh.sum_grads(disc.parameters())
+                d_loss, d_acc = mesh.sum(torch.stack([d_loss.detach(),
+                                                      d_acc]))
+            carry.disc_optimizer.step()
+            if debug.enabled():
+                debug.check_finite("discriminator", disc_loss=d_loss,
+                                   **dict(disc.named_parameters()))
 
         new_episodes = traj.done.sum()
         new_successes = (traj.done & traj.episode.success).sum()
@@ -209,7 +211,9 @@ def build_gail_train_step(cfg: TrainConfig, expert_states: torch.Tensor,
             new_episodes, new_successes = mesh.sum(
                 torch.stack([new_episodes, new_successes]))
             mean_reward = mesh.mean(traj.reward)
-        new_episodes, new_successes = int(new_episodes), int(new_successes)
+        with rec.read():
+            new_episodes, new_successes = (int(new_episodes),
+                                           int(new_successes))
         curriculum = curriculum_update(loop.curriculum, new_successes,
                                        new_episodes, cur_cfg)
         stats: dict[str, Any] = dict(loss_metrics)
@@ -221,12 +225,9 @@ def build_gail_train_step(cfg: TrainConfig, expert_states: torch.Tensor,
             "gail/disc_loss": d_loss.detach(),
             "gail/disc_acc": d_acc,
         })
-        if time_phases:
-            for name, a, b in zip(("rollout", "gae", "update", "disc"),
-                                  marks, marks[1:]):
-                stats[f"time/{name}_ms"] = (b - a) * 1e3
         new_loop = dataclasses.replace(loop, rollout=rcarry,
                                        curriculum=curriculum)
+        rec.end()
         return dataclasses.replace(carry, ppo=new_loop), stats, traj
 
     return train_step
@@ -257,9 +258,12 @@ def train_ppo_gail(
     ``device`` defaults to ``cuda``; ``"cpu"`` runs on the CPU.  Writes
     ``checkpoint.pt`` (``model``, ``disc_model``, ``curriculum``,
     ``config``: ``eval --ckpt`` loads it), ``model/ppo_gail.pth`` and
-    ``model/discriminator.pth`` in the reference layouts.  The feedforward
-    policy over an analytic plume only: like JAX's, the trainer passes no
-    bank."""
+    ``model/discriminator.pth`` in the reference layouts, and every
+    ``ppo_trainer.LOG_EVERY`` iterations a row of ``train_log.csv``: the
+    curve's numbers and the iteration's spans (``obsv.trace.scalars``, as
+    ``train_ppo`` logs them, with the discriminator's ``time/disc_*``).
+    The feedforward policy over an analytic plume only: like JAX's, the
+    trainer passes no bank."""
     from tpu_plume_torch.data.expert import load_expert_data
 
     if cfg.ppo.arch != "mlp":
@@ -295,15 +299,16 @@ def train_ppo_gail(
     anneal_start = 0 if gail_anneal_radius is None else None
     episodes = successes = iteration = 0
     pending: list = []
+    train_logger = TrainLogger(out_dir)
 
     def consume():
         nonlocal episodes, successes, anneal_start
         # the window's stats in one transfer
         host = drain_window([{k: st[k] for k in (
             "rollout/mean_reward", "gail/disc_loss", "gail/disc_acc")}
-            for _, st, _ in pending])
+            for _, st, _, _ in pending])
         with open(curve_path, "a") as f:
-            for (it, stats, coef), h in zip(pending, host):
+            for (it, stats, coef, spans), h in zip(pending, host):
                 reward, d_loss, d_acc = (float(h[k]) for k in (
                     "rollout/mean_reward", "gail/disc_loss",
                     "gail/disc_acc"))
@@ -318,6 +323,17 @@ def train_ppo_gail(
                         f"{it_succ / max(it_eps, 1):.4f},{reward:.4f},"
                         f"{d_loss:.4f},{d_acc:.4f},{radius:.2f},"
                         f"{coef:.5f}\n")
+                if it % ttrain.LOG_EVERY == 0:
+                    scalars = {"rollout/mean_reward": reward,
+                               "gail/disc_loss": d_loss,
+                               "gail/disc_acc": d_acc,
+                               "curriculum/radius": radius,
+                               "gail/coef": coef,
+                               "progress/episodes": episodes,
+                               "progress/successes": successes}
+                    if spans is not None:
+                        scalars.update(trace.scalars(spans, pending[-1][3]))
+                    train_logger.log(it, scalars)
                 if verbose and it % 10 == 0:
                     print(f"iter {it:4d} | eps {episodes:6d} | "
                           f"succ {successes / max(episodes, 1):5.1%} | "
@@ -332,13 +348,16 @@ def train_ppo_gail(
         if gail_anneal_episodes and anneal_start is not None:
             coef *= max(0.0, 1.0 - (episodes - anneal_start)
                         / gail_anneal_episodes)
+        begun = trace.count()
         carry, stats, _ = train_step(carry, float(np.float32(coef)))
+        spans = trace.latest() if trace.count() > begun else None
         iteration += 1
-        pending.append((iteration, stats, coef))
+        pending.append((iteration, stats, coef, spans))
         if len(pending) >= max(sync_every, 1):
             consume()
     if pending:
         consume()
+    train_logger.close()
 
     state_dict = ttrain.cpu_state_dict(carry.ppo.model)
     disc_state_dict = ttrain.cpu_state_dict(carry.disc)

@@ -18,6 +18,9 @@ rows are scattered there.
 
 The trees are ``core.tree``'s; a leaf that is not a tensor (a host
 number, or None) comes back as it was.
+
+Each drain is a ``drain`` span (``obsv.trace``), attached to the newest
+iteration recorded, the one before it.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 
 from tpu_plume_torch.core.tree import flatten
+from tpu_plume_torch.obsv import trace
 
 
 def _host_dtype(dtype: torch.dtype) -> np.dtype:
@@ -58,9 +62,10 @@ def drain_window(entries: list) -> list:
     """A window of trees of device tensors on the host in one packed
     transfer: each tree with numpy arrays of the original shapes and
     dtypes in place of its tensors."""
-    leaves, rebuild = flatten(list(entries))
-    host, _ = _unpack(_pack(leaves).cpu().numpy(), leaves)
-    return rebuild(iter(host))
+    with trace.drain():
+        leaves, rebuild = flatten(list(entries))
+        host, _ = _unpack(_pack(leaves).cpu().numpy(), leaves)
+        return rebuild(iter(host))
 
 
 def _compact_rows(dones: list, fields: list, cap: int):
@@ -91,20 +96,21 @@ def drain_window_rows(entries: list, rec_keys: tuple, cap: int
     cap)`` entries are valid, and ``count`` is the true number of done
     rows in the window.  Where it exceeds ``cap`` the caller drains the
     records again (a larger cap, or ``drain_window``) to keep every row."""
-    leaves, rebuild = flatten([stats for stats, _ in entries])
-    recs = [rec for _, rec in entries]
-    field_keys = [k for k in rec_keys if k != "done"]
-    count, rows = _compact_rows([r["done"] for r in recs],
-                                [[r[k] for r in recs] for k in field_keys],
-                                cap)
-    buf = torch.cat([_pack(leaves).to(count.device),
-                     count.to(torch.float32)[None], rows]).cpu().numpy()
-    host, at = _unpack(buf, leaves)
-    host_stats = rebuild(iter(host))
-    n_rows = int(buf[at])
-    at += 1
-    rows_host = {}
-    for k in field_keys:
-        rows_host[k] = buf[at:at + cap]
-        at += cap
-    return host_stats, rows_host, n_rows
+    with trace.drain():
+        leaves, rebuild = flatten([stats for stats, _ in entries])
+        recs = [rec for _, rec in entries]
+        field_keys = [k for k in rec_keys if k != "done"]
+        count, rows = _compact_rows([r["done"] for r in recs],
+                                    [[r[k] for r in recs] for k in field_keys],
+                                    cap)
+        buf = torch.cat([_pack(leaves).to(count.device),
+                         count.to(torch.float32)[None], rows]).cpu().numpy()
+        host, at = _unpack(buf, leaves)
+        host_stats = rebuild(iter(host))
+        n_rows = int(buf[at])
+        at += 1
+        rows_host = {}
+        for k in field_keys:
+            rows_host[k] = buf[at:at + cap]
+            at += cap
+        return host_stats, rows_host, n_rows

@@ -43,6 +43,7 @@ from tpu_plume_torch.data.conc_csv import save_conc_rows
 from tpu_plume_torch.data.netcdf import EpisodeArrays, NetCDFWriter
 from tpu_plume_torch.models.actor_critic import ActorCritic
 from tpu_plume_torch.models.recurrent import RecurrentActorCritic
+from tpu_plume_torch.obsv import trace
 from tpu_plume_torch.obsv.metrics import EpisodeCSVLogger, TrainLogger
 from tpu_plume_torch.ops import gather
 from tpu_plume_torch.rl.curriculum import (
@@ -198,10 +199,13 @@ def build_train_step(cfg: TrainConfig, bank=None, time_phases: bool = False,
 
     ``draws`` (``ChunkDraws``) and ``shuffles`` (one roll offset or index
     permutation per epoch; for the recurrent policy one env permutation per
-    epoch) replace the iteration's randomness.  With
-    ``time_phases`` the device is synchronised at the phase boundaries and
-    ``stats`` gets the wall ms of ``time/rollout_ms``, ``time/gae_ms`` and
-    ``time/update_ms``.
+    epoch) replace the iteration's randomness.
+
+    Each call records its ``iteration`` span and the ``rollout``, ``gae``,
+    ``update`` and ``read`` spans under it (``obsv.trace``), which never
+    synchronise.  With ``time_phases`` the phase spans synchronise at
+    their boundaries and ``stats`` gets their host ms, the phases' wall ms,
+    as ``time/rollout_ms``, ``time/gae_ms`` and ``time/update_ms``.
 
     ``guide`` (``(init_state, step_fn)``, ``evaluation.guidance.make_guide``)
     runs in the rollout (``rollout_chunk(guide=)``; the loop's carry needs
@@ -255,16 +259,10 @@ def build_train_step(cfg: TrainConfig, bank=None, time_phases: bool = False,
 
     def train_step(loop: LoopCarry, draws: ChunkDraws | None = None,
                    shuffles=None):
-        device = loop.rollout.obs.device
+        rec = trace.begin(loop.rollout.obs.device, synced=time_phases,
+                          drawn=draws is not None)
         mesh = loop.mesh
         n = loop.rollout.obs.shape[0]
-        marks = []
-
-        def mark():
-            if time_phases:
-                _sync(device)
-                marks.append(time.perf_counter())
-
         carry = push_curriculum(loop)
         h_init = carry.hidden
         if mesh is not None:
@@ -273,69 +271,70 @@ def build_train_step(cfg: TrainConfig, bank=None, time_phases: bool = False,
                                    n * mesh.world_size)
             draws = draws.envs(mesh.envs(n * mesh.world_size))
 
-        mark()
-        carry, traj, bootstrap = rollout_chunk(loop.model, carry, env_cfg, T,
-                                               draws=draws, bank=bank,
-                                               guide=guide, oracle=oracle)
-        if debug.enabled():
-            debug.check_finite("rollout", obs=traj.obs, reward=traj.reward,
-                               value=traj.value, log_prob=traj.log_prob,
-                               bootstrap=bootstrap)
-        mark()
-        advantages, returns = compute_gae(
-            traj.reward, traj.value, traj.done, bootstrap,
-            ppo_cfg.gamma, ppo_cfg.gae_lambda)
-        if debug.enabled():
-            debug.check_finite("gae", advantages=advantages, returns=returns)
-        mark()
+        with rec.phase("rollout", ranged=False):
+            carry, traj, bootstrap = rollout_chunk(
+                loop.model, carry, env_cfg, T, draws=draws, bank=bank,
+                guide=guide, oracle=oracle)
+            if debug.enabled():
+                debug.check_finite("rollout", obs=traj.obs,
+                                   reward=traj.reward, value=traj.value,
+                                   log_prob=traj.log_prob,
+                                   bootstrap=bootstrap)
+        with rec.phase("gae"):
+            advantages, returns = compute_gae(
+                traj.reward, traj.value, traj.done, bootstrap,
+                ppo_cfg.gamma, ppo_cfg.gae_lambda)
+            if debug.enabled():
+                debug.check_finite("gae", advantages=advantages,
+                                   returns=returns)
 
-        update_model = (loop.model if update_dtypes is None
-                        else loop.model.twin(*update_dtypes))
-        if h_init is not None:
-            # Sequence-major: the replay needs the time axis.
-            adv_n = normalize_advantages(advantages, ppo_cfg, mesh)
-            ret = (adv_n + traj.value if ppo_cfg.bug_compat_returns
-                   else returns)
-            batch = RecurrentPPOBatch(
-                obs=traj.obs, actions=traj.action,
-                old_log_probs=traj.log_prob, advantages=adv_n, returns=ret,
-                old_values=traj.value,
-                resets=torch.cat([torch.zeros_like(traj.done[:1]),
-                                  traj.done[:-1]]),
-                h_init=h_init, oracle_actions=traj.oracle_action)
-            loss_metrics = ppo_update_recurrent(
-                update_model, loop.optimizer, batch, ppo_cfg,
-                generator=loop.generator, shuffles=shuffles, mesh=mesh)
-        else:
-            def flat(x):
-                return x.reshape((-1,) + x.shape[2:])
-
-            adv_n = normalize_advantages(flat(advantages), ppo_cfg, mesh)
-            if ppo_cfg.bug_compat_returns:
-                # Reference quirk: returns built from normalized advantages.
-                ret = adv_n + flat(traj.value)
+        with rec.phase("update", ranged=False):
+            update_model = (loop.model if update_dtypes is None
+                            else loop.model.twin(*update_dtypes))
+            if h_init is not None:
+                # Sequence-major: the replay needs the time axis.
+                adv_n = normalize_advantages(advantages, ppo_cfg, mesh)
+                ret = (adv_n + traj.value if ppo_cfg.bug_compat_returns
+                       else returns)
+                batch = RecurrentPPOBatch(
+                    obs=traj.obs, actions=traj.action,
+                    old_log_probs=traj.log_prob, advantages=adv_n, returns=ret,
+                    old_values=traj.value,
+                    resets=torch.cat([torch.zeros_like(traj.done[:1]),
+                                      traj.done[:-1]]),
+                    h_init=h_init, oracle_actions=traj.oracle_action)
+                loss_metrics = ppo_update_recurrent(
+                    update_model, loop.optimizer, batch, ppo_cfg,
+                    generator=loop.generator, shuffles=shuffles, mesh=mesh)
             else:
-                ret = flat(returns)
-            batch = PPOBatch(
-                obs=flat(traj.obs),
-                actions=flat(traj.action),
-                old_log_probs=flat(traj.log_prob),
-                advantages=adv_n,
-                returns=ret,
-                old_values=flat(traj.value),
-                weights=(None if guide is None else
-                         1.0 - flat(traj.override).to(torch.float32)),
-                oracle_actions=(None if oracle is None
-                                else flat(traj.oracle_action)),
-            )
-            loss_metrics = ppo_update(update_model, loop.optimizer, batch,
-                                      ppo_cfg, generator=loop.generator,
-                                      shuffles=shuffles, mesh=mesh,
-                                      num_envs=n)
-        if debug.enabled():
-            debug.check_finite("update", **loss_metrics,
-                               **dict(loop.model.named_parameters()))
-        mark()
+                def flat(x):
+                    return x.reshape((-1,) + x.shape[2:])
+
+                adv_n = normalize_advantages(flat(advantages), ppo_cfg, mesh)
+                if ppo_cfg.bug_compat_returns:
+                    # Reference quirk: returns from normalized advantages.
+                    ret = adv_n + flat(traj.value)
+                else:
+                    ret = flat(returns)
+                batch = PPOBatch(
+                    obs=flat(traj.obs),
+                    actions=flat(traj.action),
+                    old_log_probs=flat(traj.log_prob),
+                    advantages=adv_n,
+                    returns=ret,
+                    old_values=flat(traj.value),
+                    weights=(None if guide is None else
+                             1.0 - flat(traj.override).to(torch.float32)),
+                    oracle_actions=(None if oracle is None
+                                    else flat(traj.oracle_action)),
+                )
+                loss_metrics = ppo_update(update_model, loop.optimizer, batch,
+                                          ppo_cfg, generator=loop.generator,
+                                          shuffles=shuffles, mesh=mesh,
+                                          num_envs=n)
+            if debug.enabled():
+                debug.check_finite("update", **loss_metrics,
+                                   **dict(loop.model.named_parameters()))
 
         new_episodes = traj.done.sum()
         new_successes = (traj.done & traj.episode.success).sum()
@@ -344,7 +343,9 @@ def build_train_step(cfg: TrainConfig, bank=None, time_phases: bool = False,
             new_episodes, new_successes = mesh.sum(
                 torch.stack([new_episodes, new_successes]))
             mean_reward = mesh.mean(traj.reward)
-        new_episodes, new_successes = int(new_episodes), int(new_successes)
+        with rec.read():
+            new_episodes, new_successes = (int(new_episodes),
+                                           int(new_successes))
         curriculum = curriculum_update(loop.curriculum, new_successes,
                                        new_episodes, cur_cfg)
 
@@ -361,11 +362,11 @@ def build_train_step(cfg: TrainConfig, bank=None, time_phases: bool = False,
             stats["grads"] = full_batch_grads(loop.model, batch, ppo_cfg,
                                               mesh)
         if time_phases:
-            for name, a, b in zip(("rollout", "gae", "update"), marks,
-                                  marks[1:]):
-                stats[f"time/{name}_ms"] = (b - a) * 1e3
+            for name in trace.PHASES:
+                stats[f"time/{name}_ms"] = rec.record.get(name).host_ms
         new_loop = dataclasses.replace(loop, rollout=carry,
                                        curriculum=curriculum)
+        rec.end()
         return new_loop, stats, traj
 
     return train_step
@@ -395,18 +396,20 @@ def init_loop(cfg: TrainConfig, device, bank=None,
     starts at zeros, and a ``guide``'s state at its initial state.
     ``init_params``, a state_dict of the policy (for the feedforward policy
     the reference ``.pth`` layout), replaces the initial params (the
-    optimizer starts fresh)."""
-    device = torch.device(device)
-    model, optimizer = make_train_state(cfg, device, cfg.seed)
-    if init_params is not None:
-        model.load_state_dict(init_params)
-    generator = torch.Generator(device=device).manual_seed(cfg.seed)
-    hidden = (model.initial_state(cfg.rollout.num_envs, device)
-              if cfg.ppo.arch == "lstm" else None)
-    rollout = init_rollout(cfg.env, cfg.rollout.num_envs, generator,
-                           radius=cfg.curriculum.initial_radius,
-                           explore_bonus=cfg.env.explore_bonus_init,
-                           bank=bank, hidden=hidden, guide=guide)
+    optimizer starts fresh).  Recorded as the ``init_loop`` span
+    (``obsv.trace``)."""
+    with trace.init_loop():
+        device = torch.device(device)
+        model, optimizer = make_train_state(cfg, device, cfg.seed)
+        if init_params is not None:
+            model.load_state_dict(init_params)
+        generator = torch.Generator(device=device).manual_seed(cfg.seed)
+        hidden = (model.initial_state(cfg.rollout.num_envs, device)
+                  if cfg.ppo.arch == "lstm" else None)
+        rollout = init_rollout(cfg.env, cfg.rollout.num_envs, generator,
+                               radius=cfg.curriculum.initial_radius,
+                               explore_bonus=cfg.env.explore_bonus_init,
+                               bank=bank, hidden=hidden, guide=guide)
     return LoopCarry(model=model, optimizer=optimizer, rollout=rollout,
                      curriculum=curriculum_init(cfg.curriculum,
                                                 cfg.env.explore_bonus_init),
@@ -752,7 +755,12 @@ def train_ppo(
     excludes ``init_params``.  ``use_tensorboard`` logs the scalars and
     the params' and full-batch gradients' histograms to ``out_dir/tb``
     every ``LOG_EVERY`` iterations; ``profile_steps`` traces iterations 3
-    to 2 + ``profile_steps``, as JAX's does (``_Profile``)."""
+    to 2 + ``profile_steps``, as JAX's does (``_Profile``).  Each logged
+    row of ``train_log.csv`` (and TensorBoard) also gets the iteration's
+    spans (``obsv.trace.scalars``): ``time/rollout_host_ms``,
+    ``time/gae_host_ms``, ``time/update_host_ms``, ``time/read_ms``,
+    ``time/drain_ms`` (its window's), and on the card the phases'
+    ``time/<phase>_device_ms``."""
     device = resolve_device(device)
     check_env(cfg.env)
     check_ppo(cfg.ppo)
@@ -834,7 +842,7 @@ def train_ppo(
             pending.clear()
             compact = csv_logger is not None and capture is None
             if compact:
-                pairs = [(stats, rec) for _, stats, rec in window]
+                pairs = [(stats, rec) for _, stats, rec, _ in window]
                 for cap in record_caps:
                     host_stats, rows, row_count = drain_window_rows(
                         pairs, REC_KEYS, cap)
@@ -842,8 +850,9 @@ def train_ppo(
                         break
                 host = [(stats, None) for stats in host_stats]
             else:
-                host = drain_window([(stats, rec) for _, stats, rec in window])
-            for (it, _, _), (stats, rec) in zip(window, host):
+                host = drain_window([(stats, rec)
+                                     for _, stats, rec, _ in window])
+            for (it, _, _, spans), (stats, rec) in zip(window, host):
                 scalars = {k: float(v) for k, v in stats.items()
                            if k != "grads"}
                 # NaN tripwire: the whole-iteration loss is the canary.
@@ -859,6 +868,8 @@ def train_ppo(
                 episodes += stats["rollout/episodes"]
                 successes += stats["rollout/successes"]
                 if it % LOG_EVERY == 0 or episodes >= cfg.total_episodes:
+                    if spans is not None:
+                        scalars.update(trace.scalars(spans, window[-1][3]))
                     log(it, stats, scalars)
             if compact:
                 if row_count <= cap:
@@ -866,7 +877,7 @@ def train_ppo(
                         {"done": np.arange(cap) < row_count, **rows})
                 else:
                     # Both caps overflowed: the full records, every row.
-                    for rec in drain_window([rec for _, _, rec in window]):
+                    for rec in drain_window([rec for _, _, rec, _ in window]):
                         csv_logger.log_records({k: rec[k] for k in REC_KEYS})
             if snapshot_every and window:
                 it_last = window[-1][0]
@@ -888,7 +899,9 @@ def train_ppo(
             if profile_steps and iteration == 1:
                 # warms up over iteration 2, traces 3 to 2 + profile_steps
                 profiler = _Profile(device, out_dir, profile_steps)
+            begun = trace.count()
             loop, stats, traj = train_step(loop)
+            spans = trace.latest() if trace.count() > begun else None
             iteration += 1
             env_steps += per_iter_steps
             if t_steady is None:
@@ -898,7 +911,7 @@ def train_ppo(
                 it_at_steady = iteration
             pending.append((iteration, stats,
                             _records(traj, capture is not None)
-                            if need_records else None))
+                            if need_records else None, spans))
             if len(pending) >= sync_every:
                 consume()
             if profiler is not None:
