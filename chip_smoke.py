@@ -38,12 +38,20 @@ outside a checkout of the repository.  Phases, each of which must pass:
    and 2-D flight, one-frame [4, 1, 8, 500, 500]) with frames of 100 env
    steps, N = 4096 and 2^20, both turbulence flag sets, within the plume
    tolerance, two calls bit-equal, and bit-equal with the turbulence off;
+   the bank step kernel (the env step around the bank sample, one launch)
+   against ``env_step_plain`` over the [4, 8, 8, 500, 500] bank of
+   wrf_les_3d in 3-D flight at N = 32768 and the [64, 500, 500] static
+   bank of static_subcell in 2-D flight at N = 4096, 128 steps from three
+   starts each with radii of 40-300, every trajectory, record, next-obs,
+   state and totals tensor bit-equal;
 4. each kernel's time, its plain version's and the least time the card
    could take for the same bytes and operations (the plume sample and the
    env step with the host cost of each piece of their wrappers; the env
    step on ppo_v2_0's isotropic plume and on wrf_les's anisotropic one, and
    on ppo_v2_0 without and with the executed action in alternating
-   blocks);
+   blocks; the bank step against ``env_step_plain`` per step in
+   alternating blocks at N = 4096 and 32768, with its device time and
+   the bound ``bank_step_bytes``);
    for the
    fused PPO
    gradients (three launches: the row kernel, the split-K dW2 kernel and
@@ -75,9 +83,9 @@ outside a checkout of the repository.  Phases, each of which must pass:
    a per-episode wind, one env-step launch per env step, the 6->256->128
    network); wrf_les_3d (3-D flight through the
    [4, 8, 8, 500, 500] bank of ``--synth-bank 3d``, the 7->256->128 network;
-   one trilinear launch a sample); the 64-field static bank of
-   ``--synth-bank static`` read between cells (one bilinear launch a
-   sample); ppo_v2_0 with the recurrent policy (``--arch lstm``, 6 -> 128
+   one bank-step launch per env step); the 64-field static bank of
+   ``--synth-bank static`` read between cells (one bank-step launch per
+   env step); ppo_v2_0 with the recurrent policy (``--arch lstm``, 6 -> 128
    -> LayerNorm -> LSTM 128 -> {5, 1}, f32, the BPTT update over 512-env
    sequence minibatches; one env-step launch per env step), its rollout
    chunk profiled and its iteration not (the processing of its 135 k
@@ -244,8 +252,9 @@ the trained and the untrained ppo_v2_0 and wrf_les params, phase 12, the
 guided CLI); ``--only stop-lstm`` runs phases 9 and 10 alone, and
 ``--only eval-guides`` the learning check and phase 12, ``--only
 imitation`` phase 13 on an expert file of its own, ``--only flux``
-the learning check and phase 14, and ``--only scale-out`` phase 15.
-Each prints its JSON
+the learning check and phase 14, ``--only scale-out`` phase 15, and
+``--only bank-step`` the bank step kernel's parity and times and the
+wrf_les_3d and static-bank main paths.  Each prints its JSON
 record, each phase's seconds and the card's name and power limit.
 
 Then it prints a JSON line of the eval phases, one of the recurrent main
@@ -325,6 +334,11 @@ SAMPLE_LAYOUTS = {"static": ((64, 500, 500), False),
                   "volumes_2d_flight": ((4, 8, 8, 500, 500), False),
                   "one_frame": ((4, 1, 8, 500, 500), True)}
 SAMPLE_SPF = 100.0
+# The bank step kernel against env_step_plain: wrf_les_3d's envs over the
+# main path's bank, a chunk from each of three starts.
+BANK_STEP_N = 32768
+BANK_STEP_STEPS = 128
+BANK_STEP_SEEDS = (3, 1009, 2718281828)
 V10_FLAGS = dict(turbulence_signed_normal=True, tke_abs_times_two=True)
 # The env-step kernel: the env cases of tests/test_torch_env.py (the v1_1,
 # v1_0 with elastic walls, and delta rewards with its in-plume, depth and
@@ -1358,13 +1372,14 @@ def to_device(obj, device):
 
 
 KERNEL_NAMES = ("plume_sample", "env_step", "ppo_fused", "ppo_dw2",
-                "ppo_reduce", "bilinear", "trilinear_zyx")
+                "ppo_reduce", "bilinear", "trilinear_zyx", "bank_step")
 
 
 def zero_counts(k) -> None:
     """Set every kernel's launch count to 0 (``k`` holds the plume, ppo and
     gather ops modules)."""
     k.plume.launches = k.plume.env_step_launches = 0
+    k.plume.bank_step_launches = 0
     k.fused_ops.launches = k.fused_ops.dw2_launches = 0
     k.fused_ops.reduce_launches = 0
     k.gather.bilinear.launches = k.gather.trilinear_zyx.launches = 0
@@ -1374,7 +1389,8 @@ def read_counts(k) -> dict:
     return dict(zip(KERNEL_NAMES, (
         k.plume.launches, k.plume.env_step_launches, k.fused_ops.launches,
         k.fused_ops.dw2_launches, k.fused_ops.reduce_launches,
-        k.gather.bilinear.launches, k.gather.trilinear_zyx.launches)))
+        k.gather.bilinear.launches, k.gather.trilinear_zyx.launches,
+        k.plume.bank_step_launches)))
 
 
 def count_diff(after: dict, before: dict) -> dict:
@@ -1404,12 +1420,11 @@ def expected_counts(cfg, bank, iters: int) -> dict:
     """Launches of each kernel in ``iters`` train iterations by the port's
     design: on the analytic plume one env-step launch per env step (action
     sample, move, sample, reward, auto-reset and trajectory rows), and no
-    plume sample; over a bank two field samples per env step (the step and
-    the branchless reset), a sub-cell sample one launch of the sample
-    kernel (bilinear for a static bank, trilinear for a time-varying or 3-D
-    one); each minibatch step of the fused update one launch each of the
-    row kernel, the dW2 kernel and the reduction (none under distilled
-    PPO: a labelled batch takes autodiff, as in JAX)."""
+    plume sample; over a bank read between cells one bank-step launch per
+    env step (the same step around the bank's sub-cell sample), and no
+    sample launch; each minibatch step of the fused update one launch each
+    of the row kernel, the dW2 kernel and the reduction (none under
+    distilled PPO: a labelled batch takes autodiff, as in JAX)."""
     env, ppo = cfg.env, cfg.ppo
     n, t = cfg.rollout.num_envs, cfg.rollout.unroll_length
     want = dict.fromkeys(KERNEL_NAMES, 0)
@@ -1417,7 +1432,7 @@ def expected_counts(cfg, bank, iters: int) -> dict:
     if kernel == "plume_sample":
         want["env_step"] = iters * t
     elif kernel is not None:
-        want[kernel] = iters * 2 * t
+        want["bank_step"] = iters * t
     if ppo.fused_update and ppo.distill_oracle is None:
         want["ppo_fused"] = want["ppo_dw2"] = want["ppo_reduce"] = (
             iters * ppo.epochs * (n * t // ppo.minibatch_size))
@@ -1562,6 +1577,208 @@ def small_gail_steps(ttrain, cfg, cpu, gpu):
             c, 0.1, draws=draws, shuffles=shuffles,
             disc_idx=tuple(x.to(dev) for x in rows)), carry))
     return out[0][0], out[1][0], out[0][1], out[1][1]
+
+
+def main_bank(gridded, cfg, seed: int = 0):
+    """The bank of ``--synth-bank 3d`` for ``cfg`` on the card, [4, 8, 8,
+    500, 500] at wrf_les_3d's grid, as the main path's."""
+    import torch
+
+    return gridded.synthesize_3d_bank(
+        torch.Generator(device="cuda").manual_seed(seed), cfg)
+
+
+def bank_step_start(rollout, cfg, bank, n: int, seed: int):
+    """Fresh episodes of ``n`` envs over ``bank`` with radii of 40-300, so
+    that some reach their source and reset within a chunk."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    carry = rollout.init_rollout(cfg, n, g, bank=bank)
+    state = carry.env_state.replace(radius=40.0 + 260.0 * torch.rand(
+        n, device="cuda", generator=g))
+    return state, carry.accum, g
+
+
+def bank_chunk(plume, rollout, cfg, bank, state, accum, g, steps: int,
+               kernel: bool):
+    """``steps`` steps from ``state`` through the bank step kernel or
+    ``env_step_plain``, with logits, values and draws from ``g``: (traj,
+    obs rows, state, totals)."""
+    import torch
+
+    n = state.pos.shape[0]
+    draws = rollout.draw_chunk(g, cfg, steps, n)
+    logits = 2.0 * torch.randn(steps, n, cfg.num_actions, device="cuda",
+                               generator=g)
+    values = torch.randn(steps, n, device="cuda", generator=g)
+    s, acc = rollout.own_copy(state), rollout.own_copy(accum)
+    traj, obs = rollout.empty_trajectory(steps, n, cfg, "cuda")
+    stepper = (plume.BankStepper(s, acc, draws, traj, obs, cfg, bank)
+               if kernel else None)
+    for t in range(steps):
+        if kernel:
+            stepper(t, logits[t], values[t])
+        else:
+            s, _, acc = rollout.env_step_plain(logits[t], values[t], draws, t,
+                                               s, acc, traj, obs, cfg, bank)
+    return traj, obs, s, acc
+
+
+def bank_step_apart(plume, got, want) -> dict:
+    """{tensor: elements not bit-equal} over every trajectory, record,
+    next-obs, state and totals tensor of two chunks; empty where all are
+    equal."""
+    import torch
+
+    (traj, obs, s, acc), (w_traj, w_obs, w_s, w_acc) = got, want
+    pairs = {"obs rows": (obs[1:], w_obs[1:])}
+    for f in dataclasses.fields(traj):
+        x, y = getattr(traj, f.name), getattr(w_traj, f.name)
+        if f.name == "episode":
+            for e in dataclasses.fields(x):
+                pairs["record " + e.name] = (getattr(x, e.name),
+                                             getattr(y, e.name))
+        elif x is not None and f.name != "obs":
+            pairs["step " + f.name] = (x, y)
+    for f in dataclasses.fields(s):
+        if f.name == "field":
+            for e in ("source", "seed", "idx"):
+                pairs["field " + e] = (getattr(s.field, e),
+                                       getattr(w_s.field, e))
+        else:
+            pairs[f.name] = (getattr(s, f.name), getattr(w_s, f.name))
+    for name in plume.ACCUM_FIELDS:
+        pairs["accum " + name] = (getattr(acc, name), getattr(w_acc, name))
+    return {name: int((x != y).sum()) for name, (x, y) in pairs.items()
+            if not torch.equal(x, y)}
+
+
+def check_bank_step_kernel(get_preset, gridded, plume, rollout) -> dict:
+    """The bank step kernel against ``env_step_plain`` on the card over
+    BANK_STEP_STEPS steps of each bank main path, from BANK_STEP_SEEDS
+    starts: wrf_les_3d at BANK_STEP_N envs over the main path's 3-D bank in
+    3-D flight, and static_subcell (ppo_v2_0 over a [64, 500, 500] static
+    bank read between cells) at MAIN_N envs in 2-D flight; each path on its
+    own state with the same logits, values and draws: every trajectory,
+    record, next-obs, state and totals tensor bit-equal, one launch a step,
+    envs finishing and resetting.  Returns {label: {seed: finished envs}}."""
+    import torch
+
+    w3 = get_preset("wrf_les_3d").env
+    st = dataclasses.replace(get_preset("ppo_v2_0").env,
+                             plume_model="gridded", subcell_sampling=True)
+    cases = (("wrf_les_3d", w3, lambda: main_bank(gridded, w3), BANK_STEP_N),
+             ("static_subcell", st, lambda: gridded.synthesize_bank(
+                 torch.Generator(device="cuda").manual_seed(0), st,
+                 num_fields=64), MAIN_N))
+    out = {}
+    for label, cfg, make_bank, n in cases:
+        bank = make_bank()
+        out[label] = {}
+        for seed in BANK_STEP_SEEDS:
+            state, accum, g = bank_step_start(rollout, cfg, bank, n, seed)
+            runs = {}
+            for kernel in (True, False):
+                gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+                before = plume.bank_step_launches
+                runs[kernel] = bank_chunk(plume, rollout, cfg, bank, state,
+                                          accum, gen, BANK_STEP_STEPS, kernel)
+                assert plume.bank_step_launches - before == (
+                    BANK_STEP_STEPS if kernel else 0)
+            torch.cuda.synchronize()
+            apart = bank_step_apart(plume, runs[True], runs[False])
+            dones = int(runs[True][0].done.sum())
+            log(f"parity bank_step {label} {list(bank.conc.shape)} N={n} "
+                f"seed {seed}: {BANK_STEP_STEPS} steps, {dones} envs "
+                f"finished; tensors not bit-equal: {apart or 'none'}")
+            assert not apart, (label, seed, apart)
+            assert dones > 0, (label, seed, "no env finished")
+            out[label][seed] = dones
+        del bank, runs
+        torch.cuda.empty_cache()
+    return out
+
+
+def bank_step_bytes(plume, gather, cfg, bank, traj, t: int) -> int:
+    """Bytes step ``t`` of ``traj`` over ``bank`` must move at least:
+    ``env_step_bytes`` with the step's finished envs, each env's bank row
+    read (and a finished env's written, with its fresh row's source read),
+    and the bank cells that the post-move sample's and the fresh samples'
+    corners touch, each read once."""
+    import torch
+
+    n = traj.action.shape[1]
+    done = traj.done[t]
+    dones = int(done.sum())
+    ep = traj.episode
+    src = torch.stack([ep.source_x[t], ep.source_y[t]], -1)
+    rows = torch.cdist(src, bank.source).argmin(-1).to(torch.int32)
+    corners = gather.sample_moved_bytes(bank, rows, traj.pos[t],
+                                        ep.steps[t], cfg)
+    corners -= n * (4 * cfg.pos_dim + 4 * 5)
+    if dones:
+        fresh = torch.arange(dones, device=rows.device, dtype=torch.int32)
+        fresh = fresh % bank.conc.shape[0]
+        zero = torch.zeros(dones, cfg.pos_dim, device=rows.device)
+        corners += (gather.sample_moved_bytes(bank, fresh, zero, None, cfg)
+                    - dones * (4 * cfg.pos_dim + 4 * 5))
+    return (plume.env_step_bytes(cfg, n, dones, greedy=False)
+            + 4 * n + (4 + 8) * dones + corners)
+
+
+def time_bank_step_kernel(get_preset, gridded, gather, plume,
+                          rollout) -> dict:
+    """The bank step kernel's per-step time against ``env_step_plain``'s
+    over wrf_les_3d's bank at N = 4096 and BANK_STEP_N, in alternating
+    blocks (kernel, plain, plain, kernel) of BANK_STEP_STEPS steps from
+    the same start, CUDA events around each block; the kernel's device
+    time from the profiler; and the bound: ``bank_step_bytes`` of the
+    steps' mean over the memory rate.  Returns {N: times}."""
+    import torch
+
+    cfg = get_preset("wrf_les_3d").env
+    bank = main_bank(gridded, cfg)
+    out = {}
+    for n in (MAIN_N, BANK_STEP_N):
+        state, accum, _ = bank_step_start(rollout, cfg, bank, n, seed=9)
+        blocks = {True: [], False: []}
+        for kernel in (True, False, False, True):
+            gen = torch.Generator(device="cuda").manual_seed(10)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            traj = bank_chunk(plume, rollout, cfg, bank, state, accum, gen,
+                              BANK_STEP_STEPS, kernel)[0]
+            end.record()
+            torch.cuda.synchronize()
+            blocks[kernel].append(start.elapsed_time(end) / BANK_STEP_STEPS)
+        moved = sum(bank_step_bytes(plume, gather, cfg, bank, traj, t)
+                    for t in range(BANK_STEP_STEPS)) / BANK_STEP_STEPS
+        bound_ms = moved / HBM_BYTES_PER_S * 1e3
+        s, acc = rollout.own_copy(state), rollout.own_copy(accum)
+        draws = rollout.draw_chunk(torch.Generator(device="cuda")
+                                   .manual_seed(11), cfg, 1, n)
+        one, obs = rollout.empty_trajectory(1, n, cfg, "cuda")
+        stepper = plume.BankStepper(s, acc, draws, one, obs, cfg, bank)
+        logits, value = policy_outputs(cfg, n, torch.Generator(
+            device="cuda").manual_seed(12))
+        device_ms = kernel_device_ms(lambda: stepper(0, logits, value),
+                                     "bank_step_kernel")
+        out[n] = dict(ms_blocks=blocks[True], plain_ms_blocks=blocks[False],
+                      ms=sum(blocks[True]) / 2,
+                      plain_ms=sum(blocks[False]) / 2, device_ms=device_ms,
+                      bound_ms=bound_ms, bytes=moved,
+                      share=(None if device_ms is None
+                             else bound_ms / device_ms))
+        log(f"time bank_step wrf_les_3d N={n}: per step {out[n]['ms']:.5f} "
+            f"ms (blocks {blocks[True]}), plain {out[n]['plain_ms']:.5f} ms "
+            f"(blocks {blocks[False]}), on the device {device_ms} ms, bound "
+            f"{bound_ms:.6f} ms (bytes: {moved:.0f} B a step)")
+    del bank
+    torch.cuda.empty_cache()
+    return out
 
 
 def run_main_path(ttrain, rollout_chunk, k, label, cfg, bank=None, iters=3,
@@ -3804,7 +4021,9 @@ def run_only(only, m, v20, wl, phase_done) -> None:
     and 10; ``--only eval-guides``: the learning check and phase 12;
     ``--only imitation``: phase 13 on an expert file of its own; ``--only
     flux``: the learning check and phase 14; ``--only scale-out``: phase
-    15.  Each prints its JSON record."""
+    15; ``--only bank-step``: the bank step kernel's checks and times, and
+    the wrf_les_3d and static-bank main paths.  Each prints its JSON
+    record."""
     if only == "stop-lstm":
         _, stop_lstm, _ = stop_lstm_phases(m.ttrain, m.ev, m.k, m.cli_main,
                                            v20, phase_done)
@@ -3835,6 +4054,36 @@ def run_only(only, m, v20, wl, phase_done) -> None:
                                                 minibatch_size=MAIN_MB))
         scale_out_phase(m, v20, w3)
         phase_done("scale-out")
+        return
+    if only == "bank-step":
+        import torch
+
+        out = {"parity": check_bank_step_kernel(m.get_preset, m.gridded,
+                                                m.plume, m.rollout),
+               "time": time_bank_step_kernel(m.get_preset, m.gridded,
+                                             m.k.gather, m.plume, m.rollout)}
+        phase_done("bank step kernel")
+        w3 = m.get_preset("wrf_les_3d")
+        w3 = w3.replace(ppo=dataclasses.replace(w3.ppo,
+                                                minibatch_size=MAIN_MB))
+        st = v20.replace(env=dataclasses.replace(
+            v20.env, plume_model="gridded", subcell_sampling=True))
+        for label, cfg, bank, iters in (
+                ("wrf_les_3d", w3, main_bank(m.gridded, w3.env), 3),
+                ("static_subcell", st, m.gridded.synthesize_bank(
+                    torch.Generator(device="cuda").manual_seed(0), st.env,
+                    num_fields=64), 2)):
+            run = run_main_path(m.ttrain, m.rollout.rollout_chunk, m.k, label,
+                                cfg, bank, iters=iters)
+            out[label] = {key: run[key] for key in (
+                "counts", "sps", "whole_ms", "busy", "busy_unprofiled",
+                "rollout", "gae", "update", "max_memory_allocated")}
+            out[label]["rollout_launches_per_step"] = (
+                run["rollout_profile"]["launches_per_step"])
+            del bank, run
+            torch.cuda.empty_cache()
+        phase_done("bank main paths")
+        log(json.dumps({"bank_step": out}, default=str))
         return
     if only == "imitation":
         with tempfile.TemporaryDirectory() as tmp:
@@ -4737,13 +4986,14 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--only", choices=("guide", "stop-lstm", "eval-guides",
-                           "imitation", "flux", "scale-out"),
+                           "imitation", "flux", "scale-out", "bank-step"),
         help="after the build, run only the guide's phases (with the "
              "untrained policies' guided evals), only phases 9 and 10, "
              "only the learning check and phase 12, only phase 13, the "
              "imitation phase, only the learning check and phase 14, "
-             "the flux studies, or only phase 15, the train flags and "
-             "data parallel")
+             "the flux studies, only phase 15, the train flags and "
+             "data parallel, or only the bank step kernel's checks and "
+             "times and the two bank main paths")
     args = parser.parse_args(argv)
     import torch
 
@@ -4815,6 +5065,10 @@ def main(argv=None) -> int:
     gather_time = time_gather_kernels(gather)
     sample_err = check_sample_kernels(get_preset, gridded, gather)
     sample_time = time_sample_kernels(get_preset, gridded, gather)
+    bank_step_parity = check_bank_step_kernel(get_preset, gridded, plume,
+                                              rollout)
+    bank_step_time = time_bank_step_kernel(get_preset, gridded, gather,
+                                           plume, rollout)
     phase_done("ppo and gather kernels")
 
     small = (get_preset, RolloutConfig, ttrain, draw_chunk, k)
@@ -5171,6 +5425,21 @@ def main(argv=None) -> int:
             "sample_max_abs_err": sample_err[name],
             "sample_large_n": sample_time[name][LARGE_N],
         })
+    kernels.append({
+        "name": "bank_step",
+        "route": "cuda",
+        "source": "tpu_plume_torch/csrc/plume.cu",
+        "replaces": "none: the env step around the bank sample, which "
+                    "env_step_plain takes in about 80 launches",
+        "launches": wrf["total_counts"]["bank_step"],
+        "launches_timed": wrf["counts"]["bank_step"],
+        "static_launches_timed": static["counts"]["bank_step"],
+        "rollout_launches_per_step":
+            wrf["rollout_profile"]["launches_per_step"],
+        "parity_dones": bank_step_parity,
+        **bank_step_time[BANK_STEP_N],
+        "n4096": bank_step_time[MAIN_N],
+    })
     log("host split (ns per call) of the bank sample wrapper: "
         + json.dumps(sample_time["split_ns"]) + "; of the trilinear gather "
         "wrapper: " + json.dumps(gather_time["split_ns"]))

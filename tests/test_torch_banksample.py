@@ -20,6 +20,7 @@ on the CPU, where the wrapper runs its plain version.
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -304,9 +305,12 @@ def test_field_bank_is_frozen_and_copies_drop_the_cached_launch():
 
 
 def test_build_key_covers_the_included_header(tmp_path, monkeypatch):
+    # both sources include the bank sample, which includes the hash
     for name in ("plume", "gather"):
         with open(build.source_path(name)) as fh:
-            assert '#include "cell_hash.cuh"' in fh.read()
+            assert '#include "bank_sample.cuh"' in fh.read()
+    with open(os.path.join(build.CSRC, "bank_sample.cuh")) as fh:
+        assert '#include "cell_hash.cuh"' in fh.read()
     (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
     header = tmp_path / "h.cuh"
     header.write_text("// one\n")

@@ -24,7 +24,14 @@ plain path's state): integers, bools and positions equal, floats at the env
 tolerance (rtol 1e-5, atol 1e-4), at every analytic mode (isotropic and
 anisotropic, one or three sources, 2-D and 3-D flight, with and without
 wind advection); a rollout on the card launches it once a step and leaves
-the carry it was given as it was.  The plume kernel is held to its plain
+the carry it was given as it was.  The bank step kernel (the same step
+around a bank's sub-cell sample) is held to ``env_step_plain`` over a bank
+on the card to the bit: every trajectory, record, next-obs, state and
+totals tensor of a 128-step chunk with resets, at each bank layout (static,
+frames, one-frame and two-frame 3-D), N = 4096 and 32768, sampled and
+greedy, and with an executed action at each of its instantiations; a
+rollout over a bank on the card launches it once a step and no sample
+kernel.  The plume kernel is held to its plain
 version at the same modes.  The evaluation harness on the card is held to
 the same evaluation on the CPU, given the same draws: steps and stop flags
 equal in all but at most one of 64 episodes (a position one float ulp
@@ -708,6 +715,185 @@ def test_env_stepper_refuses_an_executed_action_without_override_rows(card):
     with pytest.raises(TypeError):
         stepper(0, logits, value, torch.zeros(n, dtype=torch.int32,
                                               device=card))
+
+
+# The bank step kernel's layouts: (bank shape, the bank's wind: None, a
+# [K, 2] wind (0) or a [K, T, 2] one (T), 3-D flight).  The first four are
+# the main layouts, each in the flight it is flown in; the others fly the
+# kernel's remaining instantiations.
+BANK_STEP_LAYOUTS = {
+    "static": ((3, 64, 64), 0, False),
+    "frames": ((3, 4, 64, 64), 4, False),
+    "one_frame": ((3, 1, 5, 64, 64), None, True),
+    "volumes": ((3, 4, 5, 64, 64), 4, True),
+    "static_3d_flight": ((3, 64, 64), None, True),
+    "frames_3d_flight": ((3, 4, 64, 64), 4, True),
+    "one_frame_2d_flight": ((3, 1, 5, 64, 64), 0, False),
+    "volumes_2d_flight": ((3, 4, 5, 64, 64), 4, False),
+}
+MAIN_BANK_LAYOUTS = ("static", "frames", "one_frame", "volumes")
+
+
+def _bank_step_start(layout, n, seed, device):
+    """wrf_les_3d's env on a 64-cell grid over a random bank of ``layout``
+    (frames of 7 env steps, wind advection 0.5), episodes of 24 steps and
+    radii of 4-40 cells, so that envs finish and reset within a chunk:
+    ``(cfg, bank, state, accum, generator)`` from fresh episodes."""
+    shape, wind_frames, env_3d = BANK_STEP_LAYOUTS[layout]
+    cfg = dataclasses.replace(get_preset("wrf_les_3d").env, grid_size=64,
+                              source_padding=8.0, domain_height=30.0,
+                              env_3d=env_3d, max_steps=24)
+    g = torch.Generator(device=device).manual_seed(seed)
+    k = shape[0]
+    wind = None
+    if wind_frames is not None:
+        frames = (wind_frames,) if wind_frames else ()
+        wind = 2.0 * torch.randn((k,) + frames + (2,), device=device,
+                                 generator=g)
+    bank = FieldBank(
+        conc=100.0 * torch.rand(shape, device=device, generator=g),
+        source=8.0 + 48.0 * torch.rand(k, 2, device=device, generator=g),
+        wind=wind, steps_per_frame=7.0, z_extent=30.0)
+    carry = rollout.init_rollout(cfg, n, g, bank=bank)
+    state = carry.env_state.replace(
+        radius=4.0 + 36.0 * torch.rand(n, device=device, generator=g))
+    return cfg, bank, state, carry.accum, g
+
+
+def _bank_chunks(cfg, bank, state, accum, g, steps, greedy, guided, device):
+    """One chunk of ``steps`` from ``state`` through the bank step kernel
+    and through ``env_step_plain``, with the same logits, values and draws
+    (and, ``guided``, a third of the sampled actions replaced by others):
+    ``{kernel?: (traj, obs rows, state, totals)}``."""
+    n, a = state.pos.shape[0], cfg.num_actions
+    draws = rollout.draw_chunk(g, cfg, steps, n, greedy)
+    logits = 2.0 * torch.randn(steps, n, a, device=device, generator=g)
+    values = torch.randn(steps, n, device=device, generator=g)
+    other = torch.randint(0, a, (steps, n), device=device, generator=g)
+    flip = torch.rand(steps, n, device=device, generator=g) < 1 / 3
+    runs = {}
+    for kernel in (True, False):
+        s, acc = rollout.own_copy(state), rollout.own_copy(accum)
+        traj, obs = rollout.empty_trajectory(steps, n, cfg, device,
+                                             guided=guided)
+        if kernel:
+            stepper = plume.BankStepper(s, acc, draws, traj, obs, cfg, bank)
+        for t in range(steps):
+            executed = None
+            if guided:
+                noisy = logits[t] if greedy else logits[t] + draws.gumbel[t]
+                executed = torch.where(flip[t], other[t],
+                                       torch.argmax(noisy, -1))
+            if kernel:
+                stepper(t, logits[t], values[t], executed)
+            else:
+                s, _, acc = rollout.env_step_plain(
+                    logits[t], values[t], draws, t, s, acc, traj, obs, cfg,
+                    bank, exec_action=executed)
+        runs[kernel] = (traj, obs, s, acc)
+    torch.cuda.synchronize()
+    return runs
+
+
+def _assert_bit_equal(got, want):
+    """Every trajectory, record, next-obs, state and totals tensor equal."""
+    (traj, obs, s, acc), (w_traj, w_obs, w_s, w_acc) = got, want
+    pairs = {"obs rows": (obs[1:], w_obs[1:])}
+    for f in dataclasses.fields(traj):
+        x, y = getattr(traj, f.name), getattr(w_traj, f.name)
+        if f.name == "episode":
+            for e in dataclasses.fields(x):
+                pairs["record " + e.name] = (getattr(x, e.name),
+                                             getattr(y, e.name))
+        elif x is not None and f.name != "obs":
+            pairs["step " + f.name] = (x, y)
+    for f in dataclasses.fields(s):
+        if f.name == "field":
+            for e in ("source", "seed", "idx"):
+                pairs["field " + e] = (getattr(s.field, e),
+                                       getattr(w_s.field, e))
+        else:
+            pairs[f.name] = (getattr(s, f.name), getattr(w_s, f.name))
+    for name in plume.ACCUM_FIELDS:
+        pairs["accum " + name] = (getattr(acc, name), getattr(w_acc, name))
+    for name, (x, y) in pairs.items():
+        assert torch.equal(x, y), (name, int((x != y).sum()))
+
+
+@pytest.mark.parametrize("greedy", [False, True], ids=["gumbel", "greedy"])
+@pytest.mark.parametrize("n", [4096, 32768])
+@pytest.mark.parametrize("layout", MAIN_BANK_LAYOUTS)
+def test_bank_step_kernel_is_bit_equal_to_plain(card, layout, n, greedy):
+    """128 steps of the bank step kernel against ``env_step_plain`` on the
+    card from the same start, each path on its own state: every tensor
+    equal to the bit, one launch a step, envs finishing and resetting."""
+    cfg, bank, state, accum, g = _bank_step_start(layout, n, n + len(layout),
+                                                  card)
+    before = plume.bank_step_launches
+    runs = _bank_chunks(cfg, bank, state, accum, g, 128, greedy, False, card)
+    assert plume.bank_step_launches == before + 128
+    _assert_bit_equal(runs[True], runs[False])
+    assert int(runs[True][0].done.sum()) > n
+
+
+@pytest.mark.parametrize("layout", sorted(BANK_STEP_LAYOUTS))
+def test_bank_step_kernel_with_an_executed_action_is_bit_equal_to_plain(
+        card, layout):
+    """The guided launch over a bank: a third of the envs execute another
+    action than the one sampled, the override rows mark them; every tensor
+    equal to the plain version's, at each of the kernel's instantiations."""
+    cfg, bank, state, accum, g = _bank_step_start(layout, 4096, 7, card)
+    runs = _bank_chunks(cfg, bank, state, accum, g, 128, False, True, card)
+    _assert_bit_equal(runs[True], runs[False])
+    override = runs[True][0].override
+    assert override.any() and not override.all()
+
+
+def test_rollout_over_a_bank_on_the_card_is_one_bank_step_launch_a_step(card):
+    cfg, bank, _, _, g = _bank_step_start("volumes", 512, 0, card)
+    carry = rollout.init_rollout(cfg, 512, g, bank=bank)
+    kept = rollout.own_copy(carry.env_state)
+    model = ActorCritic(cfg.obs_dim, cfg.num_actions, (64, 32)).to(card)
+
+    def counts():
+        return (plume.launches, plume.env_step_launches,
+                plume.bank_step_launches, gather.bilinear.launches,
+                gather.trilinear_zyx.launches)
+
+    before = counts()
+    new, _, _ = rollout.rollout_chunk(model, carry, cfg, 16, bank=bank)
+    torch.cuda.synchronize()
+    assert counts() == (before[0], before[1], before[2] + 16, before[3],
+                        before[4])
+    # the carry passed in is not modified
+    for name in ("pos", "t", "visited"):
+        assert torch.equal(getattr(carry.env_state, name),
+                           getattr(kept, name))
+    assert torch.equal(carry.env_state.field.idx, kept.field.idx)
+    assert not torch.equal(new.env_state.pos, carry.env_state.pos)
+
+
+def test_bank_stepper_raises_on_bad_cuda_inputs(card):
+    cfg, bank, state, accum, g = _bank_step_start("volumes", 64, 0, card)
+    draws = rollout.draw_chunk(g, cfg, 1, 64)
+    traj, obs = rollout.empty_trajectory(1, 64, cfg, card)
+    stepper = plume.BankStepper(state, accum, draws, traj, obs, cfg, bank)
+    logits = torch.zeros(64, cfg.num_actions, device=card)
+    value = torch.zeros(64, device=card)
+    with pytest.raises(TypeError):
+        stepper(0, logits.double(), value)
+    with pytest.raises(IndexError):
+        stepper(1, logits, value)
+    with pytest.raises(ValueError, match="override"):
+        stepper(0, logits, value, torch.zeros(64, dtype=torch.int64,
+                                              device=card))
+    with pytest.raises(ValueError):
+        plume.BankStepper(state, accum, draws, traj, obs, cfg,
+                          bank.to("cpu"))
+    with pytest.raises(ValueError):
+        plume.BankStepper(state, accum, draws, traj, obs,
+                          dataclasses.replace(cfg, subcell_sampling=False),
+                          bank)
 
 
 @pytest.mark.parametrize("preset", ["ppo_v2_0", "wrf_les"])

@@ -15,10 +15,15 @@ logits, values and draws, made from a seed with numpy, through
 episodes make envs finish and reset within the chunk.
 Integers and bools are compared with equality, floats at the env
 tolerance of PERF.md (rtol 1e-5, atol 1e-4).  A CPU rollout never reaches
-the kernel's wrapper and leaves the carry it was given as it was.
+the kernel's wrapper and leaves the carry it was given as it was; over a
+bank it reaches no ``BankStepper`` either, whose input checks take a
+wrf_les_3d state over a 3-D bank and refuse what the bank step kernel does
+not take.  The benchmark's ``bank_step_roofline`` counts the bytes of
+``chip_smoke.py``'s bound of the bank step kernel.
 """
 
 import dataclasses
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -32,8 +37,9 @@ from tpu_plume.fields.analytic import new_field_from_draws as j_new_field
 from tpu_plume.fields.analytic import sample_conc_tke as j_sample
 from tpu_plume_torch.core import get_preset as t_get_preset
 from tpu_plume_torch.env import methane as tenv
+from tpu_plume_torch.fields import gridded
 from tpu_plume_torch.models import ActorCritic
-from tpu_plume_torch.ops import plume
+from tpu_plume_torch.ops import gather, plume
 from tpu_plume_torch.rollout import rollout
 from tpu_plume_torch.rollout.rollout import ChunkDraws, EpisodeAccum
 
@@ -390,6 +396,142 @@ def test_env_step_inputs_checks_refuse_on_the_analytic_modes(fault):
         cfg = dataclasses.replace(cfg, elastic_walls=True)
     with pytest.raises(error):
         plume.check_env_step_inputs(state, accum, draws, traj, obs, cfg, -1)
+
+
+def _bank_step_inputs(n=8, length=2):
+    """wrf_les_3d's env on a 16-cell grid over a 3-D [2, 3, 4, 16, 16] bank
+    with a per-frame wind: the step's inputs, the config and the bank."""
+    cfg = dataclasses.replace(t_get_preset("wrf_les_3d").env, grid_size=16,
+                              source_padding=3.0, domain_height=12.0)
+    g = torch.Generator().manual_seed(0)
+    bank = gridded.synthesize_3d_bank(g, cfg, num_fields=2, num_frames=3,
+                                      num_levels=4, steps_per_frame=4.0)
+    carry = rollout.init_rollout(cfg, n, g, bank=bank)
+    draws = rollout.draw_chunk(g, cfg, length, n)
+    traj, obs = rollout.empty_trajectory(length, n, cfg, "cpu")
+    return (carry.env_state, carry.accum, draws, traj, obs), cfg, bank
+
+
+def test_bank_step_inputs_checks_take_a_wrf_les_3d_state():
+    inputs, cfg, bank = _bank_step_inputs()
+    assert bank.conc.dim() == 5 and bank.wind.dim() == 3
+    plume.check_bank_step_inputs(*inputs, cfg, bank, -1)
+    # the guided chunk's executed action, with its override rows
+    state, accum, draws, _, _ = inputs
+    traj, obs = rollout.empty_trajectory(2, 8, cfg, "cpu", guided=True)
+    plume.check_bank_step_inputs(state, accum, draws, traj, obs, cfg, bank,
+                                 -1, torch.zeros(8, dtype=torch.int64))
+
+
+def test_bank_stepper_refuses_cpu_tensors():
+    inputs, cfg, bank = _bank_step_inputs()
+    with pytest.raises(ValueError, match="CUDA"):
+        plume.BankStepper(*inputs, cfg, bank)
+
+
+@pytest.mark.parametrize("fault", [
+    "idx_none", "idx_dtype", "cell_reads", "bank_rank", "exec_no_override",
+    "analytic", "no_bank", "field_wind", "bank_source_shape",
+    "bank_wind_shape", "elastic_3d"])
+def test_bank_step_inputs_checks_refuse(fault):
+    (state, accum, draws, traj, obs), cfg, bank = _bank_step_inputs()
+    error, exec_action = ValueError, None
+    if fault == "idx_none":
+        state = state.replace(field=dataclasses.replace(state.field,
+                                                        idx=None))
+    elif fault == "idx_dtype":
+        state, error = state.replace(field=dataclasses.replace(
+            state.field, idx=state.field.idx.long())), TypeError
+    elif fault == "cell_reads":
+        cfg = dataclasses.replace(cfg, subcell_sampling=False)
+    elif fault == "bank_rank":
+        bank = dataclasses.replace(bank, conc=bank.conc[None])
+    elif fault == "exec_no_override":
+        exec_action = torch.zeros(8, dtype=torch.int64)
+    elif fault == "analytic":
+        cfg = dataclasses.replace(cfg, plume_model="anisotropic")
+    elif fault == "no_bank":
+        bank = None
+    elif fault == "field_wind":
+        state = state.replace(field=dataclasses.replace(
+            state.field, wind=torch.zeros(8, 2)))
+    elif fault == "bank_source_shape":
+        bank = dataclasses.replace(bank, source=bank.source[:1])
+    elif fault == "bank_wind_shape":
+        bank = dataclasses.replace(bank, wind=bank.wind[..., :1])
+    elif fault == "elastic_3d":
+        cfg = dataclasses.replace(cfg, elastic_walls=True)
+    with pytest.raises(error):
+        plume.check_bank_step_inputs(state, accum, draws, traj, obs, cfg,
+                                     bank, -1, exec_action)
+
+
+def test_cpu_rollout_over_a_bank_never_reaches_the_bank_stepper(monkeypatch):
+    """A CPU rollout over a bank steps in ``env_step_plain``: it builds no
+    stepper, launches nothing, and leaves the carry it was given as it
+    was."""
+    _, cfg, bank = _bank_step_inputs()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CPU rollout built a stepper")
+
+    monkeypatch.setattr(plume, "BankStepper", refuse)
+    monkeypatch.setattr(plume, "EnvStepper", refuse)
+    g = torch.Generator().manual_seed(3)
+    carry = rollout.init_rollout(cfg, 16, g, radius=4.0, bank=bank)
+    kept_state, kept_obs = rollout.own_copy(carry.env_state), carry.obs.clone()
+    model = ActorCritic(cfg.obs_dim, cfg.num_actions, (16, 8))
+    before = (plume.launches, plume.env_step_launches,
+              plume.bank_step_launches)
+    new, traj, _ = rollout.rollout_chunk(model, carry, cfg, 6, bank=bank)
+    assert (plume.launches, plume.env_step_launches,
+            plume.bank_step_launches) == before
+    for f in dataclasses.fields(kept_state):
+        if f.name != "field":
+            assert torch.equal(getattr(carry.env_state, f.name),
+                               getattr(kept_state, f.name)), f.name
+    for name in ("source", "seed", "idx"):
+        assert torch.equal(getattr(carry.env_state.field, name),
+                           getattr(kept_state.field, name)), name
+    assert torch.equal(carry.obs, kept_obs)
+    assert not torch.equal(new.env_state.pos, carry.env_state.pos)
+    assert torch.equal(traj.obs[0], carry.obs)
+
+
+def test_bank_step_roofline_counts_the_kernel_tables_bound():
+    """The benchmark's ``bank_step_roofline`` counts, over a CPU chunk over
+    a 3-D bank with resets, the bytes of ``chip_smoke.bank_step_bytes``
+    step by step, and reads nothing without the kernel's device time (as on
+    a program without the kernel) or without a bank."""
+    import chip_smoke
+    from plumebench import counts, registry
+
+    metric = {m.name: m for m in registry.metrics()}["bank_step_roofline"]
+    _, cfg, bank = _bank_step_inputs()
+    cfg = dataclasses.replace(cfg, max_steps=3)
+    n, length = 16, 6
+    carry = rollout.init_rollout(cfg, n, torch.Generator().manual_seed(5),
+                                 radius=4.0, bank=bank)
+    model = ActorCritic(cfg.obs_dim, cfg.num_actions, (16, 8))
+    _, traj, _ = rollout.rollout_chunk(model, carry, cfg, length, bank=bank)
+    assert traj.done.any()
+    want = sum(chip_smoke.bank_step_bytes(plume, gather, cfg, bank, traj, t)
+               for t in range(length))
+    ctx = SimpleNamespace(
+        kernel_time=lambda names: (length, 2e-3),
+        bank={"conc": bank.conc, "source": bank.source,
+              "steps_per_frame": bank.steps_per_frame,
+              "z_extent": bank.z_extent},
+        spec=SimpleNamespace(num_envs=n, env={
+            "env_3d": cfg.env_3d, "grid_divisions": cfg.grid_divisions}),
+        cfg=SimpleNamespace(env=cfg), trajs=[traj])
+    assert metric.kernels == ("bank_step_kernel",)
+    assert metric.read(ctx, metric) == pytest.approx(
+        100.0 * counts.least_seconds(want) / 2e-3, rel=1e-12)
+    for missing in ({"kernel_time": lambda names: (0, 0.0)},
+                    {"kernel_time": None}, {"bank": None}):
+        assert metric.read(SimpleNamespace(**{**vars(ctx), **missing}),
+                           metric) is None
 
 
 def test_env_step_bytes_count_positions_and_wind():

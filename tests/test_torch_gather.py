@@ -263,9 +263,12 @@ def test_build_names_the_gather_source():
     assert build.library_path("gather").startswith(build.BUILD_DIR)
     src = open(build.source_path("gather")).read()
     for name in ("bilinear_gather", "trilinear_zyx_gather", "bank_sample",
-                 "int64_t", '#include "cell_hash.cuh"', "PyInit_gather",
+                 "int64_t", '#include "bank_sample.cuh"', "PyInit_gather",
                  "METH_FASTCALL"):
         assert name in src
+    # the bank sample it includes carries the cell-hashed turbulence
+    with open(os.path.join(build.CSRC, "bank_sample.cuh")) as fh:
+        assert '#include "cell_hash.cuh"' in fh.read()
     # gather.cu is a Python extension module: its build sees Python's headers
     include = sysconfig.get_paths()["include"]
     flags = build.nvcc_flags()

@@ -28,19 +28,10 @@
 //   stack of one.
 // - The sub-cell bank sample of the env step (sample_conc_tke's gridded
 //   sub-cell branch, tpu_plume/fields/analytic.py:245-266): per query its
-//   bank row idx, position (x, y[, z]), env step t and field seed.  Around
-//   the gather it computes the frame coordinate t / steps_per_frame and the
-//   level coordinate z * level_scale with the clamps of
-//   tpu_plume_torch/ops/gather.py (frame_weights, level_coord), reads one
-//   frame and level pair of the bank (a static bank: 4 corners; a
-//   time-varying [K, T, H, W] bank, frames as z: 8; a one-frame 3-D bank: 8;
-//   a 3-D [K, T, Z, H, W] bank: 16, frames t0 and t0+1, lerped by the frame
-//   weight), adds the cell-hashed turbulence of cell_hash.cuh at the query's
-//   grid cell, clips to [0, peak] and writes conc and tke.  The frame
-//   coordinate is a true division, as the plain version's and the JAX
-//   package's (not the multiply by a reciprocal PyTorch uses for a tensor on
-//   the card divided by a Python scalar); the level scale arrives as the f32
-//   the plain version multiplies by.
+//   bank row idx, position (x, y[, z]), env step t and field seed; the frame
+//   and level coordinates, the corner fetch of each bank layout and the
+//   turbulence finish are bank_sample.cuh's, which the bank step kernel of
+//   plume.cu runs too.
 //
 // Bound: at the env step's N = 4096 a call moves 0.1-0.3 MB and does about
 // 0.5 MFLOP, well under 0.1 us at 3.35 TB/s and 67 TFLOP/s, so it costs one
@@ -75,38 +66,17 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "cell_hash.cuh"
-
-// What a launch needs of a bank, validated and filled once by the wrapper
-// (tpu_plume_torch/ops/gather.py _BankParams mirrors it field by field).
-struct BankParams {
-  const float* bank;      // contiguous f32
-  int mode;               // Mode below
-  int pos_dim;            // 2, or 3 in 3-D flight
-  int nt, nz, h, w;       // frames, levels, rows, columns (1 where absent)
-  int grid;               // env grid: turbulence cells are clip(floor(p), 0, grid-1)
-  float steps_per_frame;
-  float level_scale;      // (Z-1) / max(z_extent, 1e-9), rounded once to f32
-  float peak;             // conc_peak
-  float ti;               // turbulence intensity
-  int signed_normal;
-  int tke_abs_times_two;
-};
-static_assert(sizeof(BankParams) == 64, "BankParams layout");
+#include "bank_sample.cuh"
 
 namespace {
 
-using cell_hash::cell_of;
-using cell_hash::turbulence;
-
-enum Mode : int {
-  kGather2d = 0,   // bilinear over a stack [R, H, W], points (x, y)
-  kGather3d = 1,   // trilinear over a stack [R, Z, H, W], points (z, x, y)
-  kStatic = 2,     // sample of a static bank [K, H, W]
-  kFrames = 3,     // sample of a time-varying bank [K, T, H, W], frames as z
-  kOneFrame = 4,   // sample of a one-frame 3-D bank [K, 1, Z, H, W]
-  kTwoFrames = 5,  // sample of a 3-D bank [K, T, Z, H, W], T >= 2
-};
+using bank_sample::kFrames;
+using bank_sample::kGather2d;
+using bank_sample::kGather3d;
+using bank_sample::kOneFrame;
+using bank_sample::kStatic;
+using bank_sample::kTwoFrames;
+using bank_sample::Query;
 
 struct Queries {
   const int32_t* rows;   // bank row (sample) or stack row (gather)
@@ -118,128 +88,27 @@ struct Queries {
   int n;
 };
 
-// Clamped lower corner and weight along one axis of ``size`` cells; ``hi``
-// is the largest lower corner (size - 2, or 0 for a single-level volume).
-__device__ __forceinline__ void axis(float coord, int size, int hi, int* c0,
-                                     float* f) {
-  const float c = fminf(fmaxf(coord, 0.0f), static_cast<float>(size - 1));
-  int i = static_cast<int>(floorf(c));
-  i = min(max(i, 0), hi);
-  *c0 = i;
-  *f = c - static_cast<float>(i);
-}
-
-__device__ __forceinline__ void corners(const float* __restrict__ c, int w,
-                                        float* v) {
-  v[0] = __ldg(c);
-  v[1] = __ldg(c + 1);
-  v[2] = __ldg(c + w);
-  v[3] = __ldg(c + w + 1);
-}
-
-__device__ __forceinline__ float plane(const float* v, float fx, float fy) {
-  return v[0] * (1.0f - fx) * (1.0f - fy) + v[1] * (1.0f - fx) * fy +
-         v[2] * fx * (1.0f - fy) + v[3] * fx * fy;
-}
-
+// Query i's inputs read from ``q``, then its fetch.
 template <int kMode>
-struct Query {
-  static constexpr bool kSample = kMode >= kStatic;
-  // Planes of four corners: one (a field), two (a volume's levels z0, z1)
-  // or four (levels z0, z1 of frames t0 and t0+1).
-  static constexpr int kPlanes =
-      (kMode == kGather2d || kMode == kStatic) ? 1
-      : (kMode == kTwoFrames)                  ? 4
-                                               : 2;
-  float v[4 * kPlanes];
-  float fx, fy, fz, ft;
-  int ix, iy;
-  uint32_t seed;
-
-  // Everything up to the corner loads, which it issues.
-  __device__ __forceinline__ void fetch(const BankParams& p, const Queries& q,
-                                        int64_t i) {
-    float x, y, zc = 0.0f;
-    int64_t row = q.rows[i];
-    if constexpr (kMode == kGather2d) {
-      const float2 pt = reinterpret_cast<const float2*>(q.pos)[i];
-      x = pt.x;
-      y = pt.y;
-    } else if constexpr (kMode == kGather3d) {
-      const float* pt = q.pos + 3 * i;
-      zc = pt[0];
-      x = pt[1];
-      y = pt[2];
-    } else {
-      const float* pt = q.pos + p.pos_dim * i;
-      x = pt[0];
-      y = pt[1];
-      seed = static_cast<uint32_t>(q.seed[i]);
-      ix = cell_of(x, p.grid);
-      iy = cell_of(y, p.grid);
-      if constexpr (kMode == kOneFrame || kMode == kTwoFrames) {
-        if (p.pos_dim > 2 && p.nz > 1) zc = pt[2] * p.level_scale;
-      }
-      if constexpr (kMode == kFrames || kMode == kTwoFrames) {
-        // A true division, as the plain version's.
-        const float tf =
-            q.t ? static_cast<float>(q.t[i]) / p.steps_per_frame : 0.0f;
-        if constexpr (kMode == kFrames) {
-          zc = tf;
-        } else {
-          const int t0 = min(max(static_cast<int>(floorf(tf)), 0), p.nt - 2);
-          ft = fminf(fmaxf(tf - static_cast<float>(t0), 0.0f), 1.0f);
-          row = row * p.nt + t0;
-        }
-      }
+__device__ __forceinline__ void fetch(Query<kMode>& s, const BankParams& p,
+                                      const Queries& q, int64_t i) {
+  const int64_t row = q.rows[i];
+  if constexpr (kMode == kGather2d) {
+    const float2 pt = reinterpret_cast<const float2*>(q.pos)[i];
+    s.fetch(p, row, pt.x, pt.y, 0.0f, nullptr, 0u);
+  } else if constexpr (kMode == kGather3d) {
+    const float* pt = q.pos + 3 * i;
+    s.fetch(p, row, pt[1], pt[2], pt[0], nullptr, 0u);
+  } else {
+    const float* pt = q.pos + p.pos_dim * i;
+    float z = 0.0f;
+    if constexpr (kMode == kOneFrame || kMode == kTwoFrames) {
+      if (p.pos_dim > 2 && p.nz > 1) z = pt[2];
     }
-    int x0, y0;
-    axis(x, p.h, p.h - 2, &x0, &fx);
-    axis(y, p.w, p.w - 2, &y0, &fy);
-    const int64_t hw = static_cast<int64_t>(p.h) * p.w;
-    const int64_t cell = static_cast<int64_t>(x0) * p.w + y0;
-    if constexpr (kPlanes == 1) {
-      corners(p.bank + row * hw + cell, p.w, v);
-    } else {
-      // A volume's levels: the bank's z, or its frames for a 4-D bank.
-      const int zd = kMode == kFrames ? p.nt : p.nz;
-      int z0;
-      axis(zc, zd, max(zd - 2, 0), &z0, &fz);
-      const int z1 = min(z0 + 1, zd - 1);
-      const int64_t vol = row * zd;
-      corners(p.bank + (vol + z0) * hw + cell, p.w, v);
-      corners(p.bank + (vol + z1) * hw + cell, p.w, v + 4);
-      if constexpr (kPlanes == 4) {   // the next frame's volume, row + 1
-        corners(p.bank + (vol + zd + z0) * hw + cell, p.w, v + 8);
-        corners(p.bank + (vol + zd + z1) * hw + cell, p.w, v + 12);
-      }
-    }
+    s.fetch(p, row, pt[0], pt[1], z, q.t ? q.t + i : nullptr,
+            static_cast<uint32_t>(q.seed[i]));
   }
-
-  // The products, lerps and epilogue, in the plain version's order.
-  __device__ __forceinline__ void finish(const BankParams& p,
-                                         const Queries& q, int64_t i) const {
-    float turb = 0.0f;
-    if constexpr (kSample) {   // pure arithmetic: runs under the loads
-      turb = turbulence(seed, ix, iy, p.ti, p.signed_normal);
-    }
-    float base = plane(v, fx, fy);
-    if constexpr (kPlanes >= 2) {
-      base = base * (1.0f - fz) + plane(v + 4, fx, fy) * fz;
-    }
-    if constexpr (kPlanes == 4) {
-      const float hi =
-          plane(v + 8, fx, fy) * (1.0f - fz) + plane(v + 12, fx, fy) * fz;
-      base = (1.0f - ft) * base + ft * hi;
-    }
-    if constexpr (kSample) {
-      q.conc[i] = fminf(fmaxf(base + turb, 0.0f), p.peak);
-      q.tke[i] = p.tke_abs_times_two ? fabsf(turb) * 2.0f : turb;
-    } else {
-      q.conc[i] = base;
-    }
-  }
-};
+}
 
 constexpr int kThreads = 256;
 // From this many queries on, each thread takes two (a 2^20 call); below it
@@ -256,11 +125,14 @@ __device__ __forceinline__ void run(const BankParams& p, const Queries& q) {
     Query<kMode> s[kQ];
 #pragma unroll
     for (int j = 0; j < kQ; ++j) {
-      if (first + j * kThreads < q.n) s[j].fetch(p, q, first + j * kThreads);
+      if (first + j * kThreads < q.n) fetch(s[j], p, q, first + j * kThreads);
     }
 #pragma unroll
     for (int j = 0; j < kQ; ++j) {
-      if (first + j * kThreads < q.n) s[j].finish(p, q, first + j * kThreads);
+      const int64_t i = first + j * kThreads;
+      if (i < q.n) {
+        s[j].finish(p, q.conc + i, Query<kMode>::kSample ? q.tke + i : nullptr);
+      }
     }
   }
 }

@@ -35,6 +35,19 @@
 //   (source, seed and wind) with its sample at the origin and a cleared
 //   visit grid.  It writes the next obs into the obs row the policy reads
 //   next.  The env state and the totals are updated in place.
+// - bank_step_kernel: the same env step over a gridded bank read between
+//   cells (subcell_sampling), one thread per env and one launch per step of
+//   the rollout in place of env_step_plain's eager ops and its two bank
+//   sample launches.  It runs env_step_kernel's body (step_env) with the
+//   bank's field: the wind of the env's bank row at the new step (a [K, 2]
+//   wind, or a [K, T, 2] one lerped over frames), the sub-cell sample of
+//   bank_sample.cuh (shared with gather.cu) at the new position and step,
+//   and for a finished env the fresh row min(floor(u K), K - 1), its source
+//   and the sample at the origin at step 0.  Its log_softmax sums in the
+//   order of PyTorch's on the card, so that the whole step equals
+//   env_step_plain's on the card to the bit.  It takes the four bank
+//   layouts of the bank sample (static, frames, one-frame and two-frame
+//   3-D), in 2-D or 3-D flight.
 //
 // Modes.  The models are template parameters of both kernels (anisotropic,
 // S > 1 sources, 3-D flight and, for the env step, a field with a wind), so
@@ -58,7 +71,11 @@
 // scheduler, so the latency of one thread's dependent chain (hash,
 // exp/log/sin/cos) is what a step costs on the device; larger blocks would
 // pile four warps on fewer SMs for no gain, and at 2^20 envs 64-thread
-// blocks still fill every SM.
+// blocks still fill every SM.  The bank step moves the env step's bytes
+// less the wind's, plus the env's bank row, its wind frames and the
+// sample's corners (4, 8 or 16 floats by layout, and as many again for a
+// finished env's fresh sample): at wrf_les_3d's N = 32768 about 12 MB, a
+// few microseconds at 3.35 TB/s, against the eager step's ~80 launches.
 //
 // Numerics: the hash and the turbulence are those of cell_hash.cuh (shared
 // with the bank sample kernels of gather.cu): native uint32_t with the JAX
@@ -77,9 +94,9 @@
 // At N = 4096 a call's cost is the host's, so the entry points are a Python
 // extension module (METH_FASTCALL functions of plain ints), as
 // gather.cu's are.  The env step's pointers and scalars arrive once per
-// chunk in an EnvStepParams the wrapper fills; a launch takes its address,
-// the step and the policy's two outputs.  The sample takes the address of
-// its config's PlumeField.
+// chunk in an EnvStepParams (the bank step's in a BankStepParams) the
+// wrapper fills; a launch takes its address, the step and the policy's two
+// outputs.  The sample takes the address of its config's PlumeField.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false -shared
 //        -Xcompiler -fPIC -I<Python include> -o libplume.so plume.cu
@@ -93,6 +110,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "bank_sample.cuh"
 #include "cell_hash.cuh"
 
 namespace {
@@ -400,6 +418,61 @@ struct EnvStepParams {
   float two_pi;
 };
 
+// The field of a step: the analytic plume, or a bank read by one of
+// bank_sample.cuh's sample modes.
+constexpr int kAnalytic = -1;
+
+// Everything a launch of the bank step needs but the step and the policy's
+// outputs: the env step's params (their field scalars only for the extra
+// sources' hash and the checks; the state has no wind) and the bank's.
+// Filled once per chunk by tpu_plume_torch/ops/plume.py (_BankStepParams).
+struct BankStepParams {
+  EnvStepParams env;
+  BankParams bank;             // FieldBank.sampler's, the bank read
+  int32_t* idx;                // [N] each env's bank row, updated in place
+  const float* bank_source;    // [K, 2] each row's source
+  const float* bank_wind;      // [K, 2] or [K, WT, 2]; null: no wind
+  int rows;                    // K
+  int wind_frames;             // WT, or 0 for a [K, 2] wind
+};
+
+// The bank's wind of row k at env step t, as fields/gridded.py bank_wind
+// computes it: a [K, 2] wind's row, or a [K, WT, 2] wind lerped between
+// frames t0 and min(t0 + 1, WT - 1) at t / steps_per_frame (a true
+// division, frame_coord's); zero where the bank has no wind.
+__device__ __forceinline__ float2 bank_wind(const BankStepParams& b, int64_t k,
+                                            int t) {
+  const float2* wind = reinterpret_cast<const float2*>(b.bank_wind);
+  if (wind == nullptr) return make_float2(0.0f, 0.0f);
+  const int nf = b.wind_frames;
+  if (nf == 0) return wind[k];
+  const float tf = static_cast<float>(t) / b.bank.steps_per_frame;
+  const int t0 = min(max(static_cast<int>(floorf(tf)), 0), max(nf - 2, 0));
+  const float ft = fminf(fmaxf(tf - static_cast<float>(t0), 0.0f), 1.0f);
+  const float2 lo = wind[k * nf + t0];
+  const float2 hi = wind[k * nf + min(t0 + 1, nf - 1)];
+  return make_float2((1.0f - ft) * lo.x + ft * hi.x,
+                     (1.0f - ft) * lo.y + ft * hi.y);
+}
+
+// The sum of expf(l[j] - lmax) over j < na in the order of log_softmax on
+// the card for a row of at most 32 (PyTorch's softmax_warp_forward): a lane
+// per element of the row padded with zeros to a power of two, summed by xor
+// shuffles of halving offsets.  Padding to 8 adds zeros, which leaves each
+// smaller power's sums as they are.
+__device__ __forceinline__ float softmax_sum(const float (&l)[kMaxActions],
+                                             int na, float lmax) {
+  float e[kMaxActions];
+#pragma unroll
+  for (int j = 0; j < kMaxActions; ++j) e[j] = j < na ? expf(l[j] - lmax) : 0.0f;
+#pragma unroll
+  for (int w = kMaxActions / 2; w >= 1; w /= 2) {
+#pragma unroll
+    for (int j = 0; j < w; ++j) e[j] = e[j] + e[j + w];
+  }
+  return e[0];
+}
+
 // The displacement of an action: stay, +y, -y, +x, -x, and in 3-D flight
 // +z, -z.
 template <int P>
@@ -425,13 +498,21 @@ __device__ __forceinline__ float dot(const float (&x)[P], const float (&y)[P]) {
   return s;
 }
 
-template <bool kAniso, bool kMulti, bool k3d, bool kWind>
-__global__ void __launch_bounds__(kEnvThreads)
-    env_step_kernel(const EnvStepParams p, int step,
-                    const float* __restrict__ logits,
-                    const float* __restrict__ value_in,
-                    const int64_t* __restrict__ exec_action) {
+// One env step of this thread's env: the body of env_step_kernel (kBank ==
+// kAnalytic) and of bank_step_kernel (kBank a bank_sample::Mode, with the
+// bank's params ``b``), which differ in the field alone: its wind, its
+// sample, its fresh episodes, and the order of log_softmax's sum.  ``p``
+// arrives by value: a reference to the kernel's parameter keeps the
+// compiler from loading its fields ahead of a branch, and the analytic
+// instantiations then compile to other code than the kernel's own body did.
+template <bool kAniso, bool kMulti, bool k3d, bool kWind, int kBank>
+__device__ __forceinline__ void step_env(const EnvStepParams p,
+                                         const BankStepParams* b, int step,
+                                         const float* __restrict__ logits,
+                                         const float* __restrict__ value_in,
+                                         const int64_t* __restrict__ exec_action) {
   constexpr int P = k3d ? 3 : 2;
+  constexpr bool kOnBank = kBank != kAnalytic;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.n) return;
   const int64_t row = static_cast<int64_t>(step) * p.n + i;
@@ -455,7 +536,11 @@ __global__ void __launch_bounds__(kEnvThreads)
     }
   }
   float sum = 0.0f;
-  for (int j = 0; j < na; ++j) sum += expf(l[j] - lmax);
+  if constexpr (kOnBank) {
+    sum = softmax_sum(l, na, lmax);
+  } else {
+    for (int j = 0; j < na; ++j) sum += expf(l[j] - lmax);
+  }
   const float log_prob = (l[action] - lmax) - logf(sum);
   // The executed action: a guide's where the launch gives one, else the
   // sampled one.  The record keeps the sampled action and its log-prob;
@@ -483,13 +568,23 @@ __global__ void __launch_bounds__(kEnvThreads)
   const float conc0 = p.conc[i];
   const float tke0 = p.tke[i];
   const int t_new = p.t[i] + 1;
+  int64_t bank_row = 0;
+  if constexpr (kOnBank) bank_row = b->idx[i];
   action_delta<P>(act, p.move_step, p.z_move, d);
   const float delta_norm = sqrtf(dot<P>(d, d));
   for (int k = 0; k < P; ++k) {
     r[k] = (pos0[k] + d[k]) + ((p.turb_scale * nz[k]) * tke0) * p.inv_tke_norm;
   }
   float2 w = make_float2(0.0f, 0.0f);
-  if constexpr (kWind) {
+  if constexpr (kOnBank) {
+    // the bank's wind at the new step (zero where the bank has none)
+    if (p.advect != 0.0f) {
+      w = bank_wind(*b, bank_row, t_new);
+      r[0] = r[0] + w.x * p.advect;
+      r[1] = r[1] + w.y * p.advect;
+      if constexpr (k3d) r[2] = r[2] + 0.0f;
+    }
+  } else if constexpr (kWind) {
     w = reinterpret_cast<const float2*>(p.wind)[i];
     if (p.advect != 0.0f) {
       r[0] = r[0] + w.x * p.advect;
@@ -513,16 +608,23 @@ __global__ void __launch_bounds__(kEnvThreads)
   const float py = pn[1];
   const float pz = k3d ? pn[P - 1] : 0.0f;
 
-  // The sample at the new cell, of the field's sources and wind.
+  // The sample at the new cell, of the field's sources and wind, or of the
+  // env's bank row at the new position and step.
   const float2 src = reinterpret_cast<const float2*>(p.source)[i];
   const uint32_t seed = static_cast<uint32_t>(p.seed[i]);
   Sources srcs;
-  sources_of<kMulti>(p.field, src.x, src.y, seed, srcs);
+  if constexpr (!kOnBank) sources_of<kMulti>(p.field, src.x, src.y, seed, srcs);
   float2 uw = make_float2(0.0f, 0.0f);
   if constexpr (kAniso && kWind) uw = unit_wind(w.x, w.y);
   float cur_conc, cur_tke;
-  sample_at<kAniso, kMulti, k3d>(p.field, px, py, pz, srcs, uw.x, uw.y, seed,
-                                 &cur_conc, &cur_tke);
+  if constexpr (kOnBank) {
+    bank_sample::Query<kBank> q;
+    q.fetch(b->bank, bank_row, px, py, pz, &t_new, seed);
+    q.finish(b->bank, &cur_conc, &cur_tke);
+  } else {
+    sample_at<kAniso, kMulti, k3d>(p.field, px, py, pz, srcs, uw.x, uw.y, seed,
+                                   &cur_conc, &cur_tke);
+  }
   const float cur_n = cur_conc * p.inv_peak;
   const float prev_n = conc0 * p.inv_peak;
 
@@ -595,6 +697,17 @@ __global__ void __launch_bounds__(kEnvThreads)
       const float ey2 = py - srcs.y[k];
       distance = fminf(distance, sqrtf(ex2 * ex2 + ey2 * ey2));
     }
+  } else if constexpr (kOnBank) {
+    // a bank's field has one source, but the terminal gate still takes the
+    // nearest of num_sources, the extra ones hashed from the seed
+    if (p.field.num_sources > 1) {
+      sources_of<true>(p.field, src.x, src.y, seed, srcs);
+      for (int k = 1; k < p.field.num_sources; ++k) {
+        const float ex2 = px - srcs.x[k];
+        const float ey2 = py - srcs.y[k];
+        distance = fminf(distance, sqrtf(ex2 * ex2 + ey2 * ey2));
+      }
+    }
   }
   const float radius = p.radius[i];
   const bool reached = distance <= radius;
@@ -622,6 +735,24 @@ __global__ void __launch_bounds__(kEnvThreads)
   const int32_t nseed = p.bits[row];
   float2 uwd = make_float2(0.0f, 0.0f);
   if constexpr (kWind) uwd = reinterpret_cast<const float2*>(p.u_wind)[row];
+  // A finished env's fresh episode on the bank: its row min(floor(u K),
+  // K - 1) (the f32 product of new_field_from_draws), that row's source,
+  // and the sample at the origin at step 0.
+  int fresh_row = 0;
+  float2 fresh_src = make_float2(0.0f, 0.0f);
+  float fresh_conc = 0.0f, fresh_tke = 0.0f;
+  if constexpr (kOnBank) {
+    if (done) {
+      fresh_row = min(static_cast<int>(u.x * static_cast<float>(b->rows)),
+                      b->rows - 1);
+      fresh_src = reinterpret_cast<const float2*>(b->bank_source)[fresh_row];
+      const int32_t t0 = 0;
+      bank_sample::Query<kBank> q;
+      q.fetch(b->bank, fresh_row, 0.0f, 0.0f, 0.0f, &t0,
+              static_cast<uint32_t>(nseed));
+      q.finish(b->bank, &fresh_conc, &fresh_tke);
+    }
+  }
 
   // Episode totals: the record holds them after the step; a finished env's
   // are cleared by the plain version's multiply (signed zeros kept).
@@ -658,11 +789,12 @@ __global__ void __launch_bounds__(kEnvThreads)
   int oa;
   float* pos_out = p.pos + static_cast<int64_t>(i) * P;
   if (done) {
-    const float sx = p.src_span * u.x + p.src_lo;
-    const float sy = p.src_span * u.y + p.src_lo;
+    // a bank's fresh episode: the row, source and sample found above
+    const float sx = kOnBank ? fresh_src.x : p.src_span * u.x + p.src_lo;
+    const float sy = kOnBank ? fresh_src.y : p.src_span * u.y + p.src_lo;
     const uint32_t ns = static_cast<uint32_t>(nseed);
     Sources fresh;
-    sources_of<kMulti>(p.field, sx, sy, ns, fresh);
+    if constexpr (!kOnBank) sources_of<kMulti>(p.field, sx, sy, ns, fresh);
     float2 nw = make_float2(0.0f, 0.0f);
     float2 nu = make_float2(0.0f, 0.0f);
     if constexpr (kWind) {
@@ -671,9 +803,13 @@ __global__ void __launch_bounds__(kEnvThreads)
       nw = make_float2(speed * cosf(theta), speed * sinf(theta));
       if constexpr (kAniso) nu = unit_wind(nw.x, nw.y);
     }
-    float c0, k0;
-    sample_at<kAniso, kMulti, k3d>(p.field, 0.0f, 0.0f, 0.0f, fresh, nu.x,
-                                   nu.y, ns, &c0, &k0);
+    float c0 = fresh_conc, k0 = fresh_tke;
+    if constexpr (kOnBank) {
+      b->idx[i] = fresh_row;
+    } else {
+      sample_at<kAniso, kMulti, k3d>(p.field, 0.0f, 0.0f, 0.0f, fresh, nu.x,
+                                     nu.y, ns, &c0, &k0);
+    }
     if constexpr (k3d) {
       for (int k = 0; k < P; ++k) pos_out[k] = 0.0f;
     } else {
@@ -729,6 +865,28 @@ __global__ void __launch_bounds__(kEnvThreads)
   }
 }
 
+template <bool kAniso, bool kMulti, bool k3d, bool kWind>
+__global__ void __launch_bounds__(kEnvThreads)
+    env_step_kernel(const EnvStepParams p, int step,
+                    const float* __restrict__ logits,
+                    const float* __restrict__ value_in,
+                    const int64_t* __restrict__ exec_action) {
+  step_env<kAniso, kMulti, k3d, kWind, kAnalytic>(p, nullptr, step, logits,
+                                                  value_in, exec_action);
+}
+
+// One env step of every env over a bank (kMode, a sample mode of
+// bank_sample.cuh), in 2-D or 3-D flight.
+template <int kMode, bool k3d>
+__global__ void __launch_bounds__(kEnvThreads)
+    bank_step_kernel(const BankStepParams b, int step,
+                     const float* __restrict__ logits,
+                     const float* __restrict__ value_in,
+                     const int64_t* __restrict__ exec_action) {
+  step_env<false, false, k3d, false, kMode>(b.env, &b, step, logits,
+                                            value_in, exec_action);
+}
+
 // The instantiations, indexed by mode: anisotropic * 4 + multi-source * 2 +
 // 3-D (the sample); the same * 2 + wind (the env step; a wind only with the
 // anisotropic model).
@@ -775,6 +933,28 @@ constexpr EnvLaunch kEnvLaunch[16] = {
     launch_env_step<true, true, false, true>,
     launch_env_step<true, true, true, false>,
     launch_env_step<true, true, true, true>};
+
+template <int M, bool Z>
+void launch_bank_step(const BankStepParams& b, int step, const float* logits,
+                      const float* value, const int64_t* exec_action,
+                      cudaStream_t stream) {
+  const int blocks = (b.env.n + kEnvThreads - 1) / kEnvThreads;
+  bank_step_kernel<M, Z><<<blocks, kEnvThreads, 0, stream>>>(
+      b, step, logits, value, exec_action);
+}
+
+using BankLaunch = void (*)(const BankStepParams&, int, const float*,
+                            const float*, const int64_t*, cudaStream_t);
+// Indexed by (sample mode - kStatic) * 2 + 3-D flight.
+constexpr BankLaunch kBankLaunch[8] = {
+    launch_bank_step<bank_sample::kStatic, false>,
+    launch_bank_step<bank_sample::kStatic, true>,
+    launch_bank_step<bank_sample::kFrames, false>,
+    launch_bank_step<bank_sample::kFrames, true>,
+    launch_bank_step<bank_sample::kOneFrame, false>,
+    launch_bank_step<bank_sample::kOneFrame, true>,
+    launch_bank_step<bank_sample::kTwoFrames, false>,
+    launch_bank_step<bank_sample::kTwoFrames, true>};
 
 // The sample's instantiation index of ``f``, or -1 (a Python error set)
 // for modes the kernels do not take.
@@ -875,42 +1055,66 @@ PyObject* py_plume_sample(PyObject*, PyObject* const* a, Py_ssize_t nargs) {
 // policy's forward gave ``logits`` f32[N, A] and ``value`` f32[N];
 // ``exec_action`` i64[N] (or None) is the action each env executes in place
 // of the sampled one, in a chunk whose params record the override rows.
-PyObject* py_env_step(PyObject*, PyObject* const* a, Py_ssize_t nargs) {
+// The arguments of env_step and bank_step, read in order.
+bool parse_step(PyObject* const* a, Py_ssize_t nargs, const char* name,
+                void** params, int* step, void** logits, void** value,
+                void** exec_action, void** stream) {
   if (nargs != 6) {
-    PyErr_SetString(PyExc_TypeError,
-                    "env_step takes (params, t, logits, value, exec_action, "
-                    "stream)");
-    return nullptr;
+    PyErr_Format(PyExc_TypeError,
+                 "%s takes (params, t, logits, value, exec_action, stream)",
+                 name);
+    return false;
   }
+  if (!parse(a[0], params) || !parse(a[1], step) || !parse(a[2], logits) ||
+      !parse(a[3], value) || !parse(a[4], exec_action) ||
+      !parse(a[5], stream)) {
+    return false;
+  }
+  if (*params == nullptr || *logits == nullptr || *value == nullptr) {
+    PyErr_Format(PyExc_ValueError, "%s needs its params, logits and value",
+                 name);
+    return false;
+  }
+  return true;
+}
+
+// The checks env_step and bank_step share: an executed action only with
+// the chunk's override rows, a step of the chunk, 1 to kMaxActions
+// actions, elastic walls in 2-D flight alone.
+bool check_step(const EnvStepParams& p, const char* name, int step,
+                const void* exec_action) {
+  if (exec_action != nullptr && p.override == nullptr) {
+    PyErr_Format(PyExc_ValueError,
+                 "%s: an executed action needs the chunk's override rows",
+                 name);
+    return false;
+  }
+  if (step >= p.length) {
+    PyErr_Format(PyExc_IndexError, "%s: step %d of a chunk of %d steps", name,
+                 step, p.length);
+    return false;
+  }
+  if (p.num_actions < 1 || p.num_actions > kMaxActions) {
+    PyErr_Format(PyExc_ValueError, "%s takes 1 to %d actions, got %d", name,
+                 kMaxActions, p.num_actions);
+    return false;
+  }
+  if (p.field.pos_dim == 3 && p.elastic) {
+    PyErr_Format(PyExc_ValueError, "%s: elastic walls are 2-D only", name);
+    return false;
+  }
+  return true;
+}
+
+PyObject* py_env_step(PyObject*, PyObject* const* a, Py_ssize_t nargs) {
   void *params, *logits, *value, *exec_action, *stream;
   int step;
-  if (!parse(a[0], &params) || !parse(a[1], &step) || !parse(a[2], &logits) ||
-      !parse(a[3], &value) || !parse(a[4], &exec_action) ||
-      !parse(a[5], &stream)) {
-    return nullptr;
-  }
-  if (params == nullptr || logits == nullptr || value == nullptr) {
-    PyErr_SetString(PyExc_ValueError,
-                    "env_step needs its EnvStepParams, logits and value");
+  if (!parse_step(a, nargs, "env_step", &params, &step, &logits, &value,
+                  &exec_action, &stream)) {
     return nullptr;
   }
   const EnvStepParams& p = *static_cast<const EnvStepParams*>(params);
-  if (exec_action != nullptr && p.override == nullptr) {
-    PyErr_SetString(PyExc_ValueError,
-                    "env_step: an executed action needs the chunk's "
-                    "override rows");
-    return nullptr;
-  }
-  if (step >= p.length) {
-    return PyErr_Format(PyExc_IndexError,
-                        "env_step: step %d of a chunk of %d steps", step,
-                        p.length);
-  }
-  if (p.num_actions < 1 || p.num_actions > kMaxActions) {
-    return PyErr_Format(PyExc_ValueError,
-                        "env_step takes 1 to %d actions, got %d", kMaxActions,
-                        p.num_actions);
-  }
+  if (!check_step(p, "env_step", step, exec_action)) return nullptr;
   const int mode = sample_mode(p.field);
   if (mode < 0) return nullptr;
   if ((p.wind == nullptr) != (p.u_wind == nullptr)) {
@@ -925,17 +1129,59 @@ PyObject* py_env_step(PyObject*, PyObject* const* a, Py_ssize_t nargs) {
                     "env_step: only the anisotropic field has a wind");
     return nullptr;
   }
-  if (p.field.pos_dim == 3 && p.elastic) {
-    PyErr_SetString(PyExc_ValueError,
-                    "env_step: elastic walls are 2-D only");
-    return nullptr;
-  }
   if (p.n == 0) Py_RETURN_NONE;
   launch(p, step, static_cast<const float*>(logits),
          static_cast<const float*>(value),
          static_cast<const int64_t*>(exec_action),
          static_cast<cudaStream_t>(stream));
   return launched("env_step");
+}
+
+// bank_step(params, t, logits, value, exec_action, stream): env_step's
+// call for the chunk over a bank that the BankStepParams at address
+// ``params`` describes.
+PyObject* py_bank_step(PyObject*, PyObject* const* a, Py_ssize_t nargs) {
+  void *params, *logits, *value, *exec_action, *stream;
+  int step;
+  if (!parse_step(a, nargs, "bank_step", &params, &step, &logits, &value,
+                  &exec_action, &stream)) {
+    return nullptr;
+  }
+  const BankStepParams& b = *static_cast<const BankStepParams*>(params);
+  const EnvStepParams& p = b.env;
+  if (!check_step(p, "bank_step", step, exec_action)) return nullptr;
+  if (sample_mode(p.field) < 0) return nullptr;
+  if (b.bank.mode < bank_sample::kStatic ||
+      b.bank.mode > bank_sample::kTwoFrames) {
+    return PyErr_Format(PyExc_ValueError,
+                        "bank_step: bank mode %d is no sample mode",
+                        b.bank.mode);
+  }
+  if (b.bank.pos_dim != p.field.pos_dim) {
+    PyErr_SetString(PyExc_ValueError,
+                    "bank_step: the bank's pos_dim is not the env's");
+    return nullptr;
+  }
+  if (p.wind != nullptr || p.u_wind != nullptr) {
+    PyErr_SetString(PyExc_ValueError,
+                    "bank_step: a bank's envs carry no wind of their own");
+    return nullptr;
+  }
+  if (b.idx == nullptr || b.bank_source == nullptr || b.rows < 1 ||
+      b.wind_frames < 0) {
+    PyErr_SetString(PyExc_ValueError,
+                    "bank_step needs the envs' rows, the bank's sources and "
+                    "its row count");
+    return nullptr;
+  }
+  if (p.n == 0) Py_RETURN_NONE;
+  kBankLaunch[2 * (b.bank.mode - bank_sample::kStatic) +
+              (p.field.pos_dim == 3)](
+      b, step, static_cast<const float*>(logits),
+      static_cast<const float*>(value),
+      static_cast<const int64_t*>(exec_action),
+      static_cast<cudaStream_t>(stream));
+  return launched("bank_step");
 }
 
 using FastFn = PyObject* (*)(PyObject*, PyObject* const*, Py_ssize_t);
@@ -949,6 +1195,8 @@ PyMethodDef kMethods[] = {
      "The analytic plume sample at N queries, one launch."},
     {"env_step", fastcall(py_env_step), METH_FASTCALL,
      "One analytic env step of every env, one launch."},
+    {"bank_step", fastcall(py_bank_step), METH_FASTCALL,
+     "One env step of every env over a bank, one launch."},
     {nullptr, nullptr, 0, nullptr}};
 
 PyModuleDef kModule = {PyModuleDef_HEAD_INIT, "plume",
@@ -964,6 +1212,8 @@ PyMODINIT_FUNC PyInit_plume(void) {
                                sizeof(EnvStepParams)) < 0 ||
        PyModule_AddIntConstant(m, "PLUME_FIELD_SIZE", sizeof(PlumeField)) <
            0 ||
+       PyModule_AddIntConstant(m, "BANK_STEP_PARAMS_SIZE",
+                               sizeof(BankStepParams)) < 0 ||
        PyModule_AddIntConstant(m, "MAX_SOURCES", kMaxSources) < 0 ||
        PyModule_AddIntConstant(m, "ENV_STEP_THREADS", kEnvThreads) < 0)) {
     Py_DECREF(m);

@@ -18,7 +18,9 @@ Two reads:
     ``tpu_plume_torch.ops.gather`` (``gather.bank_points``).  The env's
     sub-cell sample does not come here: it is one launch of the sample
     kernel (``gather.sample_bank_conc_tke``), whose launch a bank on the
-    card keeps (``FieldBank.sampler``).
+    card keeps (``FieldBank.sampler``), and in the rollout on the card a
+    part of the bank step kernel's one launch a step
+    (``ops.plume.BankStepper``).
 
 The JAX package's packed layout (``pack_time_levels``, ``maybe_pack``,
 ``conc_packed``) and its "packed" and "fused" formulations are not ported:
@@ -71,8 +73,9 @@ class FieldBank:
 
     def sampler(self, cfg: EnvConfig) -> gather.BankSampler:
         """The sample kernel's launch over this bank on the card for the
-        field scalars of ``cfg``: validated and cached at first use, kept
-        while ``cfg``'s scalars stay the same."""
+        field scalars of ``cfg`` (whose bank read the bank step kernel
+        takes too): validated and cached at first use, kept while ``cfg``'s
+        scalars stay the same."""
         s = self._sampler
         if s is None or not s.serves(cfg):
             s = gather.BankSampler(self, cfg)

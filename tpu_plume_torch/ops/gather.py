@@ -45,7 +45,7 @@ import ctypes
 import torch
 
 from tpu_plume_torch.ops import plume
-from tpu_plume_torch.ops.plume import _expect
+from tpu_plume_torch.ops.plume import _BankParams, _expect
 
 _F32, _I32 = torch.float32, torch.int32
 
@@ -289,19 +289,7 @@ def _check(stack, rows, pts, ndim: int):
         raise ValueError("pts must be 8-byte aligned (read as float2)")
 
 
-class _BankParams(ctypes.Structure):
-    """``BankParams`` of ``csrc/gather.cu``, field by field."""
-
-    _fields_ = [("bank", ctypes.c_void_p), ("mode", ctypes.c_int),
-                ("pos_dim", ctypes.c_int), ("nt", ctypes.c_int),
-                ("nz", ctypes.c_int), ("h", ctypes.c_int), ("w", ctypes.c_int),
-                ("grid", ctypes.c_int), ("steps_per_frame", ctypes.c_float),
-                ("level_scale", ctypes.c_float), ("peak", ctypes.c_float),
-                ("ti", ctypes.c_float), ("signed_normal", ctypes.c_int),
-                ("tke_abs_times_two", ctypes.c_int)]
-
-
-# The sample kernels' modes (``Mode`` of ``csrc/gather.cu``).
+# The sample kernels' modes (``Mode`` of ``csrc/bank_sample.cuh``).
 _STATIC, _FRAMES, _ONE_FRAME, _TWO_FRAMES = 2, 3, 4, 5
 
 _ext = None          # the kernels' extension module, set at first launch

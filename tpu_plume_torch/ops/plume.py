@@ -17,11 +17,17 @@ Two wrappers reach the kernels of ``tpu_plume_torch/csrc/plume.cu``:
   a guided rollout gives each launch the guide's executed actions.
   Its plain version is ``tpu_plume_torch.rollout.rollout.env_step_plain``,
   which the rollout runs on the CPU.
+- ``BankStepper`` launches ``bank_step_kernel``: the same env step over a
+  gridded ``FieldBank`` read between cells (the bank's wind, its sub-cell
+  sample and its fresh rows in place of the analytic field's), the
+  rollout's step on the card over such a bank.  Its plain version is
+  ``env_step_plain`` with the bank.
 
-Both entry points are METH_FASTCALL functions of an extension module
-(``build.load_module``).  ``launches`` counts launches of the sample kernel
-and ``env_step_launches`` those of the env-step kernel (and nothing else),
-so a run can show that its env steps went through the kernels.
+The entry points are METH_FASTCALL functions of an extension module
+(``build.load_module``).  ``launches`` counts launches of the sample kernel,
+``env_step_launches`` those of the env-step kernel and
+``bank_step_launches`` those of the bank step kernel (and nothing else), so
+a run can show that its env steps went through the kernels.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ BYTES_PER_QUERY = 28
 
 launches = 0
 env_step_launches = 0
+bank_step_launches = 0
 
 _F32, _I32, _I64, _BOOL = torch.float32, torch.int32, torch.int64, torch.bool
 
@@ -280,6 +287,8 @@ def _library():
         if (ext.PLUME_FIELD_SIZE != ctypes.sizeof(_PlumeField)
                 or ext.MAX_SOURCES != MAX_SOURCES):
             raise RuntimeError("_PlumeField does not match csrc/plume.cu")
+        if ext.BANK_STEP_PARAMS_SIZE != ctypes.sizeof(_BankStepParams):
+            raise RuntimeError("_BankStepParams does not match csrc/plume.cu")
         _raw_stream = torch._C._cuda_getCurrentRawStream
         _ext = ext
     return _ext
@@ -406,6 +415,25 @@ class _EnvStepParams(ctypes.Structure):
                 + [(f, _FLOAT) for f in _FLOATS])
 
 
+class _BankParams(ctypes.Structure):
+    """``BankParams`` of ``csrc/bank_sample.cuh``, field by field (the bank
+    sample's, ``ops.gather.BankSampler``, and the bank step's)."""
+
+    _fields_ = [("bank", _P), ("mode", _INT), ("pos_dim", _INT), ("nt", _INT),
+                ("nz", _INT), ("h", _INT), ("w", _INT), ("grid", _INT),
+                ("steps_per_frame", _FLOAT), ("level_scale", _FLOAT),
+                ("peak", _FLOAT), ("ti", _FLOAT), ("signed_normal", _INT),
+                ("tke_abs_times_two", _INT)]
+
+
+class _BankStepParams(ctypes.Structure):
+    """``BankStepParams`` of ``csrc/plume.cu``, field by field."""
+
+    _fields_ = [("env", _EnvStepParams), ("bank", _BankParams), ("idx", _P),
+                ("bank_source", _P), ("bank_wind", _P), ("rows", _INT),
+                ("wind_frames", _INT)]
+
+
 # The kernel's reward forms, by ``EnvConfig.reward_variant``.
 _VARIANTS = {"v1_1": 0, "v1_0": 1, "delta": 2}
 _MAX_ACTIONS = 8
@@ -460,6 +488,28 @@ def check_env_step(cfg: EnvConfig) -> None:
     v1_0's elastic walls, 3-D flight; a reward form it knows; at most
     ``_MAX_ACTIONS`` actions."""
     check_field(cfg)
+    _check_step_form(cfg)
+
+
+def check_bank_step(cfg: EnvConfig) -> None:
+    """Raise unless the bank step kernel computes ``cfg``'s env step: a
+    gridded field read between cells (``subcell_sampling``), 1 to
+    ``MAX_SOURCES`` sources for the terminal gate, and the env step's flight,
+    reward forms and actions (``check_env_step``)."""
+    if cfg.plume_model != "gridded":
+        raise ValueError(f"the bank step kernel steps a gridded field, got "
+                         f"plume_model={cfg.plume_model!r}")
+    if not cfg.subcell_sampling:
+        raise ValueError("the bank step kernel reads the bank between cells "
+                         "(subcell_sampling=True); a read at the cell steps "
+                         "in env_step_plain")
+    if not 1 <= cfg.num_sources <= MAX_SOURCES:
+        raise ValueError(f"the plume kernels take 1 to {MAX_SOURCES} "
+                         f"sources, got num_sources={cfg.num_sources}")
+    _check_step_form(cfg)
+
+
+def _check_step_form(cfg: EnvConfig) -> None:
     if cfg.elastic_walls and cfg.env_3d:
         raise ValueError("elastic_walls (v1_0) is a 2-D-only reward variant")
     if cfg.reward_variant not in _VARIANTS:
@@ -511,6 +561,66 @@ def check_env_step_inputs(state, accum, draws, traj, obs_rows, cfg,
     ``traj.override`` bool[T, N] where present, and an executed action
     ``exec_action`` i64[N] only with it."""
     check_env_step(cfg)
+    field = state.field
+    if field.idx is not None:
+        raise ValueError("the env-step kernel samples no bank")
+    tensors, aligned = _step_tensors(state, accum, draws, traj, obs_rows,
+                                     cfg, exec_action)
+    n, steps = state.pos.shape[0], draws.turb_noise.shape[0]
+    if reads_wind(cfg):
+        tensors["wind"] = (field.wind, _F32, (n, 2))
+        tensors["u_wind"] = (draws.u_wind, _F32, (steps, n, 2))
+        aligned += ["wind", "u_wind"]
+    elif field.wind is not None:
+        raise ValueError(f"a field of plume_model={cfg.plume_model!r} and "
+                         f"wind_speed_range={cfg.wind_speed_range} has no "
+                         f"wind")
+    _check_step_tensors(tensors, aligned, traj, index, cfg.pos_dim)
+
+
+def check_bank_step_inputs(state, accum, draws, traj, obs_rows, cfg, bank,
+                           index: int, exec_action=None) -> None:
+    """Raise unless the bank step kernel takes these tensors over ``bank``
+    (a ``FieldBank``) on device ``index`` (-1: the CPU, where only the
+    tests call this): ``cfg``'s env (``check_bank_step``); the bank's
+    concentrations as the sample kernel takes them (``gather.check_bank``:
+    a static, time-varying or 3-D bank), its sources f32[K, 2] and its wind
+    None, f32[K, 2] or f32[K, T, 2], on the device; each env's bank row
+    ``state.field.idx`` i32[N]; no wind of the envs' own, nor wind
+    uniforms; and the env step's tensors as ``check_env_step_inputs`` holds
+    them."""
+    from tpu_plume_torch.ops import gather
+
+    check_bank_step(cfg)
+    if bank is None:
+        raise ValueError('plume_model="gridded" requires a FieldBank')
+    gather.check_bank(bank.conc)
+    if bank.conc.get_device() != index:
+        raise ValueError(f"the bank is on {bank.conc.device}, expected "
+                         f"device {index}")
+    if state.field.wind is not None or draws.u_wind is not None:
+        raise ValueError("a bank's envs carry no wind of their own, nor wind "
+                         "uniforms: the bank's wind advects them")
+    tensors, aligned = _step_tensors(state, accum, draws, traj, obs_rows,
+                                     cfg, exec_action)
+    n, k = state.pos.shape[0], bank.conc.shape[0]
+    tensors["idx"] = (state.field.idx, _I32, (n,))
+    tensors["bank source"] = (bank.source, _F32, (k, 2))
+    aligned.append("bank source")
+    if bank.wind is not None:
+        if bank.wind.dim() not in (2, 3):
+            raise ValueError(f"the bank's wind must be [K, 2] or [K, T, 2], "
+                             f"got {tuple(bank.wind.shape)}")
+        tensors["bank wind"] = (bank.wind, _F32,
+                                (k,) + tuple(bank.wind.shape[1:-1]) + (2,))
+        aligned.append("bank wind")
+    _check_step_tensors(tensors, aligned, traj, index, cfg.pos_dim)
+
+
+def _step_tensors(state, accum, draws, traj, obs_rows, cfg, exec_action):
+    """The tensors both step kernels take, ``{name: (tensor, dtype,
+    shape)}``, and the names of those read as float2 (all but the wind's
+    and the bank's)."""
     n, length = state.pos.shape[0], traj.action.shape[0]
     a, dv, od, dim = (cfg.num_actions, cfg.grid_divisions, cfg.obs_dim,
                       cfg.pos_dim)
@@ -518,8 +628,6 @@ def check_env_step_inputs(state, accum, draws, traj, obs_rows, cfg,
     if steps < length:
         raise ValueError(f"draws of {steps} steps for a chunk of {length}")
     field, ep = state.field, traj.episode
-    if field.idx is not None:
-        raise ValueError("the env-step kernel samples no bank")
     tensors = {
         "turb_noise": (draws.turb_noise, _F32, (steps, n, dim)),
         "u_src": (draws.u_src, _F32, (steps, n, 2)),
@@ -541,14 +649,6 @@ def check_env_step_inputs(state, accum, draws, traj, obs_rows, cfg,
         "steps": (ep.steps, _I32, (length, n)),
     }
     aligned = ["u_src", "source"]
-    if reads_wind(cfg):
-        tensors["wind"] = (field.wind, _F32, (n, 2))
-        tensors["u_wind"] = (draws.u_wind, _F32, (steps, n, 2))
-        aligned += ["wind", "u_wind"]
-    elif field.wind is not None:
-        raise ValueError(f"a field of plume_model={cfg.plume_model!r} and "
-                         f"wind_speed_range={cfg.wind_speed_range} has no "
-                         f"wind")
     if dim == 2:
         aligned += ["turb_noise", "pos", "traj_pos"]
     if draws.gumbel is not None:
@@ -566,10 +666,19 @@ def check_env_step_inputs(state, accum, draws, traj, obs_rows, cfg,
         tensors["record " + name] = (getattr(ep, name), _F32, (length, n))
     for name in ACCUM_FIELDS:
         tensors["accum " + name] = (getattr(accum, name), _F32, (n,))
+    return tensors, aligned
+
+
+def _check_step_tensors(tensors, aligned, traj, index: int, dim: int) -> None:
+    """Raise unless each of ``tensors`` is as its entry says (``_expect``),
+    the ``aligned`` ones 8-byte aligned, and the record's ``done``,
+    ``final_x`` and ``final_y`` the trajectory's."""
     for name, (x, dtype, shape) in tensors.items():
         _expect(name, x, dtype, shape, index)
     for name in aligned:
         _aligned(name, tensors[name][0])
+    ep = traj.episode
+    length, n = traj.action.shape
     if ep.done.data_ptr() != traj.done.data_ptr() or (
             ep.done.shape != traj.done.shape):
         raise ValueError("traj.episode.done must be traj.done")
@@ -580,6 +689,38 @@ def check_env_step_inputs(state, accum, draws, traj, obs_rows, cfg,
                 or view.stride() != (dim * n, dim)):
             raise ValueError(f"traj.episode.{name} must be traj.pos[..., "
                              f"{k}]")
+
+
+def _env_step_params(state, accum, draws, traj, obs_rows,
+                     cfg: EnvConfig) -> _EnvStepParams:
+    """The launch's ``_EnvStepParams``: the pointers of tensors checked by
+    ``_check_step_tensors``, and ``cfg``'s ints, field and scalars."""
+    field, ep = state.field, traj.episode
+    ptr = dict(
+        turb=draws.turb_noise, gumbel=draws.gumbel, u_src=draws.u_src,
+        u_wind=draws.u_wind if field.wind is not None else None,
+        bits=draws.bits, pos=state.pos, t=state.t, visited=state.visited,
+        source=field.source, seed=field.seed, wind=field.wind,
+        conc=state.conc,
+        tke=state.tke, prev_conc=state.prev_conc,
+        prev_action=state.prev_action, radius=state.radius,
+        explore_bonus=state.explore_bonus, obs=obs_rows,
+        action=traj.action, log_prob=traj.log_prob, value=traj.value,
+        reward=traj.reward, done=traj.done, traj_pos=traj.pos,
+        traj_conc=traj.conc, success=ep.success, steps=ep.steps,
+        final_conc=ep.final_conc, source_x=ep.source_x,
+        source_y=ep.source_y, rec_radius=ep.radius, distance=ep.distance,
+        override=traj.override)
+    return _EnvStepParams(
+        **{k: None if x is None else x.data_ptr() for k, x in ptr.items()},
+        acc=(_P * 6)(*(getattr(accum, f).data_ptr() for f in ACCUM_FIELDS)),
+        rec=(_P * 6)(*(getattr(ep, f).data_ptr() for f in ACCUM_FIELDS)),
+        n=state.pos.shape[0], length=traj.action.shape[0],
+        num_actions=cfg.num_actions, obs_dim=cfg.obs_dim,
+        divisions=cfg.grid_divisions,
+        max_steps=cfg.max_steps, variant=_VARIANTS[cfg.reward_variant],
+        elastic=int(cfg.elastic_walls), obs_memory=int(cfg.obs_memory),
+        field=plume_field(cfg), **env_step_scalars(cfg))
 
 
 class EnvStepper:
@@ -605,45 +746,21 @@ class EnvStepper:
 
     def __init__(self, state, accum, draws, traj, obs_rows: torch.Tensor,
                  cfg: EnvConfig):
-        index = state.pos.get_device()
-        if index < 0:
-            raise ValueError(f"EnvStepper needs CUDA tensors, got "
-                             f"{state.pos.device}")
+        index = _card_index(self, state)
         check_env_step_inputs(state, accum, draws, traj, obs_rows, cfg, index)
-        n, length = state.pos.shape[0], traj.action.shape[0]
-        a, field, ep = cfg.num_actions, state.field, traj.episode
-        ptr = dict(
-            turb=draws.turb_noise, gumbel=draws.gumbel, u_src=draws.u_src,
-            u_wind=draws.u_wind if field.wind is not None else None,
-            bits=draws.bits, pos=state.pos, t=state.t, visited=state.visited,
-            source=field.source, seed=field.seed, wind=field.wind,
-            conc=state.conc,
-            tke=state.tke, prev_conc=state.prev_conc,
-            prev_action=state.prev_action, radius=state.radius,
-            explore_bonus=state.explore_bonus, obs=obs_rows,
-            action=traj.action, log_prob=traj.log_prob, value=traj.value,
-            reward=traj.reward, done=traj.done, traj_pos=traj.pos,
-            traj_conc=traj.conc, success=ep.success, steps=ep.steps,
-            final_conc=ep.final_conc, source_x=ep.source_x,
-            source_y=ep.source_y, rec_radius=ep.radius, distance=ep.distance,
-            override=traj.override)
-        params = _EnvStepParams(
-            **{k: None if x is None else x.data_ptr() for k, x in ptr.items()},
-            acc=(_P * 6)(*(getattr(accum, f).data_ptr()
-                           for f in ACCUM_FIELDS)),
-            rec=(_P * 6)(*(getattr(ep, f).data_ptr() for f in ACCUM_FIELDS)),
-            n=n, length=length, num_actions=a, obs_dim=cfg.obs_dim,
-            divisions=cfg.grid_divisions,
-            max_steps=cfg.max_steps, variant=_VARIANTS[cfg.reward_variant],
-            elastic=int(cfg.elastic_walls), obs_memory=int(cfg.obs_memory),
-            field=plume_field(cfg), **env_step_scalars(cfg))
-        self.params = params
-        self.address = ctypes.addressof(params)
-        # keeps every pointer's storage alive while the stepper is
-        self.tensors = (state, accum, draws, traj, obs_rows)
-        self.index, self.n, self.num_actions = index, n, a
-        self.guided = traj.override is not None
+        self.params = _env_step_params(state, accum, draws, traj, obs_rows,
+                                       cfg)
+        self._keep(state, traj, cfg, index, (state, accum, draws, traj,
+                                              obs_rows))
         self.launch = _library().env_step
+
+    def _keep(self, state, traj, cfg, index, tensors) -> None:
+        self.address = ctypes.addressof(self.params)
+        # keeps every pointer's storage alive while the stepper is
+        self.tensors = tensors
+        self.index, self.n = index, state.pos.shape[0]
+        self.num_actions = cfg.num_actions
+        self.guided = traj.override is not None
 
     def takes(self, logits: torch.Tensor, value: torch.Tensor,
               exec_action: torch.Tensor | None = None) -> bool:
@@ -662,19 +779,68 @@ class EnvStepper:
                     and exec_action.is_contiguous()
                     and exec_action.get_device() == self.index)))
 
+    def _refuse(self, logits, value, exec_action) -> None:
+        """Raise, saying why ``takes`` refused these outputs."""
+        _expect("logits", logits, _F32, (self.n, self.num_actions),
+                self.index)
+        _expect("value", value, _F32, (self.n,), self.index)
+        if not self.guided:
+            raise ValueError("an executed action needs a stepper over a "
+                             "trajectory with override rows")
+        _expect("exec_action", exec_action, _I64, (self.n,), self.index)
+
     def __call__(self, t: int, logits: torch.Tensor, value: torch.Tensor,
                  exec_action: torch.Tensor | None = None):
-        global env_step_launches
-        if not self.takes(logits, value, exec_action):    # _expect says why
-            _expect("logits", logits, _F32, (self.n, self.num_actions),
-                    self.index)
-            _expect("value", value, _F32, (self.n,), self.index)
-            if not self.guided:
-                raise ValueError("an executed action needs a stepper over a "
-                                 "trajectory with override rows")
-            _expect("exec_action", exec_action, _I64, (self.n,), self.index)
+        if not self.takes(logits, value, exec_action):
+            self._refuse(logits, value, exec_action)
         self.launch(self.address, t, logits.data_ptr(), value.data_ptr(),
                     None if exec_action is None else exec_action.data_ptr(),
                     _raw_stream(self.index))
+        self._count()
+
+    @staticmethod
+    def _count() -> None:
+        global env_step_launches
         env_step_launches += 1
 
+
+class BankStepper(EnvStepper):
+    """The bank step kernel's launches over one chunk of ``T`` steps over
+    ``bank``, a ``FieldBank`` on the card read between cells: an
+    ``EnvStepper`` whose field is the bank.  It validates every tensor once
+    (``check_bank_step_inputs``), takes the bank read that the bank keeps
+    (``FieldBank.sampler``), and caches the launch's pointers and scalars
+    in a ``_BankStepParams``; the kernel also updates each finished env's
+    bank row ``state.field.idx`` in place.  A call is ``EnvStepper``'s,
+    counted in ``bank_step_launches``."""
+
+    def __init__(self, state, accum, draws, traj, obs_rows: torch.Tensor,
+                 cfg: EnvConfig, bank):
+        index = _card_index(self, state)
+        check_bank_step_inputs(state, accum, draws, traj, obs_rows, cfg, bank,
+                               index)
+        wind = bank.wind
+        self.params = _BankStepParams(
+            env=_env_step_params(state, accum, draws, traj, obs_rows, cfg),
+            bank=bank.sampler(cfg).params, idx=state.field.idx.data_ptr(),
+            bank_source=bank.source.data_ptr(),
+            bank_wind=None if wind is None else wind.data_ptr(),
+            rows=bank.conc.shape[0],
+            wind_frames=0 if wind is None or wind.dim() == 2 else wind.shape[1])
+        self._keep(state, traj, cfg, index, (state, accum, draws, traj,
+                                              obs_rows, bank))
+        self.launch = _library().bank_step
+
+    @staticmethod
+    def _count() -> None:
+        global bank_step_launches
+        bank_step_launches += 1
+
+
+def _card_index(stepper, state) -> int:
+    """The device index of ``state``'s tensors; raises for the CPU."""
+    index = state.pos.get_device()
+    if index < 0:
+        raise ValueError(f"{type(stepper).__name__} needs CUDA tensors, got "
+                         f"{state.pos.device}")
+    return index

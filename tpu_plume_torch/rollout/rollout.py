@@ -8,8 +8,9 @@ where the episode ended), then the env step
 (``env_step_plain``): a Gumbel-max action sample, ``step_noise``, the
 episode totals and records, and the auto-reset of finished envs.  On the
 card over the analytic plume the env step is one launch of the env-step
-kernel (``tpu_plume_torch.ops.plume.EnvStepper``), whose plain version
-``env_step_plain`` is.  The chunk's randomness (turbulence normals, Gumbel
+kernel (``tpu_plume_torch.ops.plume.EnvStepper``), and over a bank read
+between cells one launch of the bank step kernel (``plume.BankStepper``),
+whose plain version ``env_step_plain`` is.  The chunk's randomness (turbulence normals, Gumbel
 noise, reset uniforms and seeds, and the reset wind uniforms of a field
 with a wind) is drawn up front in one ``ChunkDraws``; a
 caller may pass its own draws instead, which is how the tests feed both
@@ -257,8 +258,9 @@ def env_step_plain(logits: torch.Tensor, value: torch.Tensor,
                    obs_rows: torch.Tensor, cfg: EnvConfig, bank=None,
                    exec_action: torch.Tensor | None = None):
     """Step ``t`` of a chunk after the policy's forward, for every env: the
-    env-step kernel's function (``tpu_plume_torch.ops.plume.EnvStepper``)
-    in plain PyTorch, and the rollout's step on the CPU and over a bank.
+    env-step kernel's function (``tpu_plume_torch.ops.plume.EnvStepper``),
+    and over a bank the bank step kernel's (``plume.BankStepper``), in plain
+    PyTorch; the rollout's step on the CPU and over a bank read at the cell.
 
     Samples the actions from ``logits`` f32[N, A] (Gumbel-max with the row
     ``draws.gumbel[t]``, argmax where ``draws.gumbel`` is None), steps the
@@ -330,11 +332,12 @@ def rollout_chunk(model: torch.nn.Module, carry: RolloutCarry, cfg: EnvConfig,
     actions.  ``draws`` replaces the chunk's randomness, which is otherwise
     drawn from ``carry.generator``.
 
-    Each step is one policy forward, then, on the card with the analytic
-    plume, one launch of the env-step kernel (``ops.plume.EnvStepper``),
-    which updates a copy of the carry's state made once per chunk; on the
-    CPU, and over a bank on either device, ``env_step_plain``.  The carry
-    passed in is not modified.
+    Each step is one policy forward, then, on the card, one launch of the
+    env-step kernel (``ops.plume.EnvStepper``) with the analytic plume or of
+    the bank step kernel (``ops.plume.BankStepper``) over a bank read
+    between cells (``subcell_sampling``), which updates a copy of the
+    carry's state made once per chunk; on the CPU, and over a bank read at
+    the cell, ``env_step_plain``.  The carry passed in is not modified.
 
     With ``carry.hidden`` set, ``model`` is the recurrent policy: each step
     is ``model.step(hidden, obs)``, and after the env step ``hidden`` is
@@ -347,15 +350,14 @@ def rollout_chunk(model: torch.nn.Module, carry: RolloutCarry, cfg: EnvConfig,
     each step samples the policy's action in PyTorch (argmax of logits +
     Gumbel row), gives it to the guide with the pre-step positions and
     concentrations, and the env executes the guide's action
-    (``exec_action`` of the env step; on the card still one env-step
-    launch).  ``traj.action`` and ``traj.log_prob`` stay the policy's,
+    (``exec_action`` of the env step; on the card still one launch).  ``traj.action`` and ``traj.log_prob`` stay the policy's,
     ``traj.override`` marks the steps the guide changed, and the guide's
     state returns to its initial state where the step ended an episode.
 
     ``oracle`` (``evaluation.oracle.make_oracle``, ``fn(env_state) ->
     i64[N]``) labels every pre-step state into ``traj.oracle_action``, the
     teacher of distilled PPO; it runs before the env step, so on the card
-    it reads the state before the env-step kernel updates it in place (stream
+    it reads the state before the step kernel updates it in place (stream
     order, no host read).
 
     Under ``torch.profiler`` each step's policy forward and env step are
@@ -416,11 +418,16 @@ def rollout_chunk(model: torch.nn.Module, carry: RolloutCarry, cfg: EnvConfig,
         if guide is not None:
             guide_state = select(traj.done[t], guide_init, guide_state)
 
-    if carry.obs.is_cuda and cfg.plume_model != "gridded":
+    if carry.obs.is_cuda and (cfg.plume_model != "gridded"
+                              or cfg.subcell_sampling):
         check_env(cfg)
         env_state, acc = own_copy(carry.env_state), own_copy(carry.accum)
-        stepper = plume.EnvStepper(env_state, acc, draws, traj, obs_rows,
-                                   cfg)
+        if cfg.plume_model == "gridded":
+            stepper = plume.BankStepper(env_state, acc, draws, traj,
+                                        obs_rows, cfg, bank)
+        else:
+            stepper = plume.EnvStepper(env_state, acc, draws, traj,
+                                       obs_rows, cfg)
         for t in range(length):
             with trace.leaf("rollout.policy"):
                 logits, value = policy(t)
