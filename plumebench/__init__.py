@@ -8,7 +8,8 @@ The harness (``run``, ``harness``) reads its cells from data files
 (``registry``): ``configs/``, ``traffic/``, ``workloads/`` and
 ``metrics/``.  Its inputs come from one generator (``inputs``), its counts
 of work from frozen copies (``counts``), its comparison from a plain
-reference (``reference/``, ``check``).  ``control`` reads the limits'
+reference (``reference/``, with the field each configuration names and
+the policy of its ``ppo.arch``; ``check``).  ``control`` reads the limits'
 readings on the card and ``rehearse`` runs a cell at a tiny size on the
 CPU.  Nothing here imports JAX or the JAX package (``imports``).
 """

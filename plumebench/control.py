@@ -46,6 +46,7 @@ def sound(spec, seed: int, device) -> dict:
     del prog
     _free(device)
     want = reference.run(spec, registry.reference_field(spec),
+                         registry.reference_policy(spec),
                          Inputs(spec, seed, device), spec.checked_steps)
     return check.details(got, want)
 
@@ -55,9 +56,10 @@ def upper(spec, seed: int, device) -> dict:
     reference on ``seed``."""
     harness.set_precision()
     field = registry.reference_field(spec)
+    policy = registry.reference_policy(spec)
 
     def outputs(variant):
-        out = reference.run(spec, field, Inputs(spec, seed, device),
+        out = reference.run(spec, field, policy, Inputs(spec, seed, device),
                             spec.checked_steps, variant)
         _free(device)
         return out

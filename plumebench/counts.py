@@ -109,14 +109,23 @@ def mlp_macs(obs_dim: int, hidden: list, num_actions: int) -> int:
     return macs + widths[-1] * (num_actions + 1)
 
 
-def train_flops(obs_dim: int, hidden: list, num_actions: int, n: int, t: int,
-                epochs: int) -> int:
-    """The policy's matmul FLOPs of one training iteration: 2 x the
-    multiply-adds of the rollout's N x T forward rows and the bootstrap's N,
-    and of the update's epochs x N x T rows at 3 forward costs (the forward
-    and the backward's two products).  Recompute is not counted."""
+def lstm_macs(obs_dim: int, embed: int, hidden: int, num_actions: int) -> int:
+    """Multiply-adds of one forward row of the recurrent policy, obs E + E
+    4H + H 4H + H (A + 1): the encoder, both sides of the four gates and
+    the heads (LayerNorms and gate nonlinearities are not products)."""
+    e, h = embed, hidden
+    return obs_dim * e + e * 4 * h + h * 4 * h + h * (num_actions + 1)
+
+
+def train_flops(macs_per_row: int, n: int, t: int, epochs: int) -> int:
+    """The policy's matmul FLOPs of one training iteration, given its
+    multiply-adds per row (the reference policy's ``macs_per_row``): 2 x
+    the multiply-adds of the rollout's N x T forward rows and the
+    bootstrap's N, and of the update's epochs x N x T rows at 3 forward
+    costs (the forward and the backward's two products).  Recompute is not
+    counted."""
     rows = n * t + n + 3 * epochs * n * t
-    return 2 * mlp_macs(obs_dim, hidden, num_actions) * rows
+    return 2 * macs_per_row * rows
 
 
 def ppo_bound_seconds(b: int, d: int, h1: int, h2: int, a: int) -> float:

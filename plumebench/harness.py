@@ -8,8 +8,8 @@ every ``sync_every`` iterations the window's stats brought to the host in
 one transfer (``train/hostsync.py`` ``drain_window``).  The benchmark
 hands the program its inputs (``plumebench.inputs``): the policy's
 parameters, the bank, the initial episodes' draws, and for the first
-``checked_steps`` iterations the chunks' draws and the update's roll
-offsets (``train_step(loop, draws=, shuffles=)``); the window's iterations
+``checked_steps`` iterations the chunks' draws and the update's shuffles
+(``train_step(loop, draws=, shuffles=)``); the window's iterations
 draw their own from the loop's generator, as ``train_ppo``'s do.
 
 Set-up ends with one iteration as ``train_ppo`` runs it, with its drain,
@@ -19,7 +19,9 @@ device.  With ``trace`` the run goes on: three iterations with the
 program's phase timing (``time_phases``), one profiled iteration, one
 profiled rollout chunk; the per-layer readers read them.  Once the program
 is done and its memory peak read, its state is freed and the reference
-follows the checked steps from the same inputs, made again from the seed.
+follows the checked steps from the same inputs, made again from the seed,
+with the field that the configuration names and the policy of its
+``ppo.arch``.
 """
 
 from __future__ import annotations
@@ -108,9 +110,9 @@ def checked_steps(prog, steps: int) -> dict:
     losses, first_moment = [], None
     try:
         for k in range(steps):
-            draws, offsets = prog.inputs.step(k)
+            draws, shuffles = prog.inputs.step(k)
             prog.loop, stats, _ = prog.step(
-                prog.loop, draws=ChunkDraws(**draws), shuffles=offsets)
+                prog.loop, draws=ChunkDraws(**draws), shuffles=shuffles)
             losses.append(float(stats["loss/total"]))
             if k == 0:
                 first_moment = moment()
@@ -293,6 +295,7 @@ def run(spec, seed: int, seconds: float, trace: bool, device,
     log(t_process, "the reference")
     t_ref = time.perf_counter()
     want = reference.run(spec, registry.reference_field(spec),
+                         registry.reference_policy(spec),
                          Inputs(spec, seed, device), spec.checked_steps)
     log(t_process, f"the reference took {time.perf_counter() - t_ref:.2f} s")
     values = check.readings(got, want)

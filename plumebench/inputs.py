@@ -4,15 +4,17 @@ from ``--seed`` and the cell's configuration and traffic files.
 ``Inputs(spec, seed, device)`` draws, from one ``torch.Generator`` on the
 device and always in this order:
 
-1. the policy's parameters, in the reference ``.pth`` layout the
-   configuration names (``feature.{3i}`` Linear, ``feature.{3i+1}``
-   LayerNorm, ``actor``, ``critic``), all weights in one normal draw;
+1. the policy's parameters, in the layout of the reference policy of the
+   program's architecture (``reference/policy_<ppo.arch>.py`` ``layout``,
+   the program's ``state_dict`` names), all weights in one normal draw;
 2. for a configuration with a ``bank``, the synthesized bank (a frozen copy
    of the port's ``build_3d_bank``: anisotropic plumes with a veering wind
    and a vertical profile), built one frame at a time;
 3. the initial episodes' source uniforms and field seeds;
 4. for each checked step, the chunk's draws (turbulence normals, Gumbel
-   noise, reset uniforms and seeds) and the update's roll offsets.
+   noise, reset uniforms and seeds) and the update's shuffles, one per
+   epoch, as the policy draws them (``shuffles``: the MLP's roll offsets,
+   the recurrent policy's env permutations).
 
 A second ``Inputs`` of the same seed on the same device replays the same
 calls and so holds the same tensors: that is how the reference is handed
@@ -26,32 +28,16 @@ import math
 
 import torch
 
-
-def layout(policy: dict) -> list:
-    """(name, shape, kind, gain) of every parameter of the policy
-    ``{"obs_dim", "hidden", "num_actions"}``: "w" weights drawn normal with
-    std gain / sqrt(fan_in), "b" biases and LayerNorm shifts at 0, "g"
-    LayerNorm scales at 1."""
-    out = []
-    width = policy["obs_dim"]
-    for i, h in enumerate(policy["hidden"]):
-        lin, ln = f"feature.{3 * i}", f"feature.{3 * i + 1}"
-        out += [(f"{lin}.weight", (h, width), "w", math.sqrt(2.0)),
-                (f"{lin}.bias", (h,), "b", 0.0),
-                (f"{ln}.weight", (h,), "g", 0.0),
-                (f"{ln}.bias", (h,), "b", 0.0)]
-        width = h
-    a = policy["num_actions"]
-    out += [("actor.weight", (a, width), "w", 0.01), ("actor.bias", (a,), "b", 0.0),
-            ("critic.weight", (1, width), "w", 1.0), ("critic.bias", (1,), "b", 0.0)]
-    return out
+from plumebench import registry
 
 
-def make_params(policy: dict, gen: torch.Generator) -> dict:
-    """The policy's parameters (f32, on the generator's device)."""
+def make_params(layout: list, gen: torch.Generator) -> dict:
+    """The parameters of ``layout``, (name, shape, kind, gain)
+    each (f32, on the generator's device): "w" weights drawn normal, all in
+    one draw, with std gain / sqrt(fan_in), "b" biases and LayerNorm shifts
+    at 0, "g" LayerNorm scales at 1."""
     dev = gen.device
-    spec = layout(policy)
-    weights = [(name, shape, gain) for name, shape, kind, gain in spec
+    weights = [(name, shape, gain) for name, shape, kind, gain in layout
                if kind == "w"]
     flat = torch.randn(sum(math.prod(s) for _, s, _ in weights), device=dev,
                        generator=gen)
@@ -61,12 +47,12 @@ def make_params(policy: dict, gen: torch.Generator) -> dict:
         params[name] = (flat[at:at + size].reshape(shape)
                         * (gain / math.sqrt(shape[1])))
         at += size
-    for name, shape, kind, _ in spec:
+    for name, shape, kind, _ in layout:
         if kind == "b":
             params[name] = torch.zeros(shape, device=dev)
         elif kind == "g":
             params[name] = torch.ones(shape, device=dev)
-    return {name: params[name].contiguous() for name, *_ in spec}
+    return {name: params[name].contiguous() for name, *_ in layout}
 
 
 def aniso_kernel(src, wind, fx, fy, env: dict, z):
@@ -170,9 +156,10 @@ class Inputs:
 
     def __init__(self, spec, seed: int, device):
         self.spec = spec
+        self.policy = registry.reference_policy(spec)
         self.gen = torch.Generator(device=device).manual_seed(int(seed))
         env = spec.env
-        self.params = make_params(spec.policy, self.gen)
+        self.params = make_params(self.policy.layout(spec), self.gen)
         self.bank = (make_bank(spec.bank, env, self.gen)
                      if spec.bank is not None else None)
         n = spec.num_envs
@@ -185,15 +172,12 @@ class Inputs:
         self._next = 0
 
     def step(self, k: int):
-        """(draws dict, roll offsets list) of checked step ``k``; steps are
-        drawn in order 0, 1, 2, ..."""
+        """(draws dict, the update's shuffles: one per epoch) of checked
+        step ``k``; steps are drawn in order 0, 1, 2, ..."""
         if k != self._next:
             raise ValueError(f"checked step {k} drawn out of order "
                              f"(next is {self._next})")
         self._next += 1
         s = self.spec
         draws = chunk_draws(s.env, s.unroll_length, s.num_envs, self.gen)
-        batch = s.num_envs * s.unroll_length
-        offsets = torch.randint(0, batch, (s.epochs,), device=self.gen.device,
-                                generator=self.gen).tolist()
-        return draws, offsets
+        return draws, self.policy.shuffles(s, self.gen)

@@ -1,14 +1,21 @@
 """The reference's training iterations over the checked steps.
 
 One iteration: the curriculum's radius and exploration bonus pushed into
-every env; T policy forwards, each followed by the env step with the
+every env; T policy steps, each followed by the env step with the
 Gumbel-max action of the step's noise row, the turbulence normals and the
-auto-reset from the step's reset draws; the bootstrap value; GAE; the
-advantages normalized over the batch (population std); ``epochs`` rolls of
-the flat T-major batch by the given offsets, each cut into minibatches, and
-per minibatch the clipped PPO loss, its gradients, optax's global-norm clip
-and an Adam step (torch.optim.Adam's arithmetic: b1 0.9, b2 0.999, eps
-1e-8); then the success-windowed curriculum on the host in float32 numpy.
+auto-reset from the step's reset draws, and the policy's carry (if it has
+one) zeroed in the envs whose episode ended; the bootstrap value from the
+final carry, which it does not advance; GAE; the advantages normalized
+over the batch (population std); ``epochs`` shuffles, each cutting the
+batch into minibatches, and per minibatch the clipped PPO loss, its
+gradients, optax's global-norm clip and an Adam step (torch.optim.Adam's
+arithmetic: b1 0.9, b2 0.999, eps 1e-8); then the success-windowed
+curriculum on the host in float32 numpy.
+
+The policy is the module the configuration names (``policy_<name>``):
+it owns the parameters' layout, the shuffles, the carry, the rollout step,
+how an epoch's batch is cut into minibatches and each minibatch's forward;
+everything else here is shared.
 
 ``run`` returns what the comparison reads: each step's loss averaged over
 its minibatch steps, Adam's first moment after its first update (the
@@ -18,9 +25,10 @@ parameters' change after the last, by leaf.
 ``variant`` puts the reference in the program's place for the control and
 the planted faults: "tf32" computes the products in TF32 (on the card
 TF32 itself, elsewhere inputs rounded to it); "half" takes each
-minibatch's loss over its first half of rows; "reward" alters the
-rollout's reward row of the last env step (+1 in every env), which GAE
-carries back over the chunk.
+minibatch's loss over its first half (of rows, or of a sequence
+minibatch's envs); "reward" alters the rollout's reward row of the last
+env step (+1 in every env), which GAE carries back over the chunk.  Every
+other variant computes with TF32 off.
 """
 
 from __future__ import annotations
@@ -31,7 +39,6 @@ import numpy as np
 import torch
 
 from plumebench.reference import env as renv
-from plumebench.reference import policy
 
 VARIANTS = ("f32", "tf32", "half", "reward")
 _f32 = np.float32
@@ -91,8 +98,10 @@ def normalize(adv, eps: float):
 
 
 def ppo_loss(logits, values, mb: dict, ppo: dict):
+    """The clipped loss of a minibatch of any leading shape, each term
+    averaged over all of it."""
     log_probs = torch.log_softmax(logits, dim=-1)
-    new_lp = log_probs.gather(-1, mb["actions"][:, None]).squeeze(-1)
+    new_lp = log_probs.gather(-1, mb["actions"][..., None]).squeeze(-1)
     ratio = torch.exp(new_lp - mb["old_log_probs"])
     eps = ppo["clip_epsilon"]
     surr = torch.minimum(ratio * mb["advantages"],
@@ -134,34 +143,38 @@ class Adam:
 
 
 def _precision(variant: str, device: torch.device):
-    """TF32 on the card for the "tf32" variant, else f32 products."""
-    if variant != "tf32" or device.type != "cuda":
+    """On the card, TF32 on for the "tf32" variant and off for the others;
+    elsewhere f32 products (the "tf32" variant rounds their inputs)."""
+    if device.type != "cuda":
         return contextlib.nullcontext()
 
     @contextlib.contextmanager
-    def tf32():
+    def precision(tf32: bool):
         keep = (torch.backends.cuda.matmul.allow_tf32,
                 torch.backends.cudnn.allow_tf32)
-        torch.backends.cuda.matmul.allow_tf32 = True
-        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
         try:
             yield
         finally:
             (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32) = keep
-    return tf32()
+    return precision(variant == "tf32")
 
 
-def rollout(field, params, s, obs, draws, spec, bank, round_inputs):
-    """T steps of every env: the batch's [T, N] rows, the final state and
-    obs, the bootstrap value and the step's episode and success counts."""
-    env, hidden = spec.env, spec.policy["hidden"]
+def rollout(field, policy, params, s, obs, carry, draws, spec, bank,
+            round_inputs):
+    """T steps of every env: the batch's [T, N] rows, the final state, obs
+    and carry, the bootstrap value and the step's episode and success
+    counts."""
+    env = spec.env
     t_len = spec.unroll_length
     rows = {k: [] for k in ("obs", "actions", "old_log_probs", "old_values",
                             "rewards", "dones")}
     episodes = successes = 0
     for t in range(t_len):
-        logits, value = policy.forward(params, obs, hidden, round_inputs)
+        carry, logits, value = policy.step(params, carry, obs, spec,
+                                           round_inputs)
         action = torch.argmax(logits + draws["gumbel"][t], dim=-1)
         log_prob = torch.log_softmax(logits, dim=-1).gather(
             -1, action[:, None]).squeeze(-1)
@@ -176,15 +189,19 @@ def rollout(field, params, s, obs, draws, spec, bank, round_inputs):
         u_wind = None if draws["u_wind"] is None else draws["u_wind"][t]
         s, obs = renv.auto_reset(field, s, next_obs, done, draws["u_src"][t],
                                  u_wind, draws["bits"][t], env, bank)
-    _, bootstrap = policy.forward(params, obs, hidden, round_inputs)
+        if carry is not None:
+            carry = tuple(torch.where(done[:, None], 0.0, x) for x in carry)
+    _, _, bootstrap = policy.step(params, carry, obs, spec, round_inputs)
     batch = {k: torch.stack(v) for k, v in rows.items()}
-    return batch, s, obs, bootstrap, int(episodes), int(successes)
+    return batch, s, obs, carry, bootstrap, int(episodes), int(successes)
 
 
-def run(spec, field, inputs, steps: int, variant: str = "f32") -> dict:
+def run(spec, field, policy, inputs, steps: int, variant: str = "f32"
+        ) -> dict:
     """``steps`` iterations from ``inputs`` (an ``Inputs`` whose checked
-    steps are drawn here, in order): {"losses": [float], "first_grad",
-    "first_moment", "change": {leaf: tensor}}."""
+    steps are drawn here, in order) with the reference ``field`` and
+    ``policy`` modules: {"losses": [float], "first_grad", "first_moment",
+    "change": {leaf: tensor}}."""
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
     env, ppo, cur_cfg = spec.env, spec.ppo(), spec.config["curriculum"]
@@ -195,7 +212,7 @@ def run(spec, field, inputs, steps: int, variant: str = "f32") -> dict:
     names = list(inputs.params)
     start = {k: v.clone() for k, v in inputs.params.items()}
     params = {k: v.clone() for k, v in inputs.params.items()}
-    n, mb = spec.num_envs, spec.minibatch_size
+    n = spec.num_envs
     radius0 = _f32(cur_cfg["initial_radius"])
     bonus0 = _f32(env["explore_bonus_init"])
     full = lambda x: torch.full((n,), float(x), dtype=torch.float32,
@@ -203,39 +220,38 @@ def run(spec, field, inputs, steps: int, variant: str = "f32") -> dict:
     s = renv.fresh(field, inputs.u_src, inputs.u_wind, inputs.bits,
                    full(radius0), full(bonus0), env, bank)
     obs = renv.observe(s, env)
+    carry = policy.initial_carry(spec, device)
     cur = {"radius": radius0, "explore_bonus": bonus0, "success_count": 0,
            "episode_count": 0}
     opt = Adam(names, ppo["learning_rate"], ppo["max_grad_norm"])
     losses, first_grad, first_moment = [], None, None
     with _precision(variant, device):
         for k in range(steps):
-            draws, offsets = inputs.step(k)
+            draws, shuffles = inputs.step(k)
             s = dict(s, radius=full(cur["radius"]),
                      bonus=full(cur["explore_bonus"]))
+            h_init = carry
             with torch.no_grad():
-                batch, s, obs, bootstrap, episodes, successes = rollout(
-                    field, params, s, obs, draws, spec, bank, round_inputs)
+                seq, s, obs, carry, bootstrap, episodes, successes = rollout(
+                    field, policy, params, s, obs, carry, draws, spec, bank,
+                    round_inputs)
                 if variant == "reward":
-                    batch["rewards"][-1] += 1.0
-                adv, returns = gae(batch["rewards"], batch["old_values"],
-                                   batch["dones"], bootstrap, ppo["gamma"],
+                    seq["rewards"][-1] += 1.0
+                adv, returns = gae(seq.pop("rewards"), seq["old_values"],
+                                   seq["dones"], bootstrap, ppo["gamma"],
                                    ppo["gae_lambda"])
-            flat = {k: v.reshape((-1,) + v.shape[2:]) for k, v in batch.items()
-                    if k not in ("rewards", "dones")}
-            flat["advantages"] = normalize(adv.reshape(-1), ppo["adv_norm_eps"])
-            flat["returns"] = returns.reshape(-1)
+            seq["advantages"] = normalize(
+                adv.reshape(-1), ppo["adv_norm_eps"]).reshape(adv.shape)
+            seq["returns"] = returns
+            batch = policy.update_batch(seq, h_init, spec)
             total, count = 0.0, 0
-            for shift in offsets:
-                rolled = {k: torch.roll(v, shift, 0) for k, v in flat.items()}
-                for i in range(0, rolled["obs"].shape[0], mb):
-                    part = {k: v[i:i + mb] for k, v in rolled.items()}
-                    if variant == "half":
-                        part = {k: v[:mb // 2] for k, v in part.items()}
+            for shuffle in shuffles:
+                for part in policy.minibatches(batch, shuffle, spec,
+                                               variant == "half"):
                     leaves = [params[name].requires_grad_(True)
                               for name in names]
-                    logits, values = policy.forward(
-                        params, part["obs"], spec.policy["hidden"],
-                        round_inputs)
+                    logits, values = policy.minibatch_forward(
+                        params, part, spec, round_inputs)
                     loss = ppo_loss(logits, values, part, ppo)
                     grads = torch.autograd.grad(loss, leaves)
                     for leaf in leaves:

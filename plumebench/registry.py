@@ -3,8 +3,12 @@
 
 - ``configs/<name>.json``: a configuration: the port's preset, every env,
   PPO and curriculum field as run, the policy's widths, the bank (or
-  null), the reference's field module, and what was changed from the
-  source (``reduced``) or set here (``assumed``).
+  null), the reference's field (``"reference": {"field": <name>}``), and
+  what was changed from the source (``reduced``) or set here
+  (``assumed``).
+- ``reference/field_<name>.py``: the reference field a configuration
+  names; ``reference/policy_<arch>.py``: the reference policy of the
+  program's ``ppo.arch`` as run (the traffic's overrides applied).
 - ``traffic/<name>.json``: a training job's shape: envs, unroll, epochs,
   minibatches per epoch, ``sync_every`` and PPO fields of the update path.
 - ``workloads/<cell>.json``: a cell: its configuration, its traffic, the
@@ -14,7 +18,8 @@
   and its reader; ``metrics/<name>.kernels.<tag>.json`` files add kernel
   names to a metric's own list.
 
-Adding a configuration, a traffic mix, a cell or a metric is adding files.
+Adding a configuration, a traffic mix, a cell, a metric, a reference
+field or the reference policy of another ``ppo.arch`` is adding files.
 """
 
 from __future__ import annotations
@@ -152,6 +157,20 @@ class Metric:
     read: object     # read(ctx, metric) -> float | None
 
 
+_MODULES: dict = {}
+
+
+def _module(path: str):
+    """The Python file at ``path``, executed once and kept by its path."""
+    if path not in _MODULES:
+        mod_spec = importlib.util.spec_from_file_location(
+            f"plumebench_file_{len(_MODULES)}", path)
+        module = importlib.util.module_from_spec(mod_spec)
+        mod_spec.loader.exec_module(module)
+        _MODULES[path] = module
+    return _MODULES[path]
+
+
 def metrics() -> list:
     """Every per-layer metric in ``metrics/``, each with its reader."""
     out = []
@@ -162,18 +181,32 @@ def metrics() -> list:
                 ROOT, "metrics", f"{glob.escape(name)}.kernels.*.json"))):
             with open(extra) as fh:
                 kernels += json.load(fh)["kernels"]
-        path = os.path.join(ROOT, "metrics", f"{name}.py")
-        mod_spec = importlib.util.spec_from_file_location(
-            f"plumebench_metric_{len(out)}", path)
-        module = importlib.util.module_from_spec(mod_spec)
-        mod_spec.loader.exec_module(module)
+        read = _module(os.path.join(ROOT, "metrics", f"{name}.py")).read
         out.append(Metric(name=name, entry=entry, kernels=tuple(kernels),
-                          read=module.read))
+                          read=read))
     return out
+
+
+def _reference(kind: str, name: str):
+    """The module ``reference/<kind>_<name>.py`` under ``ROOT``."""
+    where = os.path.join(ROOT, "reference")
+    path = os.path.join(where, f"{kind}_{name}.py")
+    if not os.path.isfile(path):
+        have = sorted(os.path.basename(p)[len(kind) + 1:-3] for p in
+                      glob.glob(os.path.join(where, f"{kind}_*.py")))
+        raise KeyError(f"no reference {kind} {name!r}; found {have}")
+    return _module(path)
 
 
 def reference_field(s: Spec):
     """The reference's field module the configuration names
     (``reference/field_<name>.py``)."""
-    return importlib.import_module(
-        f"plumebench.reference.field_{s.config['reference']['field']}")
+    return _reference("field", s.config["reference"]["field"])
+
+
+def reference_policy(s: Spec):
+    """The reference's policy module of the program's architecture as run
+    (``reference/policy_<ppo.arch>.py``): its parameter layout, shuffles,
+    carry, rollout step, minibatches and forward, and its multiply-adds
+    per row (``reference/__init__.py``)."""
+    return _reference("policy", s.ppo()["arch"])

@@ -75,7 +75,10 @@ def test_flops_and_ppo_bound_by_hand():
     # 6 -> 256 -> 128 -> {5, 1}: 1536 + 32768 + 768 multiply-adds a row
     assert counts.mlp_macs(6, [256, 128], 5) == 35072
     # n 2, t 3, 5 epochs: 6 + 2 rollout and bootstrap rows, 3 x 5 x 6
-    assert counts.train_flops(6, [256, 128], 5, 2, 3, 5) == 2 * 35072 * 98
+    assert counts.train_flops(35072, 2, 3, 5) == 2 * 35072 * 98
+    # the recurrent policy at E = H = 128: 6 128 + 128 512 + 128 512
+    # + 128 (5 + 1)
+    assert counts.lstm_macs(6, 128, 128, 5) == 768 + 65536 + 65536 + 768
     # one row: 48 B of batch, 36230 params read and written (289840 B)
     want = 289888 / counts.HBM_BYTES_PER_S
     assert math.isclose(counts.ppo_bound_seconds(1, 6, 256, 128, 5), want)

@@ -22,7 +22,8 @@ def test_forbidden_names_compare_whole_top_levels():
 def test_reference_sources_import_no_program():
     assert imports.reference_faults() == []
     found = imports.reference_imports()
-    assert {"train.py", "env.py", "policy.py", "prng.py"} <= set(found)
+    assert {"train.py", "env.py", "policy_mlp.py", "policy_lstm.py",
+            "layers.py", "prng.py"} <= set(found)
 
 
 def _python(code: str) -> str:
@@ -38,6 +39,8 @@ def test_reference_loads_nothing_of_the_program():
         "import plumebench.reference.train, plumebench.reference.env\n"
         "import plumebench.reference.field_isotropic\n"
         "import plumebench.reference.field_bank\n"
+        "import plumebench.reference.policy_mlp\n"
+        "import plumebench.reference.policy_lstm\n"
         "print(sorted({m.split('.')[0] for m in sys.modules}))\n")
     tops = eval(out.strip().splitlines()[-1])
     assert "tpu_plume_torch" not in tops

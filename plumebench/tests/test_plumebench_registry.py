@@ -67,13 +67,17 @@ def test_benchmark_json_matches_the_files():
 
 def test_new_files_are_found_without_edits(tmp_path, monkeypatch):
     root = tmp_path / "plumebench"
-    for kind in ("configs", "traffic", "workloads", "metrics"):
+    for kind in ("configs", "traffic", "workloads", "metrics", "reference"):
         shutil.copytree(os.path.join(registry.ROOT, kind), root / kind)
     monkeypatch.setattr(registry, "ROOT", str(root))
     with open(root / "configs" / "ppo_v2_0.json") as fh:
         cfg = json.load(fh)
     cfg["name"] = "ppo_v2_0_wide"
+    cfg["ppo"] = dict(cfg["ppo"], arch="wide")
     (root / "configs" / "ppo_v2_0_wide.json").write_text(json.dumps(cfg))
+    (root / "reference" / "policy_wide.py").write_text(
+        "from plumebench.reference.policy_mlp import *  # noqa: F401,F403\n"
+        "NAME = 'wide'\n")
     traffic = {"why": "x", "num_envs": 4096, "unroll_length": 64,
                "epochs": 2, "minibatches_per_epoch": 4, "sync_every": 2,
                "ppo": {}}
@@ -96,6 +100,10 @@ def test_new_files_are_found_without_edits(tmp_path, monkeypatch):
     assert (s.num_envs, s.unroll_length, s.epochs) == (4096, 64, 2)
     assert s.minibatch_size == 4096 * 64 // 4 and s.checked_steps == 2
     assert s.config["name"] == "ppo_v2_0_wide"
+    policy = registry.reference_policy(s)
+    assert policy.NAME == "wide"
+    assert policy.__file__ == str(root / "reference" / "policy_wide.py")
+    assert registry.reference_field(s).__file__.startswith(str(root))
     found = {m.name: m for m in registry.metrics()}
     assert found["new_metric"].read(None, found["new_metric"]) == 1.5
     assert found["new_metric"].kernels == ("a_kernel",)
