@@ -42,7 +42,10 @@ rollout on the CPU from the same start, carry and draws: one env-step
 launch a step, actions and dones equal in all but at most one env in 64
 (the carry takes the card's rounding from step to step), the others'
 values and carries at the env tolerance, and the carry zeroed where the
-last step ended an episode.  The stop LSTMs (cuDNN on the card, TF32
+last step ended an episode.  Its update through CUDA graphs
+(``rl.ppo.RecurrentGraph``) is held to the eager update on the card over
+four updates, metrics within a few ulps and params within one learning
+rate, with one capture kept until the parameters move.  The stop LSTMs (cuDNN on the card, TF32
 off) are held to the CPU: a zoo forward and one minibatch step of a
 trainer at rtol 1e-4, atol 1e-5, and an eval with the threshold gate at 64
 episodes x 200 steps as the eval above.  The env-step kernel's executed
@@ -81,7 +84,7 @@ from tpu_plume_torch.models import ActorCritic, RecurrentActorCritic
 from tpu_plume_torch.models import lstm_zoo
 from tpu_plume_torch.ops import gather, plume
 from tpu_plume_torch.ops import ppo as fused_ops
-from tpu_plume_torch.rl.ppo import PPOBatch
+from tpu_plume_torch.rl.ppo import PPOBatch, RecurrentPPOBatch
 from tpu_plume_torch.rollout import rollout
 from tpu_plume_torch.train import lstm_trainer
 
@@ -571,6 +574,76 @@ def test_recurrent_rollout_on_the_card_matches_the_cpu(card, layer_norm_cell):
     for a, b in zip(got_carry.hidden, want_carry.hidden):
         torch.testing.assert_close(a[agree], b[agree], rtol=1e-5, atol=1e-4)
         assert not a[got.done[-1]].any()
+
+
+def _recurrent_batch(length, n, hidden, device, seed):
+    g = torch.Generator().manual_seed(seed)
+
+    def on(x):
+        return x.to(device)
+
+    return RecurrentPPOBatch(
+        obs=on(torch.randn(length, n, 6, generator=g)),
+        actions=on(torch.randint(0, 5, (length, n), generator=g)),
+        old_log_probs=on(-2.0 * torch.rand(length, n, generator=g)),
+        advantages=on(torch.randn(length, n, generator=g)),
+        returns=on(torch.randn(length, n, generator=g)),
+        old_values=on(torch.randn(length, n, generator=g)),
+        resets=on(torch.rand(length, n, generator=g) < 0.05),
+        h_init=tuple(on(0.5 * torch.randn(n, hidden, generator=g))
+                     for _ in range(2)))
+
+
+@pytest.mark.parametrize("layer_norm_cell", [False, True], ids=["plain", "ln"])
+def test_recurrent_update_graph_is_the_eager_update(card, layer_norm_cell):
+    """The recurrent update through its CUDA graphs against the eager
+    update on the card (a one-rank mesh takes that path), from the same
+    start and permutations over four updates, the parameters moved off the
+    card and back before the last: one capture kept until the move, T
+    replayed cell steps a minibatch, the metrics within a few ulps (a mean
+    over a gathered minibatch against one over a strided slice) and the
+    params within one learning rate (where a gradient element is near 0,
+    its round-off can turn that element's Adam step)."""
+    from types import SimpleNamespace
+
+    from tpu_plume_torch.models import recurrent
+    from tpu_plume_torch.rl import ppo as rl_ppo
+    from tpu_plume_torch.train.ppo_trainer import ClippedAdam
+
+    length, n, hidden = 16, 256, 128
+    cfg = dataclasses.replace(get_preset("ppo_v2_0").ppo, arch="lstm",
+                              minibatch_size=length * 64, epochs=2)
+    one_rank = SimpleNamespace(world_size=1, sum_grads=lambda params: None)
+    runs = []
+    for mesh in (None, one_rank):
+        model = RecurrentActorCritic(6, 5, hidden, hidden,
+                                     layer_norm_cell=layer_norm_cell)
+        model.reset_parameters(torch.Generator().manual_seed(0)).to(card)
+        opt = ClippedAdam(model.parameters(), cfg.learning_rate, 0.5)
+        g = torch.Generator(device=card).manual_seed(1)
+        metrics, captures = [], []
+        for k in range(4):
+            if k == 3:
+                model.cpu().to(card)
+            before = recurrent.replayed_steps
+            metrics.append(rl_ppo.ppo_update_recurrent(
+                model, opt, _recurrent_batch(length, n, hidden, card, k),
+                cfg, generator=g, mesh=mesh))
+            torch.cuda.synchronize()
+            assert recurrent.replayed_steps - before == 2 * 4 * length
+            captures.append(rl_ppo._GRAPHS[opt].graphs if mesh is None
+                            else opt not in rl_ppo._GRAPHS)
+        runs.append((model, metrics, captures))
+    (got, got_metrics, captures), (want, want_metrics, eager) = runs
+    assert all(eager)
+    assert all(c is not None for c in captures)
+    assert captures[0] is captures[1] is captures[2] is not captures[3]
+    for a, b in zip(got_metrics, want_metrics, strict=True):
+        assert a.keys() == b.keys()
+        for key in a:
+            torch.testing.assert_close(a[key], b[key], rtol=1e-6, atol=1e-7)
+    for a, b in zip(got.parameters(), want.parameters(), strict=True):
+        torch.testing.assert_close(a, b, rtol=0, atol=cfg.learning_rate)
 
 
 # cuDNN's LSTM against the CPU's: other accumulation orders over up to 3

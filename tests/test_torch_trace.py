@@ -2,13 +2,15 @@
 what one train step records, the drain's span, the ring's bound,
 ``time_phases``' numbers, the device markers through a stand-in event
 class, the ranges under ``torch.profiler``, the spans in ``train_log.csv``
-(``train_ppo`` and ``train_ppo_gail``), and the benchmark's six span
-readers on synthetic records and on a rehearsed traced run."""
+(``train_ppo`` and ``train_ppo_gail``), the benchmark's six span
+readers on synthetic records and on a rehearsed traced run, and the
+recurrent update's ``bptt`` spans, ranges and readers."""
 
 from __future__ import annotations
 
 import collections
 import csv
+import dataclasses
 import time
 from types import SimpleNamespace
 
@@ -23,7 +25,9 @@ from tpu_plume_torch.core.config import (
     RolloutConfig,
     TrainConfig,
 )
+from tpu_plume_torch.models import recurrent
 from tpu_plume_torch.obsv import trace
+from tpu_plume_torch.rl.ppo import RecurrentPPOBatch, ppo_update_recurrent
 from tpu_plume_torch.rollout.rollout import draw_chunk
 from tpu_plume_torch.train import gail_trainer
 from tpu_plume_torch.train import ppo_trainer as ttrain
@@ -34,6 +38,8 @@ LEAVES = ("rollout.policy", "rollout.env_step", "update.grads",
           "update.optimizer", "gae", "read")
 READERS = ("rollout_host_ms", "rollout_device_ms", "update_host_ms",
            "update_device_ms", "drain_ms", "init_loop_s")
+BPTT_READERS = ("bptt_host_ms", "bptt_device_ms")
+LSTM_CELL = "ppo_v2_0_lstm.train.n16384"
 
 
 def _cfg() -> TrainConfig:
@@ -398,3 +404,166 @@ def test_a_rehearsed_traced_run_reads_all_six(fake_card):
     covered = sum(r.span.host_ms + sum(d.host_ms for d in r.drains)
                   for r in run)
     assert 0.9 * seen["span_s"] * 1e3 <= covered <= seen["span_s"] * 1e3
+
+
+# --- the recurrent update's bptt spans -------------------------------------
+
+def _lstm_cfg(epochs: int = 5) -> TrainConfig:
+    """The recurrent policy, ``epochs`` of 8 minibatches of 2 sequences."""
+    cfg = _cfg()
+    return cfg.replace(ppo=dataclasses.replace(
+        cfg.ppo, arch="lstm", lstm_embed=16, lstm_hidden=16, epochs=epochs,
+        minibatch_size=N * T // 8))
+
+
+def _lstm_loop_and_step(epochs: int = 5):
+    cfg = _lstm_cfg(epochs)
+    return cfg, ttrain.init_loop(cfg, "cpu"), ttrain.build_train_step(cfg)
+
+
+def test_one_recurrent_iteration_records_40_bptt_spans(fake_card):
+    _, loop, step = _lstm_loop_and_step()
+    before = recurrent.replayed_steps
+    loop, _, _ = step(loop)
+    assert recurrent.replayed_steps - before == 40 * T
+    rec = trace.latest()
+    assert [s.name for s in rec.phases] == ["rollout", "gae", "update",
+                                            "read"]
+    update = rec.get("update")
+    assert len(rec.bptt) == 40
+    at = update.start_ns
+    for span in rec.bptt:
+        assert (span.name, span.parent, span.ordinal) == (
+            "bptt", "update", rec.ordinal)
+        assert span.steps == T
+        assert at <= span.start_ns <= span.end_ns <= update.end_ns
+        assert span.device_ms is not None and span.markers is None
+        at = span.end_ns
+    # the phases' 6 markers and the spans' 80, resolved at the read
+    assert len([k for k, _ in FakeEvent.log if k == "record"]) == 86
+    assert trace._pending == []
+    # the log's columns are the phases' alone
+    assert sorted(trace.scalars(rec)) == sorted(
+        ["time/read_ms"] + [f"time/{p}_{side}_ms" for p in trace.PHASES
+                            for side in ("host", "device")])
+    # outside a recorded iteration the update keeps no span
+    cfg = _lstm_cfg()
+    batch = RecurrentPPOBatch(
+        obs=torch.zeros(T, N, cfg.env.obs_dim),
+        actions=torch.zeros(T, N, dtype=torch.long),
+        old_log_probs=torch.zeros(T, N), advantages=torch.ones(T, N),
+        returns=torch.ones(T, N), old_values=torch.zeros(T, N),
+        resets=torch.zeros(T, N, dtype=torch.bool),
+        h_init=loop.model.initial_state(N))
+    ppo_update_recurrent(loop.model, loop.optimizer, batch, cfg.ppo,
+                                generator=loop.generator)
+    assert len(rec.bptt) == 40
+    assert recurrent.replayed_steps - before == 80 * T
+
+
+def test_recurrent_ranges_under_the_profiler():
+    from torch.profiler import ProfilerActivity, profile
+
+    _, lstm, lstm_step = _lstm_loop_and_step(epochs=1)
+    _, mlp, mlp_step = _loop_and_step()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        lstm_step(lstm)
+    names = _names(prof)
+    assert {"update.replay", "update.backward", "update.optimizer"} <= names
+    assert not {"update.grads", "bptt", "update"} & names
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        mlp_step(mlp)
+    names = _names(prof)
+    assert {"update.grads", "update.optimizer"} <= names
+    assert not {"update.replay", "update.backward"} & names
+
+
+def test_recurrent_steps_are_bit_equal_with_the_spans_off(fake_card,
+                                                          monkeypatch):
+    _, on, step = _lstm_loop_and_step()
+    _, off, _ = _lstm_loop_and_step()
+    on_stats = []
+    for _ in range(2):
+        on, stats, _ = step(on)
+        on_stats.append(stats)
+    assert len(trace.latest().bptt) == 40
+    monkeypatch.setattr(trace, "bptt", lambda device: trace._NULL)
+    for k in range(2):
+        off, stats, _ = step(off)
+        assert stats.keys() == on_stats[k].keys()
+        for key in stats:
+            assert torch.equal(torch.as_tensor(stats[key]),
+                               torch.as_tensor(on_stats[k][key])), key
+    assert trace.latest().bptt == []
+    for a, b in zip(on.model.parameters(), off.model.parameters()):
+        assert torch.equal(a, b)
+
+
+def _with_bptt(recs, spans: int, steps: int, markers: bool = True) -> list:
+    """``recs`` with ``spans`` bptt spans of ``steps`` each on every
+    record: iteration k's take 0.5 + k host ms, device ms twice that."""
+    for rec in recs:
+        k = rec.ordinal
+        rec.bptt = [trace.Span("bptt", "update", k, 0, int((0.5 + k) * 1e6),
+                               device_ms=(1.0 + 2 * k) if markers else None,
+                               steps=steps) for _ in range(spans)]
+    return recs
+
+
+def _bptt_readers() -> dict:
+    from plumebench import registry
+
+    return {m.name: m for m in registry.metrics() if m.name in BPTT_READERS}
+
+
+def test_the_bptt_readers_on_synthetic_records(monkeypatch):
+    from plumebench import registry
+
+    readers = _bptt_readers()
+    assert sorted(readers) == sorted(BPTT_READERS)
+    spec = registry.spec(LSTM_CELL)
+    n = 5
+    ctx = SimpleNamespace(window_iters=n, spec=spec)
+    window = list(range(4, 4 + n))
+    _install(monkeypatch, _with_bptt(_synthetic(n), 40, 128))
+    want = {"bptt_host_ms": float(np.median([40 * (0.5 + k)
+                                             for k in window])),
+            "bptt_device_ms": float(np.median([40 * (1.0 + 2 * k)
+                                               for k in window]))}
+    for name, m in readers.items():
+        assert m.read(ctx, m) == pytest.approx(want[name]), name
+    # the spans without markers: no device ms
+    _install(monkeypatch, _with_bptt(_synthetic(n), 40, 128, markers=False))
+    assert readers["bptt_host_ms"].read(ctx, None) == pytest.approx(
+        want["bptt_host_ms"])
+    assert readers["bptt_device_ms"].read(ctx, None) is None
+    # no markers at all (a CPU run), a short replay (one span short, or
+    # fewer steps a span), no spans (the MLP, a program without them)
+    for recs in (_with_bptt(_synthetic(n, markers=False), 40, 128,
+                            markers=False),
+                 _with_bptt(_synthetic(n), 39, 128),
+                 _with_bptt(_synthetic(n), 40, 127),
+                 _synthetic(n)):
+        _install(monkeypatch, recs)
+        for m in readers.values():
+            assert m.read(ctx, m) is None, m.name
+    # one window iteration short
+    recs = _with_bptt(_synthetic(n), 40, 128)
+    recs[6].bptt.pop()
+    _install(monkeypatch, recs)
+    for m in readers.values():
+        assert m.read(ctx, m) is None, m.name
+
+
+def test_a_rehearsed_traced_recurrent_run_reads_the_bptt_spans(fake_card):
+    """The harness's traced run of the recurrent cell on the CPU at a tiny
+    size, with the stand-in markers: both bptt readers read."""
+    from plumebench import harness, registry
+
+    spec = registry.spec(LSTM_CELL, {"num_envs": 16, "unroll_length": 4})
+    out = harness.run(spec, 2**31 + 13, 0.5, True, "cpu", time.time())
+    metrics = out["result"]["metrics"]
+    assert set(metrics) >= set(BPTT_READERS) | {"update_host_ms"}
+    assert 0 < metrics["bptt_host_ms"]["value"] < metrics[
+        "update_host_ms"]["value"]
+    assert out["result"]["correct"] is True

@@ -26,7 +26,11 @@ this model, as in JAX).
 ``sequence`` replays a chunk for the BPTT update: the encoder, the
 input-side gate product and the heads do not depend on the carry, so they
 run once over all T x N rows, and only the hidden-side product and the
-gates run per step.
+gates run per step.  ``replayed_steps`` counts the cell steps replayed by
+``sequence`` (T a call, and T a replay of a CUDA graph that captured one:
+``rl.ppo.RecurrentGraph``) and nothing else, as ``ops/plume.py``'s
+``launches`` counters count launches; the ``bptt`` span
+(``tpu_plume_torch/obsv/trace.py``) carries its increase.
 
 Init draws flax's distributions from a ``torch.Generator``: the encoder
 orthogonal sqrt(2), the cell's input kernels lecun-normal, its recurrent
@@ -50,6 +54,8 @@ from tpu_plume_torch.models.actor_critic import (
 )
 
 GATES = 4   # (i, f, g, o)
+
+replayed_steps = 0
 
 Carry = tuple[torch.Tensor, torch.Tensor]
 
@@ -185,6 +191,8 @@ class RecurrentActorCritic(nn.Module):
         bool[T, N], True where the carry is zeroed before step t.  Returns
         (carry', logits f32[T, N, A], values f32[T, N]), what a chain of
         ``step`` calls with those resets returns."""
+        global replayed_steps
+        replayed_steps += obs_seq.shape[0]
         hs = []
         # unbind, not xi[t]: the backward of T selects would fill and add
         # T gradients of the whole [T, N, 4H] product; unbind's stacks once.

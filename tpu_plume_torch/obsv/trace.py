@@ -19,21 +19,33 @@ ordinal.
 - ``drain`` (``iteration``): a window's transfer to the host
   (``train/hostsync.py``), attached to the newest iteration, the one
   before it.
+- ``bptt`` (``update``): one recurrent minibatch of
+  ``rl.ppo.ppo_update_recurrent``, from before its replay's first launch
+  to after its backward (and a mesh's sum of the gradients) returns, or
+  around the replays of those two graphs of a ``rl.ppo.RecurrentGraph``,
+  with a device marker at each end and ``steps``, the cell steps
+  ``models.recurrent.sequence`` replayed inside it (the increase of
+  ``replayed_steps``).  Attached to the iteration being recorded, apart
+  from its phases, so the log's columns do not change; outside a
+  recorded iteration none is kept.
 
 The recorder never synchronises on its own: ``synced`` iterations (the
 train step's ``time_phases``) synchronise at each phase's boundaries, so
 their host ms are the phases' wall ms.  A marker not yet done waits for
 the next read or drain; none is recorded while the stream captures a CUDA
 graph.  The ring keeps the last ``RING`` iterations, each with its phases,
-its drains and three flags: ``synced``, ``drawn`` (the step was given its
-draws) and ``profiled`` (``torch.profiler`` was recording at entry).
+its ``bptt`` spans, its drains and three flags: ``synced``, ``drawn``
+(the step was given its draws) and ``profiled`` (``torch.profiler`` was
+recording at entry).
 
 While ``torch.profiler`` records, each leaf span is a profiler range of
 its own name (``init_loop``, ``gae``, ``disc``, ``read``,
 ``drain``), and so are the profiler-only sites of ``leaf``:
 ``rollout.policy`` and ``rollout.env_step`` in each rollout step,
-``update.grads`` and ``update.optimizer`` in each minibatch.  A span with
-children (``iteration``, ``rollout``, ``update``) is no range: it would
+``update.grads`` and ``update.optimizer`` in each minibatch of the
+feedforward policy, ``update.replay``, ``update.backward`` and
+``update.optimizer`` in each recurrent minibatch.  A span with children
+(``iteration``, ``rollout``, ``update``, ``bptt``) is no range: it would
 hide its children's names from a breakdown that names the outermost range.
 With the profiler off a ``leaf`` site costs one check of a flag.  A range
 is PyTorch's ``RecordFunctionFast`` where it has one: ``record_function``,
@@ -53,6 +65,8 @@ import time
 
 import torch
 from torch.autograd.profiler import record_function
+
+from tpu_plume_torch.models import recurrent
 
 RING = 4096
 # perf_counter_ns + UNIX_OFFSET_NS: the same instant on the unix clock of
@@ -77,6 +91,8 @@ class Span:
     device_ms: float | None = None
     # (start event, end event, pool key) until resolved
     markers: tuple | None = None
+    # a bptt span's replayed cell steps
+    steps: int = 0
 
     @property
     def host_ms(self) -> float:
@@ -85,8 +101,8 @@ class Span:
 
 @dataclasses.dataclass(slots=True)
 class Iteration:
-    """One iteration's record: its span, its phases in order, the drains
-    after it, and its flags."""
+    """One iteration's record: its span, its phases in order, its update's
+    ``bptt`` spans, the drains after it, and its flags."""
 
     span: Span
     synced: bool
@@ -94,6 +110,7 @@ class Iteration:
     profiled: bool
     phases: list = dataclasses.field(default_factory=list)
     drains: list = dataclasses.field(default_factory=list)
+    bptt: list = dataclasses.field(default_factory=list)
 
     @property
     def ordinal(self) -> int:
@@ -196,6 +213,32 @@ def drain():
         if rec is not None:
             rec.drains.append(span)
         resolve()
+
+
+@contextlib.contextmanager
+def bptt(device):
+    """A ``bptt`` span on ``device`` around one recurrent minibatch's replay
+    and backward, attached to the iteration being recorded; none outside
+    one.  No range of its own: ``update.replay`` and ``update.backward``
+    are its children's."""
+    rec = latest()
+    if rec is None or rec.span.end_ns:
+        yield
+        return
+    key = str(device)
+    steps = recurrent.replayed_steps
+    span = Span("bptt", "update", rec.ordinal, time.perf_counter_ns())
+    start = _marker(key) if on_card(torch.device(device)) else None
+    try:
+        yield
+    finally:
+        end = _marker(key) if start is not None else None
+        span.end_ns = time.perf_counter_ns()
+        span.steps = recurrent.replayed_steps - steps
+        if end is not None:
+            span.markers = (start, end, key)
+            _pending.append(span)
+        rec.bptt.append(span)
 
 
 class Recording:

@@ -20,7 +20,10 @@ goes to the CUDA kernel, one on the CPU to the kernel's plain version.
 ``ppo_update_recurrent`` is the recurrent policy's update: the same losses
 over [T, n] sequence minibatches, cut from the env axis after one env
 permutation per epoch, with the policy's carry replayed from the chunk-start
-``h_init`` (BPTT).
+``h_init`` (BPTT).  On the card, in one process, each minibatch's replay
+and backward are a ``RecurrentGraph``: captured once as CUDA graphs, so
+that the T sequential cell steps and their backward cost the host two
+launches instead of some 3500.
 
 Under a data-parallel ``mesh`` (``tpu_plume_torch.parallel``) of world size
 W > 1 each rank holds its envs' share of the batch: the advantages are
@@ -35,12 +38,17 @@ passed through the (identity) collective.
 
 Under ``torch.profiler`` each minibatch's gradients (with their sum over
 the ranks) and its optimizer step are the ranges ``update.grads`` and
-``update.optimizer`` (``obsv.trace.leaf``).
+``update.optimizer`` (``obsv.trace.leaf``); a recurrent minibatch's
+gradients are two ranges, ``update.replay`` (the loss through the
+policy's ``sequence``) and ``update.backward`` (``zero_grad``, the
+backward and the sum over the ranks), inside its ``bptt`` span; under a
+``RecurrentGraph`` they hold the replays of its graphs.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -50,6 +58,7 @@ from torch.utils.checkpoint import checkpoint
 from tpu_plume_torch.core.config import PPOConfig
 from tpu_plume_torch.core.support import check_ppo
 from tpu_plume_torch.core.tree import tree_map
+from tpu_plume_torch.models import recurrent
 from tpu_plume_torch.obsv import trace
 from tpu_plume_torch.ops import ppo as fused_ops
 
@@ -374,6 +383,116 @@ def _averages(sums: dict, count: int, mesh) -> dict:
     return {k: v / count for k, v in sums.items()}
 
 
+class RecurrentGraph:
+    """The recurrent minibatch's replay and backward on the card as two
+    CUDA graphs over one memory pool, replayed in the order they were
+    captured: ``loss`` (``ppo_loss_recurrent``, the replay through
+    ``sequence``, whose metrics it adds to ``sums``) and ``backward``
+    (``zero_grad`` and the backward, which leaves the gradients in the
+    parameters' ``grad``).  The optimizer's clip and Adam then run eagerly,
+    so its arithmetic is the eager update's.  Each minibatch's sequences
+    are gathered into the static ``part`` before the replays.  The capture
+    is made again when the parameters have moved since.  A replay of
+    ``loss`` adds T to ``models.recurrent.replayed_steps``, as a call of
+    ``sequence`` does."""
+
+    def __init__(self, batch: RecurrentPPOBatch, envs: int, key: tuple):
+        def like(x, axis):
+            shape = list(x.shape)
+            shape[axis] = envs
+            return torch.empty(shape, dtype=x.dtype, device=x.device)
+
+        self.key = key
+        self.part = RecurrentPPOBatch(
+            h_init=tuple(like(x, 0) for x in batch.h_init),
+            **{f.name: (None if getattr(batch, f.name) is None
+                        else like(getattr(batch, f.name), 1))
+               for f in dataclasses.fields(batch) if f.name != "h_init"})
+        self.steps = batch.obs.shape[0]
+        self.sums = None
+        self.graphs = self.outputs = self.pointers = None
+
+    def begin(self, model) -> None:
+        """Before an update: drops the graphs if ``model``'s parameters
+        moved since the capture, and zeroes the sums."""
+        if self.pointers != tuple(p.data_ptr() for p in model.parameters()):
+            self.graphs = self.outputs = self.pointers = None
+        if self.sums is not None:
+            torch._foreach_zero_(list(self.sums.values()))
+
+    def _capture(self, model, optimizer, cfg: PPOConfig) -> None:
+        steps = recurrent.replayed_steps
+        # warm-up on a side stream, as torch.cuda.graphs asks; its
+        # gradients are dropped
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            loss, metrics = ppo_loss_recurrent(model, self.part, cfg)
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        torch.cuda.current_stream().wait_stream(side)
+        if self.sums is None:
+            self.sums = {k: torch.zeros_like(v) for k, v in metrics.items()}
+        del loss, metrics
+        optimizer.zero_grad(set_to_none=True)
+        pool = torch.cuda.graph_pool_handle()
+        graphs = (torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph())
+        with torch.cuda.graph(graphs[0], pool=pool):
+            loss, metrics = ppo_loss_recurrent(model, self.part, cfg)
+            for k, v in metrics.items():
+                self.sums[k].add_(v)
+        with torch.cuda.graph(graphs[1], pool=pool):
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        recurrent.replayed_steps = steps
+        # the captured outputs stay referenced, so that no later capture in
+        # the pool is handed their memory
+        self.graphs, self.outputs = graphs, (loss, metrics)
+        self.pointers = tuple(p.data_ptr() for p in model.parameters())
+
+    def minibatch(self, model, optimizer, batch: RecurrentPPOBatch,
+                  idx: torch.Tensor, cfg: PPOConfig) -> None:
+        """One minibatch step on the sequences ``idx`` of ``batch``."""
+        for src, dst in zip(batch.h_init, self.part.h_init):
+            torch.index_select(src, 0, idx, out=dst)
+        for f in dataclasses.fields(batch):
+            src = getattr(batch, f.name)
+            if f.name != "h_init" and src is not None:
+                torch.index_select(src, 1, idx, out=getattr(self.part, f.name))
+        if self.graphs is None:
+            self._capture(model, optimizer, cfg)
+        loss_graph, backward_graph = self.graphs
+        with trace.bptt(self.part.obs.device):
+            with trace.leaf("update.replay"):
+                loss_graph.replay()
+                recurrent.replayed_steps += self.steps
+            with trace.leaf("update.backward"):
+                backward_graph.replay()
+        with trace.leaf("update.optimizer"):
+            optimizer.step()
+
+
+# optimizer -> its RecurrentGraph
+_GRAPHS = weakref.WeakKeyDictionary()
+
+
+def recurrent_graph(model, optimizer, batch: RecurrentPPOBatch, envs: int,
+                    cfg: PPOConfig) -> RecurrentGraph:
+    """The ``RecurrentGraph`` of ``optimizer`` for minibatches of ``envs``
+    sequences of ``batch``'s layout, ``model``'s compute and ``cfg``, made
+    anew when one of them differs from its last update's."""
+    key = (envs, cfg, type(model), model.dtype, type(model.cell),
+           tuple(None if x is None else (tuple(x.shape), x.dtype)
+                 for x in (*batch.h_init,
+                           *(getattr(batch, f.name)
+                             for f in dataclasses.fields(batch)
+                             if f.name != "h_init"))))
+    graph = _GRAPHS.get(optimizer)
+    if graph is None or graph.key != key:
+        graph = _GRAPHS[optimizer] = RecurrentGraph(batch, envs, key)
+    return graph
+
+
 def ppo_update_recurrent(model: torch.nn.Module, optimizer,
                          batch: RecurrentPPOBatch, cfg: PPOConfig,
                          generator: torch.Generator | None = None,
@@ -391,7 +510,17 @@ def ppo_update_recurrent(model: torch.nn.Module, optimizer,
     them: the fused kernels compute the feedforward network.  Returns the
     metrics averaged over all minibatches (0-d tensors).  Under a ``mesh``
     of W > 1 ranks the batch holds this rank's envs of the global N and
-    the permutations are of the global envs (module docstring)."""
+    the permutations are of the global envs (module docstring).
+
+    Each minibatch's replay and backward are one ``bptt`` span
+    (``obsv.trace.bptt``), which counts the cell steps replayed in it
+    (``models.recurrent.replayed_steps``); under the profiler they are the
+    ranges ``update.replay`` and ``update.backward``, and the step
+    ``update.optimizer``.
+
+    A batch on the card with no ``mesh`` takes its minibatches' replays
+    and backwards through the optimizer's ``RecurrentGraph``: the same
+    operations, launched from CUDA graphs."""
     check_ppo(cfg)
     spread = _spread(mesh)
     T, n = batch.actions.shape
@@ -407,9 +536,20 @@ def ppo_update_recurrent(model: torch.nn.Module, optimizer,
     if len(shuffles) != cfg.epochs:
         raise ValueError(f"{len(shuffles)} shuffles for {cfg.epochs} epochs")
     share = Share(T * envs_per_mb, mesh) if spread else None
+    captured = None
+    if batch.obs.is_cuda and mesh is None:
+        captured = recurrent_graph(model, optimizer, batch, envs_per_mb, cfg)
+        captured.begin(model)
 
     sums: dict[str, torch.Tensor] = {}
     for perm in shuffles:
+        if captured is not None:
+            perm = torch.as_tensor(perm, device=batch.obs.device)
+            for i in range(num_minibatches):
+                captured.minibatch(model, optimizer, batch,
+                                   perm[i * envs_per_mb:(i + 1) * envs_per_mb],
+                                   cfg)
+            continue
         if spread:
             parts = [batch.envs(r) for r in _rank_rows(
                 perm % n, perm // n, envs_per_mb, num_minibatches, mesh.rank)]
@@ -419,14 +559,19 @@ def ppo_update_recurrent(model: torch.nn.Module, optimizer,
                                          (i + 1) * envs_per_mb))
                      for i in range(num_minibatches)]
         for part in parts:
-            with trace.leaf("update.grads"):
-                loss, metrics = ppo_loss_recurrent(model, part, cfg, share)
-                optimizer.zero_grad(set_to_none=True)
-                loss.backward()
-                if mesh is not None:
-                    mesh.sum_grads(model.parameters())
+            with trace.bptt(part.obs.device):
+                with trace.leaf("update.replay"):
+                    loss, metrics = ppo_loss_recurrent(model, part, cfg,
+                                                       share)
+                with trace.leaf("update.backward"):
+                    optimizer.zero_grad(set_to_none=True)
+                    loss.backward()
+                    if mesh is not None:
+                        mesh.sum_grads(model.parameters())
             with trace.leaf("update.optimizer"):
                 optimizer.step()
             for k, v in metrics.items():
                 sums[k] = sums[k] + v if k in sums else v
+    if captured is not None:
+        sums = captured.sums
     return _averages(sums, cfg.epochs * num_minibatches, mesh)
