@@ -87,13 +87,19 @@ outside a checkout of the repository.  Phases, each of which must pass:
    ``--synth-bank static`` read between cells (one bank-step launch per
    env step); ppo_v2_0 with the recurrent policy (``--arch lstm``, 6 -> 128
    -> LayerNorm -> LSTM 128 -> {5, 1}, f32, the BPTT update over 512-env
-   sequence minibatches; one env-step launch per env step), its rollout
+   sequence minibatches; one env-step launch per env step, and T launches
+   of each LSTM step kernel a minibatch's graph replays), its rollout
    chunk profiled and its iteration not (the processing of its 135 k
    launches took 52.7 s on an NVIDIA H100 80GB HBM3, 700.00 W); then one
    minibatch step of its update, forward and backward, through
    ``sequence`` and through a chain of
    ``step`` calls (the same loss and gradients, each one's ms and
-   launches); ppo_v2_0 and wrf_les with the training guide (``train
+   launches); the LSTM step kernels (``ops/lstm.py``) against autodiff
+   through the eager loop and their plain version at LSTM_CHECKS (T
+   launches each a call; the forward's unequal elements, the gradients
+   within 2e-5 x max|grad|), each kernel's time beside its byte bound and
+   its plain step's, and one minibatch's recurrence through the kernels,
+   the loop and the plain version; ppo_v2_0 and wrf_les with the training guide (``train
    --train-guide fit --min-radius 50 --terminal-gate 40``: the fit guide in
    the rollout, still one env-step launch per env step, the overridden
    steps masked out of the update; 3 and 1 timed iterations), their share
@@ -254,7 +260,8 @@ guided CLI); ``--only stop-lstm`` runs phases 9 and 10 alone, and
 imitation`` phase 13 on an expert file of its own, ``--only flux``
 the learning check and phase 14, ``--only scale-out`` phase 15, and
 ``--only bank-step`` the bank step kernel's parity and times and the
-wrf_les_3d and static-bank main paths.  Each prints its JSON
+wrf_les_3d and static-bank main paths, and ``--only lstm-step`` the LSTM
+step kernels' parity and times.  Each prints its JSON
 record, each phase's seconds and the card's name and power limit.
 
 Then it prints a JSON line of the eval phases, one of the recurrent main
@@ -271,7 +278,8 @@ under ``exec_action``, the guided evals' under ``guided_eval_launches``,
 and in every entry phase 12's under ``bank_guided_eval_launches``,
 ``learned_guided_eval_launches`` and ``oracle_eval_launches``; phase
 13's under ``imitation``; phase 14's plume-sample launches under
-``flux_launches``; phase 15's under ``scale_out_launches``), the
+``flux_launches``; phase 15's under ``scale_out_launches``; the LSTM
+step kernels' entry last, with their parity and times), the
 card's
 name and power limit, and, last, the result line ``{"ok": true,
 "device": {...}}``.  h5py is never imported here (``find_spec`` tells
@@ -378,6 +386,10 @@ SMALL_LSTM_APART = 1
 # The recurrent update's minibatch at full width: 512 env sequences of 128
 # steps; episode ends at about one in 200 steps.
 LSTM_MB_ENVS, LSTM_RESET_RATE = 512, 1.0 / 200.0
+# The LSTM step kernels' checks (N, T, H): the benchmarked cell's
+# minibatch (2048 sequences of 128 steps) and a ragged N; their times at
+# the first.
+LSTM_CHECKS = ((2048, 128, 128), (1999, 128, 128))
 # The eval phases: the warm-up's steps and the learning check's
 # iterations.
 EVAL_WARMUP = 16
@@ -2248,6 +2260,172 @@ def time_bptt_replay(ttrain, ppo, cfg) -> dict:
     return out
 
 
+def lstm_chunk(recurrent, n: int, t: int, h: int, seed: int):
+    """A plain LSTM cell on the card, xi [T, N, 4H], resets [T, N] at
+    LSTM_RESET_RATE with step 0 and the last step among them, and a
+    nonzero initial carry, from ``seed``."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cell = recurrent.LSTMCell(h, h)
+    cell.reset_parameters(torch.Generator().manual_seed(seed))
+    cell = cell.cuda()
+    with torch.no_grad():
+        cell.hh.bias.normal_(0.0, 0.5, generator=g)
+    xi = torch.randn(t, n, 4 * h, device="cuda", generator=g)
+    resets = torch.rand(t, n, device="cuda", generator=g) < LSTM_RESET_RATE
+    resets[0, : n // 3] = True
+    resets[-1, n // 2:] = True
+    carry = tuple(0.5 * torch.randn(n, h, device="cuda", generator=g)
+                  for _ in range(2))
+    return cell, xi, resets, carry
+
+
+def lstm_grads(fn, cell, carry, xi, resets, seed: int) -> tuple:
+    """(outputs, gradients) of ``fn(cell, carry, xi, resets)``: hs and the
+    last carry, and the gradients of a random linear function of them with
+    respect to xi, the initial carry, W_hh and b."""
+    import torch
+
+    xi = xi.clone().requires_grad_(True)
+    carry = tuple(x.clone().requires_grad_(True) for x in carry)
+    cell.zero_grad(set_to_none=True)
+    hs, (c, h) = fn(cell, carry, xi, resets)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    loss = sum((x * torch.randn(x.shape, device="cuda", generator=g)).sum()
+               for x in (hs, c, h))
+    loss.backward()
+    torch.cuda.synchronize()
+    return ({"hs": hs.detach(), "c": c.detach(), "h": h.detach()},
+            {"xi": xi.grad, "c0": carry[0].grad, "h0": carry[1].grad,
+             "weight": cell.hh.weight.grad, "bias": cell.hh.bias.grad})
+
+
+def check_lstm_kernels(lstm_ops, recurrent) -> dict:
+    """``ops.lstm.lstm_sequence`` on the card at each of LSTM_CHECKS against
+    autodiff through the eager loop (``models.recurrent.cell_loop``) and
+    against its plain version on the card: T launches of each kernel a
+    call; the forward's elements that differ from the loop's (the kernel
+    repeats its ops and roundings, so none should) and its largest gap,
+    held to the forward's parity tolerance (rtol 1e-5, atol 1e-6); each
+    gradient's largest gap over its largest element, held to 2e-5 (the
+    fused PPO kernels' tolerance)."""
+    import torch
+
+    loop = lambda *a: recurrent.cell_loop(*a, torch.float32)
+    out = {}
+    for n, t, h in LSTM_CHECKS:
+        cell, xi, resets, carry = lstm_chunk(recurrent, n, t, h, seed=n + t)
+        before = lstm_ops.fwd_launches, lstm_ops.bwd_launches
+        got, got_grads = lstm_grads(lstm_ops.lstm_sequence, cell, carry, xi,
+                                    resets, 1)
+        launches = (lstm_ops.fwd_launches - before[0],
+                    lstm_ops.bwd_launches - before[1])
+        assert launches == (t, t), launches
+        row = {"resets": int(resets.sum())}
+        for label, fn in (("loop", loop),
+                          ("plain", lstm_ops.lstm_sequence_plain)):
+            want, want_grads = lstm_grads(fn, cell, carry, xi, resets, 1)
+            for key, w in want.items():
+                torch.testing.assert_close(got[key], w, rtol=1e-5,
+                                           atol=1e-6, msg=f"{label} {key}")
+            rel = {}
+            for key, w in want_grads.items():
+                rel[key] = float((got_grads[key] - w).abs().max()
+                                 / w.abs().max())
+                assert rel[key] <= 2e-5, (n, label, key, rel[key])
+            row[label] = {
+                "forward_unequal": {key: int((got[key] != w).sum())
+                                    for key, w in want.items()},
+                "forward_max_abs": max(float((got[key] - w).abs().max())
+                                       for key, w in want.items()),
+                "grad_rel": rel}
+        out[f"{n}x{t}x{h}"] = row
+        log(f"lstm kernels N={n} T={t} H={h} ({row['resets']} resets): "
+            f"{launches[0]} + {launches[1]} launches; against the loop "
+            f"forward unequal {row['loop']['forward_unequal']} (max "
+            f"{row['loop']['forward_max_abs']:.3g}), grads / max "
+            + ", ".join(f"{k} {v:.3g}" for k, v in row["loop"]["grad_rel"]
+                        .items())
+            + f"; against the plain version forward unequal "
+            f"{row['plain']['forward_unequal']}")
+    return out
+
+
+def lstm_step_bytes(n: int, h: int) -> dict:
+    """Device bytes of one step of each kernel at N rows and H units, each
+    input read once and each output written once: the forward reads z, xi
+    (4H each), c_prev (H) and two reset bytes and writes the four gates,
+    c, h and the next step's masked h (7H); the backward reads dh_out,
+    dh_rec, the four gates, c, c_prev, dc (9H) and two reset bytes and
+    writes dz (4H) and dc (H)."""
+    return {"fwd": n * (16 * h * 4 + 2), "bwd": n * (14 * h * 4 + 2)}
+
+
+def time_lstm_kernels(lstm_ops, recurrent) -> dict:
+    """At LSTM_CHECKS[0]: each kernel's per-call time (CUDA events over
+    back-to-back launches walking the middle steps) and device time
+    (profiler) beside its byte bound at HBM_BYTES_PER_S and its plain
+    version's step; and one minibatch's recurrence, forward and backward,
+    through the kernels, through the eager loop and through the plain
+    version: ms and device launches."""
+    import itertools
+    import types
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    n, t, h = LSTM_CHECKS[0]
+    cell, xi, resets, carry = lstm_chunk(recurrent, n, t, h, seed=7)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    rand = lambda *shape: torch.rand(shape, device="cuda", generator=g)
+    b = types.SimpleNamespace(
+        steps=t, n=n, h=h, xi=xi, resets=resets, c0=carry[0],
+        z=torch.randn(n, 4 * h, device="cuda", generator=g),
+        h_in=rand(t, n, h), cs=rand(t, n, h), hs=rand(t, n, h),
+        act=rand(t, n, 4 * h), dhs=rand(t, n, h), rec=rand(n, h),
+        dc=rand(n, h), dz=rand(t, n, 4 * h),
+        stream=torch.cuda.current_stream().cuda_stream, vec=4)
+    steps = itertools.cycle(range(1, t - 1))
+    bytes_ = lstm_step_bytes(n, h)
+    out = {"shape": [n, t, h], "bytes": bytes_}
+    for i, kind in enumerate(("fwd", "bwd")):
+        # each call the next middle step, as a replay walks them: its
+        # slices of xi, hs, the gates and c come from device memory, the
+        # product's output and the carry from L2
+        kernel = lambda: lstm_ops._CUDA[i](next(steps), b)
+        plain = lambda: lstm_ops._PLAIN[i](next(steps), b)
+        bound_ms = bytes_[kind] / HBM_BYTES_PER_S * 1e3
+        device_ms = kernel_device_ms(kernel, f"lstm_step_{kind}_kernel",
+                                     reps=200)
+        out[kind] = dict(ms=cuda_ms(kernel, 200), device_ms=device_ms,
+                         plain_ms=cuda_ms(plain, 50), bound_ms=bound_ms,
+                         bound_share=(bound_ms / device_ms if device_ms
+                                      else None))
+        log(f"time lstm_step_{kind}_kernel N={n} H={h}: per call "
+            f"{out[kind]['ms']:.5f} ms, device {device_ms} ms, bound "
+            f"{bound_ms:.5f} ms ({bytes_[kind]} B), plain "
+            f"{out[kind]['plain_ms']:.5f} ms")
+    loop = lambda *a: recurrent.cell_loop(*a, torch.float32)
+    chunk = {}
+    for label, fn in (("kernels", lstm_ops.lstm_sequence), ("loop", loop),
+                      ("plain", lstm_ops.lstm_sequence_plain)):
+        def once(fn=fn):
+            return lstm_grads(fn, cell, carry, xi, resets, 1)
+
+        ms = cuda_ms(once, 3)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            once()
+        chunk[label] = dict(ms=ms, launches=sum(
+            e.count for e in device_kernels(prof)))
+    out["chunk"] = chunk
+    log(f"lstm recurrence of one minibatch, forward and backward ({n} x "
+        f"{t}, H {h}; with the loss's draws): " + ", ".join(
+            f"{label} {r['ms']:.3f} ms in {r['launches']} launches"
+            for label, r in chunk.items()))
+    return out
+
+
 def learning_check(ttrain, ev, k, cfg, out_dir) -> dict:
     """ppo_v2_0 f32 at full width trained for LEARN_ITERS iterations into
     ``out_dir`` with the trajectory capture on (``data.csv``, and
@@ -4022,8 +4200,14 @@ def run_only(only, m, v20, wl, phase_done) -> None:
     ``--only imitation``: phase 13 on an expert file of its own; ``--only
     flux``: the learning check and phase 14; ``--only scale-out``: phase
     15; ``--only bank-step``: the bank step kernel's checks and times, and
-    the wrf_les_3d and static-bank main paths.  Each prints its JSON
-    record."""
+    the wrf_les_3d and static-bank main paths; ``--only lstm-step``: the
+    LSTM step kernels' checks and times.  Each prints its JSON record."""
+    if only == "lstm-step":
+        out = {"parity": check_lstm_kernels(m.lstm_ops, m.recurrent),
+               "time": time_lstm_kernels(m.lstm_ops, m.recurrent)}
+        phase_done("lstm step kernels")
+        log(json.dumps({"lstm_kernels": out}))
+        return
     if only == "stop-lstm":
         _, stop_lstm, _ = stop_lstm_phases(m.ttrain, m.ev, m.k, m.cli_main,
                                            v20, phase_done)
@@ -4986,14 +5170,16 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--only", choices=("guide", "stop-lstm", "eval-guides",
-                           "imitation", "flux", "scale-out", "bank-step"),
+                           "imitation", "flux", "scale-out", "bank-step",
+                           "lstm-step"),
         help="after the build, run only the guide's phases (with the "
              "untrained policies' guided evals), only phases 9 and 10, "
              "only the learning check and phase 12, only phase 13, the "
              "imitation phase, only the learning check and phase 14, "
              "the flux studies, only phase 15, the train flags and "
-             "data parallel, or only the bank step kernel's checks and "
-             "times and the two bank main paths")
+             "data parallel, only the bank step kernel's checks and "
+             "times and the two bank main paths, or only the LSTM step "
+             "kernels' checks and times")
     args = parser.parse_args(argv)
     import torch
 
@@ -5006,8 +5192,9 @@ def main(argv=None) -> int:
     from tpu_plume_torch.core.config import PPOConfig, RolloutConfig, get_preset
     from tpu_plume_torch.evaluation import harnesses as ev
     from tpu_plume_torch.fields import gridded
-    from tpu_plume_torch.models import ActorCritic
+    from tpu_plume_torch.models import ActorCritic, recurrent
     from tpu_plume_torch.ops import build, gather, plume
+    from tpu_plume_torch.ops import lstm as lstm_ops
     from tpu_plume_torch.ops import ppo as fused_ops
     from tpu_plume_torch.rl import ppo as ppo_mod
     from tpu_plume_torch.rl.ppo import PPOBatch, ppo_loss
@@ -5032,7 +5219,7 @@ def main(argv=None) -> int:
         seconds[name] = round(now - t_phase[0], 1)
         t_phase[0] = now
 
-    build_kernels(build, ("plume", "ppo", "gather"))
+    build_kernels(build, ("plume", "ppo", "gather", "lstm"))
     phase_done("build")
     k = types.SimpleNamespace(plume=plume, fused_ops=fused_ops, gather=gather,
                               gridded=gridded)
@@ -5044,7 +5231,8 @@ def main(argv=None) -> int:
     m = types.SimpleNamespace(
         ev=ev, k=k, ttrain=ttrain, rollout=rollout, cli_main=cli_main,
         ActorCritic=ActorCritic, get_preset=get_preset, plume=plume,
-        gridded=gridded, RolloutConfig=RolloutConfig, draw_chunk=draw_chunk)
+        gridded=gridded, RolloutConfig=RolloutConfig, draw_chunk=draw_chunk,
+        lstm_ops=lstm_ops, recurrent=recurrent)
     if args.only:
         run_only(args.only, m, v20_main, wl, phase_done)
         log("phase seconds: " + json.dumps(seconds))
@@ -5178,10 +5366,22 @@ def main(argv=None) -> int:
     # CPU.
     lstm_cfg = v20.replace(ppo=dataclasses.replace(
         v20.ppo, minibatch_size=MAIN_MB, arch="lstm"))
+    lstm_before = lstm_ops.fwd_launches, lstm_ops.bwd_launches
     lstm = run_main_path(ttrain, rollout.rollout_chunk, k, "lstm", lstm_cfg,
                          iters=1,
                          profile_steps=lstm_cfg.rollout.unroll_length)
+    # each minibatch's graph replays launch each LSTM kernel T times, the
+    # warm-up iteration's and the timed one's; the capture counts none
+    t_lstm = lstm_cfg.rollout.unroll_length
+    per_update = lstm_cfg.ppo.epochs * (lstm_cfg.rollout.num_envs // max(
+        1, lstm_cfg.ppo.minibatch_size // t_lstm)) * t_lstm
+    lstm_launches = (lstm_ops.fwd_launches - lstm_before[0],
+                     lstm_ops.bwd_launches - lstm_before[1])
+    assert lstm_launches == (2 * per_update, 2 * per_update), lstm_launches
     lstm_replay = time_bptt_replay(ttrain, ppo_mod, lstm_cfg)
+    lstm_kernels = {"parity": check_lstm_kernels(lstm_ops, recurrent),
+                    "time": time_lstm_kernels(lstm_ops, recurrent),
+                    "main_path_launches": lstm_launches}
     eval_lstm = run_eval(ev, k, "A lstm", lstm_cfg, lstm["model"],
                          stop="heuristic")
     eval_lstm["card_vs_cpu"] = check_eval_against_cpu(
@@ -5270,7 +5470,8 @@ def main(argv=None) -> int:
                                    "whole_ms", "busy", "busy_unprofiled",
                                    "device_ms", "profiled_launches",
                                    "rollout_profile", "max_memory_allocated",
-                                   "counts")}, "lstm_replay": lstm_replay}))
+                                   "counts")}, "lstm_replay": lstm_replay,
+        "lstm_kernels": lstm_kernels}))
     log(json.dumps({"stop_lstm": stop_lstm}))
     log(json.dumps({"eval_guides": eval_guides_out}, default=str))
     log(json.dumps({"imitation": imit}, default=str))
@@ -5449,6 +5650,17 @@ def main(argv=None) -> int:
         for key, labels in EVAL_GUIDE_GROUPS.items():
             entry[key] = {label: eval_guides_out[label]["launches"][
                 entry["name"]] for label in labels}
+    kernels.append({
+        "name": "lstm_step",
+        "route": "cuda",
+        "source": "tpu_plume_torch/csrc/lstm.cu",
+        "replaces": "none: the BPTT replay's gate arithmetic, which JAX "
+                    "leaves to XLA's scan",
+        "kernels": ["lstm_step_fwd_kernel", "lstm_step_bwd_kernel"],
+        "launches": lstm_kernels["main_path_launches"],
+        **lstm_kernels["time"],
+        "parity": lstm_kernels["parity"],
+    })
     log("phase seconds: " + json.dumps(seconds))
     print(json.dumps({"kernels": kernels}))
     print(card)

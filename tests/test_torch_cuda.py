@@ -45,7 +45,13 @@ values and carries at the env tolerance, and the carry zeroed where the
 last step ended an episode.  Its update through CUDA graphs
 (``rl.ppo.RecurrentGraph``) is held to the eager update on the card over
 four updates, metrics within a few ulps and params within one learning
-rate, with one capture kept until the parameters move.  The stop LSTMs (cuDNN on the card, TF32
+rate, with one capture kept until the parameters move.  The LSTM step
+kernels (``ops/lstm.py``, ``csrc/lstm.cu``) are held to autodiff through
+the eager loop and to their plain version on the card: outputs to the
+bit, gradients within 2e-5 x max|grad|, T launches of each a call; a
+graphed update through them to the same update through the loop, params
+within one learning rate, each replay adding T launches to each
+counter.  The stop LSTMs (cuDNN on the card, TF32
 off) are held to the CPU: a zoo forward and one minibatch step of a
 trainer at rtol 1e-4, atol 1e-5, and an eval with the threshold gate at 64
 episodes x 200 steps as the eval above.  The env-step kernel's executed
@@ -81,12 +87,15 @@ from tpu_plume_torch.core import PPOConfig, get_preset
 from tpu_plume_torch.evaluation import harnesses
 from tpu_plume_torch.fields.gridded import FieldBank
 from tpu_plume_torch.models import ActorCritic, RecurrentActorCritic
-from tpu_plume_torch.models import lstm_zoo
+from tpu_plume_torch.models import lstm_zoo, recurrent
 from tpu_plume_torch.ops import gather, plume
+from tpu_plume_torch.ops import lstm as lstm_ops
 from tpu_plume_torch.ops import ppo as fused_ops
+from tpu_plume_torch.rl import ppo as rl_ppo
 from tpu_plume_torch.rl.ppo import PPOBatch, RecurrentPPOBatch
 from tpu_plume_torch.rollout import rollout
 from tpu_plume_torch.train import lstm_trainer
+from tpu_plume_torch.train.ppo_trainer import ClippedAdam
 
 pytestmark = pytest.mark.cuda
 
@@ -606,10 +615,6 @@ def test_recurrent_update_graph_is_the_eager_update(card, layer_norm_cell):
     its round-off can turn that element's Adam step)."""
     from types import SimpleNamespace
 
-    from tpu_plume_torch.models import recurrent
-    from tpu_plume_torch.rl import ppo as rl_ppo
-    from tpu_plume_torch.train.ppo_trainer import ClippedAdam
-
     length, n, hidden = 16, 256, 128
     cfg = dataclasses.replace(get_preset("ppo_v2_0").ppo, arch="lstm",
                               minibatch_size=length * 64, epochs=2)
@@ -642,6 +647,95 @@ def test_recurrent_update_graph_is_the_eager_update(card, layer_norm_cell):
         assert a.keys() == b.keys()
         for key in a:
             torch.testing.assert_close(a[key], b[key], rtol=1e-6, atol=1e-7)
+    for a, b in zip(got.parameters(), want.parameters(), strict=True):
+        torch.testing.assert_close(a, b, rtol=0, atol=cfg.learning_rate)
+
+
+class _LoopCell(recurrent.LSTMCell):
+    """The plain cell under another type: ``sequence`` runs it through the
+    eager loop on the card too (``ops.lstm.supports``)."""
+
+
+@pytest.mark.parametrize("n, t, h", [(2048, 32, 128), (2047, 9, 128),
+                                     (333, 7, 30)])
+def test_lstm_kernels_match_the_loop_and_the_plain_version(card, n, t, h):
+    """``ops.lstm.lstm_sequence`` on the card (one forward and one backward
+    launch a step, 16-byte accesses, and one unit a thread at H = 30)
+    against autodiff through the eager loop and against its plain version
+    on the card, on ``chip_smoke.lstm_chunk``'s inputs (resets at step 0
+    and the last step among them): the outputs equal the loop's (the
+    same ops, roundings and products), the gradients within 2e-5 x
+    max|grad| (the fused PPO kernels' tolerance; the weight's and bias's
+    are summed over all rows at once)."""
+    from chip_smoke import lstm_chunk, lstm_grads
+
+    cell, xi, resets, carry = lstm_chunk(recurrent, n, t, h, n + t)
+    loop = lambda *a: recurrent.cell_loop(*a, torch.float32)
+    before = lstm_ops.fwd_launches, lstm_ops.bwd_launches
+    got, got_grads = lstm_grads(lstm_ops.lstm_sequence, cell, carry, xi,
+                                resets, 1)
+    assert (lstm_ops.fwd_launches, lstm_ops.bwd_launches) == (
+        before[0] + t, before[1] + t)
+    for fn in (loop, lstm_ops.lstm_sequence_plain):
+        want, want_grads = lstm_grads(fn, cell, carry, xi, resets, 1)
+        for key in want:
+            assert torch.equal(got[key], want[key]), key
+        for key, w in want_grads.items():
+            torch.testing.assert_close(got_grads[key], w, rtol=0,
+                                       atol=2e-5 * float(w.abs().max()),
+                                       msg=key)
+    assert (lstm_ops.fwd_launches, lstm_ops.bwd_launches) == (
+        before[0] + t, before[1] + t)
+
+
+def test_lstm_wrapper_raises_on_cuda_inputs_it_does_not_take(card):
+    from chip_smoke import lstm_chunk
+
+    cell, xi, resets, carry = lstm_chunk(recurrent, 64, 3, 16, 0)
+    with pytest.raises(TypeError):
+        lstm_ops.lstm_sequence(cell, carry, xi.bfloat16(), resets)
+    with pytest.raises(TypeError):
+        lstm_ops.lstm_sequence(_LoopCell(16, 16).to(card), carry, xi, resets)
+    ln = recurrent.LayerNormLSTMCell(16, 16).to(card)
+    with pytest.raises(TypeError):
+        lstm_ops.lstm_sequence(ln, carry, xi, resets)
+    with pytest.raises(ValueError):
+        lstm_ops.lstm_sequence(cell, (carry[0].cpu(), carry[1]), xi, resets)
+
+
+def test_recurrent_update_graph_through_the_kernels_is_the_loops(card):
+    """One graphed recurrent update (2 epochs x 2 minibatches) through the
+    LSTM kernels against the same update through the eager loop, from the
+    same start and permutations: the params within one learning rate (as
+    the graphed-against-eager test above), the metrics at the kernels'
+    gradient tolerance; each replay adds T to both launch counters, the
+    loop's none, and the capture counts nothing."""
+    length, n, hidden = 32, 512, 128
+    cfg = dataclasses.replace(get_preset("ppo_v2_0").ppo, arch="lstm",
+                              minibatch_size=length * n // 2, epochs=2)
+    runs = []
+    for loop in (False, True):
+        model = RecurrentActorCritic(6, 5, hidden, hidden)
+        model.reset_parameters(torch.Generator().manual_seed(0)).to(card)
+        if loop:
+            model.cell.__class__ = _LoopCell
+        opt = ClippedAdam(model.parameters(), cfg.learning_rate, 0.5)
+        before = lstm_ops.fwd_launches, lstm_ops.bwd_launches
+        metrics = rl_ppo.ppo_update_recurrent(
+            model, opt, _recurrent_batch(length, n, hidden, card, 0), cfg,
+            generator=torch.Generator(device=card).manual_seed(1))
+        torch.cuda.synchronize()
+        replays = 0 if loop else cfg.epochs * 2
+        assert (lstm_ops.fwd_launches - before[0],
+                lstm_ops.bwd_launches - before[1]) == (replays * length,
+                                                       replays * length)
+        assert rl_ppo._GRAPHS[opt].launches == (
+            (0, 0) if loop else (length, length))
+        runs.append((model, metrics))
+    (got, got_metrics), (want, want_metrics) = runs
+    for key in want_metrics:
+        torch.testing.assert_close(got_metrics[key], want_metrics[key],
+                                   rtol=2e-5, atol=2e-6, msg=key)
     for a, b in zip(got.parameters(), want.parameters(), strict=True):
         torch.testing.assert_close(a, b, rtol=0, atol=cfg.learning_rate)
 

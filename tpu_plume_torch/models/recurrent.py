@@ -26,7 +26,10 @@ this model, as in JAX).
 ``sequence`` replays a chunk for the BPTT update: the encoder, the
 input-side gate product and the heads do not depend on the carry, so they
 run once over all T x N rows, and only the hidden-side product and the
-gates run per step.  ``replayed_steps`` counts the cell steps replayed by
+gates run per step.  On the card the plain cell in f32 runs those steps as
+one autograd Function with hand-written kernels (``ops/lstm.py``,
+``csrc/lstm.cu``); every other case runs them as the eager loop
+``cell_loop``.  ``replayed_steps`` counts the cell steps replayed by
 ``sequence`` (T a call, and T a replay of a CUDA graph that captured one:
 ``rl.ppo.RecurrentGraph``) and nothing else, as ``ops/plume.py``'s
 ``launches`` counters count launches; the ``bptt`` span
@@ -52,6 +55,7 @@ from tpu_plume_torch.models.actor_critic import (
     _dense,
     _layer_norm,
 )
+from tpu_plume_torch.ops import lstm as lstm_ops
 
 GATES = 4   # (i, f, g, o)
 
@@ -190,15 +194,31 @@ class RecurrentActorCritic(nn.Module):
         """BPTT replay of a chunk: obs_seq f32[T, N, obs_dim], resets
         bool[T, N], True where the carry is zeroed before step t.  Returns
         (carry', logits f32[T, N, A], values f32[T, N]), what a chain of
-        ``step`` calls with those resets returns."""
+        ``step`` calls with those resets returns.  The plain cell in f32 on
+        the card runs its recurrence through ``ops.lstm.lstm_sequence``;
+        every other case (the LayerNorm cell, bf16, the CPU) through
+        ``cell_loop``."""
         global replayed_steps
         replayed_steps += obs_seq.shape[0]
-        hs = []
-        # unbind, not xi[t]: the backward of T selects would fill and add
-        # T gradients of the whole [T, N, 4H] product; unbind's stacks once.
-        for xt, reset in zip(self._input_product(obs_seq).unbind(0),
-                             resets.unbind(0)):
-            carry = tuple(torch.where(reset[:, None], 0.0, x) for x in carry)
-            carry = self.cell(carry, xt, self.dtype)
-            hs.append(carry[1])
-        return (carry,) + self._heads(torch.stack(hs))
+        xi = self._input_product(obs_seq)
+        if (xi.is_cuda and self.dtype == torch.float32
+                and lstm_ops.supports(self.cell)):
+            hs, carry = lstm_ops.lstm_sequence(self.cell, carry, xi, resets)
+        else:
+            hs, carry = cell_loop(self.cell, carry, xi, resets, self.dtype)
+        return (carry,) + self._heads(hs)
+
+
+def cell_loop(cell: nn.Module, carry: Carry, xi: torch.Tensor,
+              resets: torch.Tensor, dtype: torch.dtype):
+    """(hs [T, N, H], carry after the last step) of ``cell`` over the
+    input-side products ``xi`` [T, N, 4H], one eager step at a time, the
+    carry zeroed where ``resets[t]`` before step t."""
+    hs = []
+    # unbind, not xi[t]: the backward of T selects would fill and add
+    # T gradients of the whole [T, N, 4H] product; unbind's stacks once.
+    for xt, reset in zip(xi.unbind(0), resets.unbind(0)):
+        carry = tuple(torch.where(reset[:, None], 0.0, x) for x in carry)
+        carry = cell(carry, xt, dtype)
+        hs.append(carry[1])
+    return torch.stack(hs), carry

@@ -1,11 +1,12 @@
 """Builds the port's CUDA sources into shared libraries at first use.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
-``tpu_plume_torch/_build/lib<name>-<hash>.so``.  ``ppo.cu`` has a plain C
-interface and is loaded with ``ctypes`` (``load``); ``plume.cu`` and
-``gather.cu`` are Python extension modules of METH_FASTCALL functions,
-imported by ``load_module``, because their calls are launch-bound and a
-ctypes call's argument conversion is most of their host cost.  The hash
+``tpu_plume_torch/_build/lib<name>-<hash>.so``.  ``ppo.cu`` and ``lstm.cu``
+have a plain C interface and are loaded with ``ctypes`` (``load``);
+``plume.cu`` and ``gather.cu`` are Python extension modules of
+METH_FASTCALL functions, imported by ``load_module``, because their calls
+are launch-bound and a ctypes call's argument conversion is most of their
+host cost.  The hash
 covers the source, every header of ``csrc/`` (``*.cuh``, which the sources
 include) and the flags (the Python headers' directory among them), so an
 edited source or header is rebuilt and an unchanged one is reused.

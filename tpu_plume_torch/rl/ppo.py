@@ -60,6 +60,7 @@ from tpu_plume_torch.core.support import check_ppo
 from tpu_plume_torch.core.tree import tree_map
 from tpu_plume_torch.models import recurrent
 from tpu_plume_torch.obsv import trace
+from tpu_plume_torch.ops import lstm as lstm_ops
 from tpu_plume_torch.ops import ppo as fused_ops
 
 
@@ -394,7 +395,10 @@ class RecurrentGraph:
     are gathered into the static ``part`` before the replays.  The capture
     is made again when the parameters have moved since.  A replay of
     ``loss`` adds T to ``models.recurrent.replayed_steps``, as a call of
-    ``sequence`` does."""
+    ``sequence`` does, and each replay adds the LSTM kernels' launches
+    that its capture made (T a graph through ``ops.lstm``, else 0) to
+    ``ops.lstm.fwd_launches`` and ``bwd_launches``, which a replay does
+    not reach; the capture itself counts nothing."""
 
     def __init__(self, batch: RecurrentPPOBatch, envs: int, key: tuple):
         def like(x, axis):
@@ -409,6 +413,7 @@ class RecurrentGraph:
                         else like(getattr(batch, f.name), 1))
                for f in dataclasses.fields(batch) if f.name != "h_init"})
         self.steps = batch.obs.shape[0]
+        self.launches = (0, 0)
         self.sums = None
         self.graphs = self.outputs = self.pointers = None
 
@@ -422,6 +427,7 @@ class RecurrentGraph:
 
     def _capture(self, model, optimizer, cfg: PPOConfig) -> None:
         steps = recurrent.replayed_steps
+        launches = lstm_ops.fwd_launches, lstm_ops.bwd_launches
         # warm-up on a side stream, as torch.cuda.graphs asks; its
         # gradients are dropped
         side = torch.cuda.Stream()
@@ -437,14 +443,19 @@ class RecurrentGraph:
         optimizer.zero_grad(set_to_none=True)
         pool = torch.cuda.graph_pool_handle()
         graphs = (torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph())
+        fwd = lstm_ops.fwd_launches
         with torch.cuda.graph(graphs[0], pool=pool):
             loss, metrics = ppo_loss_recurrent(model, self.part, cfg)
             for k, v in metrics.items():
                 self.sums[k].add_(v)
+        bwd = lstm_ops.bwd_launches
         with torch.cuda.graph(graphs[1], pool=pool):
             optimizer.zero_grad(set_to_none=True)
             loss.backward()
+        self.launches = (lstm_ops.fwd_launches - fwd,
+                         lstm_ops.bwd_launches - bwd)
         recurrent.replayed_steps = steps
+        lstm_ops.fwd_launches, lstm_ops.bwd_launches = launches
         # the captured outputs stay referenced, so that no later capture in
         # the pool is handed their memory
         self.graphs, self.outputs = graphs, (loss, metrics)
@@ -466,8 +477,10 @@ class RecurrentGraph:
             with trace.leaf("update.replay"):
                 loss_graph.replay()
                 recurrent.replayed_steps += self.steps
+                lstm_ops.fwd_launches += self.launches[0]
             with trace.leaf("update.backward"):
                 backward_graph.replay()
+                lstm_ops.bwd_launches += self.launches[1]
         with trace.leaf("update.optimizer"):
             optimizer.step()
 
